@@ -1,0 +1,27 @@
+"""PyTorch/CUDA port of the fleet scheduler (the ``repro`` JAX package's
+tick program, held against it on the same inputs).
+
+Layout mirrors ``repro``: ``core`` (task profiles, policy flags, the
+array-encoded decision functions), ``kernels`` (the masked arg-extremum
+selection kernel: a hand-written ``sm_90a`` CUDA kernel and its plain
+PyTorch version), ``sim`` (the fleet tick program and its drivers),
+``scenarios`` (summaries) and ``convert`` (numpy ↔ port NamedTuples).
+
+The package imports ``torch`` and ``numpy`` only.  Entry points run on
+the card by default (``device="cuda"``) and raise when no card is
+present; pass ``device="cpu"`` to run the plain-PyTorch path on the host.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on; a CUDA request without a card
+    raises instead of quietly running on the host."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: CUDA device requested but torch.cuda.is_available()"
+            " is False; pass device='cpu' to run the plain PyTorch path")
+    return dev

@@ -1,0 +1,50 @@
+"""Shared helpers of the PyTorch-port parity tests (``test_torch_*.py``):
+run the same numpy signals through the JAX fleet and the CPU port and
+compare final states leaf by leaf."""
+import jax
+import numpy as np
+
+from repro.sim import fleet_jax as FJ
+from repro_torch import convert
+from repro_torch.sim import fleet as F
+
+# integer and boolean leaves must be equal; float leaves are held to this
+# tolerance, though the port keeps the reference's operation order and
+# exact equality is the expected outcome
+RTOL, ATOL = 1e-6, 1e-4
+
+
+def leaves(tree, prefix=""):
+    if isinstance(tree, tuple):
+        for name, val in zip(tree._fields, tree):
+            yield from leaves(val, f"{prefix}{name}.")
+    else:
+        yield prefix[:-1], np.asarray(tree)
+
+
+def assert_states_match(got, want) -> None:
+    """``got``: the port's final state (tensors); ``want``: the JAX one."""
+    got = convert.to_numpy(got)
+    want = jax.tree.map(np.asarray, want)
+    names = []
+    for (name, g), (_, w) in zip(leaves(got), leaves(want)):
+        names.append(name)
+        assert g.dtype == w.dtype, (name, g.dtype, w.dtype)
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        if w.dtype == np.float32:
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+    assert len(names) == len(list(leaves(want)))
+
+
+def run_pair(models, policy, signals, *, cloud_slots=FJ.CLOUD_SLOTS):
+    """(port final state on the CPU, JAX final state) on the same
+    signals, handed to the port through numpy."""
+    want = FJ.run_fleet(models, policy, signals, cloud_slots=cloud_slots)
+    sig = convert.from_numpy(F.FleetSignals,
+                             jax.tree.map(np.asarray, signals), "cpu")
+    got = F.run_fleet(models, policy, sig, cloud_slots=cloud_slots,
+                      device="cpu")
+    return got, want

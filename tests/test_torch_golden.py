@@ -1,0 +1,84 @@
+"""The port's golden summaries: the JAX ``fleet_summary`` of every fleet
+run ``chip_smoke.py`` drives on the card (``tests/golden/
+torch_port_summaries.json``, written by ``regen_torch_port_summaries.py``).
+
+The small 2-edge entries are re-run here through JAX and through the CPU
+port: both must reproduce the file exactly, and the port's final state
+must equal the JAX one — these are the slice's main workloads (DEMS-A,
+GEMS on WL1 at α = 0.9, DEMS-COOP), with a θ(t) that moves inside 30 s.
+"""
+import importlib.util
+import json
+import pathlib
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_parity import assert_states_match  # noqa: E402
+from repro.scenarios.runner import fleet_summary as jax_fleet_summary  # noqa: E402,E501
+from repro.sim import fleet_jax as FJ  # noqa: E402
+from repro.sim import network as JN  # noqa: E402
+from repro_torch.core import task as TT  # noqa: E402
+from repro_torch.scenarios.runner import fleet_summary  # noqa: E402
+from repro_torch.sim import fleet as F  # noqa: E402
+from repro_torch.sim import network as TN  # noqa: E402
+
+GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
+GOLDEN = json.loads((GOLDEN_DIR / "torch_port_summaries.json").read_text())
+SMALL = [r for r in GOLDEN["runs"] if r["phase"] == 3]
+
+
+def _regen_module():
+    spec = importlib.util.spec_from_file_location(
+        "regen_torch_port_summaries",
+        GOLDEN_DIR / "regen_torch_port_summaries.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _port_models(spec: str):
+    if spec in ("PASSIVE", "ACTIVE"):
+        names = TT.PASSIVE if spec == "PASSIVE" else TT.ACTIVE
+        return [TT.TABLE1[n] for n in names]
+    wl, alpha = spec.split("@")
+    return TT.table2(wl, float(alpha))
+
+
+def _kwargs(run, trapezium):
+    th = run["theta"]
+    return dict(
+        n_edges=run["n_edges"], drones_per_edge=GOLDEN["drones_per_edge"],
+        duration_ms=run["duration_ms"], dt=GOLDEN["dt"],
+        edge_frac=GOLDEN["edge_frac"], cloud_frac=GOLDEN["cloud_frac"],
+        cloud_slots=GOLDEN["cloud_slots"], seed=GOLDEN["seed"],
+        theta_fn=None if th is None else trapezium(
+            ramp_up=tuple(th["ramp_up"]), ramp_down=tuple(th["ramp_down"])))
+
+
+def test_golden_file_matches_its_generator():
+    """The file holds exactly the runs its generator defines: the three
+    2-edge workloads and the 28-edge paper-scale fleet."""
+    regen = _regen_module()
+    assert [{k: v for k, v in r.items() if k != "summary"}
+            for r in GOLDEN["runs"]] == regen.RUNS
+    assert {k: GOLDEN[k] for k in regen.COMMON} == regen.COMMON
+    assert {r["n_edges"] for r in GOLDEN["runs"] if r["phase"] == 4} == {28}
+    assert len(SMALL) == 3
+
+
+@pytest.mark.parametrize("run", SMALL, ids=[r["name"] for r in SMALL])
+def test_small_run_jax_and_port_reproduce_golden(run):
+    regen = _regen_module()
+    want = FJ.simulate_fleet(regen.models_of(run["models"]), run["policy"],
+                             **_kwargs(run, JN.trapezium))
+    got = F.simulate_fleet(_port_models(run["models"]), run["policy"],
+                           device="cpu", **_kwargs(run, TN.trapezium))
+    assert jax_fleet_summary(want) == run["summary"]
+    assert fleet_summary(got) == run["summary"]
+    assert_states_match(got, want)
+    # every workload reaches the selection kernel through real decisions
+    assert run["summary"]["stolen"] > 0
+    if run["policy"].endswith("-COOP"):
+        assert run["summary"]["peer_offloaded"] > 0
