@@ -3,46 +3,67 @@
 
     python3 chip_smoke.py
 
-Drives the port (``src/repro_torch``) through its user entry points —
-``simulate_fleet`` / ``run_fleet`` / ``FleetProgram`` — at the paper's
-§8.6 fleet scale (28 edges, 84 drones) and at a 1024-edge metropolis
-fleet, with the hand-written ``sm_90a`` masked arg-extremum kernel built
-from ``src/repro_torch/kernels/csrc`` at first use.  Phases, each printed
-on its own line and each failing the script (non-zero exit) on error:
+Drives the port (``src/repro_torch``) through its user entry points on
+its two paths: the fleet scheduler — ``simulate_fleet`` / ``run_fleet``
+/ ``FleetProgram`` at the paper's §8.6 fleet scale (28 edges, 84 drones)
+and at a 1024-edge metropolis fleet — and live DNN serving — the
+``ServeEngine`` over the three launcher roles at their published sizes,
+and greedy decoding.  Its three hand-written ``sm_90a`` kernels
+(masked arg-extremum, flash attention, flash decode) are built from
+``src/repro_torch/kernels/csrc`` at first use.  Phases, each printed on
+its own line and each failing the script (non-zero exit) on error:
 
-1. device: card name, ``nvidia-smi`` name and power limit, kernel build;
-2. kernel vs plain PyTorch version on the card, exact on idx and value;
-3. small parity: the 2-edge golden runs on the card and on the host,
-   every final-state leaf equal, summaries equal to the golden JAX ones;
-4. paper-scale fleet (the main path; kernel launch counts are read over
-   this phase): DEMS-A, GEMS and DEMS-COOP, 28 edges × 60 s each (DEMS-A
-   under the §8.5 θ trapezium compressed 5× into 60 s), each summary
-   equal to its golden JAX entry;
-5. metropolis fleet: DEMS-COOP on 1024 edges, two runs bitwise equal;
-6. sync check: ticks under ``torch.cuda.set_sync_debug_mode("error")``;
-7. profile: CUDA launches per tick, the kernel's time per launch, and the
-   nearest plain PyTorch composition's time.
+1. device: card name, ``nvidia-smi`` name and power limit, TF32 flags,
+   the three kernels built at once;
+2. kernels vs their plain PyTorch versions on the card: masked_argext
+   exact; flash attention and flash decode on the kernel tests' sweep
+   and the serve/decode shapes (f32 1e-5, bf16 2e-2);
+3. small parity: the 2-edge golden runs (DEMS-A, GEMS, DEMS-COOP,
+   SOTA2) on the card and on the host, every final-state leaf equal,
+   summaries equal to the golden JAX ones;
+4. paper-scale fleet (masked_argext's main path; its launches are read
+   over this phase): DEMS-A, GEMS and DEMS-COOP, 28 edges × 60 s each,
+   each summary equal to its golden JAX entry;
+5. model golden: granite-3-2b at full width, 2 layers, f32 — forward,
+   prefill and teacher-forced decode against the JAX reference's numbers;
+6. serve (flash_attention's main path): HV starcoder2-3b, DEV
+   granite-3-2b and BP xlstm-1.3b, published widths and depths, bf16,
+   ``attn_impl="kernel"``, p95-calibrated, under GEMS for 15 s;
+7. decode (decode_attention's main path): granite-3-2b, bf16, batch 8,
+   a 512-token prompt, 64 greedy steps, against ``attn_impl="ref"``;
+8. attention kernel times at the serve and decode shapes, beside the
+   plain versions', ``scaled_dot_product_attention``'s and the bounds;
+9. metropolis fleet: DEMS-COOP on 1024 edges, two runs bitwise equal
+   (its horizon shrinks to fit the time budget);
+10. sync check: ticks under ``torch.cuda.set_sync_debug_mode("error")``;
+11. profile: CUDA launches per tick, the arg-extremum kernel's time per
+    launch, and the nearest plain PyTorch composition's time.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``
-(JAX summaries written by ``tests/golden/regen_torch_port_summaries.py``);
-the script imports nothing of the JAX package.  Its last two lines are
-the ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.
+and ``tests/golden/torch_port_model.json`` (JAX results written by
+``tests/golden/regen_torch_port_{summaries,model}.py``); the script
+imports nothing of the JAX package.  Its last two lines are the
+``kernels`` JSON record and ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_summaries.json")
+GOLDEN_MODEL = os.path.join(ROOT, "tests", "golden", "torch_port_model.json")
 METRO_EDGES = 1024
 METRO_MS = 60_000.0
-# phase 5's horizon shrinks (never below MIN_METRO_MS) when the phases
+# phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
-# phases 6-7, would pass this budget (half the 1200 s the script may take)
-BUDGET_S = 540.0
+# phases 10-11, would pass this budget (about half the 1200 s the script
+# may take)
+BUDGET_S = 560.0
 RESERVE_S = 60.0
 MIN_METRO_MS = 10_000.0
 SYNC_TICKS = 50
@@ -51,6 +72,26 @@ SYNC_TICKS = 50
 PROFILE_TICKS = 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores, same sheet
+BF16_OPS_PER_S = 989e12          # bf16 dense tensor cores, same sheet
+# the kernels' tolerances against their plain versions, as
+# tests/test_kernels.py states them: |got - want| <= atol + rtol * |want|
+ATT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# model golden (f32, TF32 off): the card and the host's XLA sum in other
+# orders; logits are O(1), so 1e-3 is ~100x the f32 rounding seen over
+# two layers, and a row checksum of 49,155 logits gets 5e-2
+GOLD_TOL = 1e-3
+GOLD_SUM_TOL = 5e-2
+SERVE_MS = 15_000.0
+DECODE = dict(batch=8, prompt=512, max_seq=1024, steps=64, seed=11)
+# decode under "kernel" vs "ref" in bf16: the kernel keeps probabilities
+# in f32 where the plain path rounds them to bf16, and 40 layers of bf16
+# residual adds carry either rounding on, so the yardstick is the plain
+# bf16 path's own distance rf from an f32 run of the same weights (RMS of
+# the logit difference over RMS of the f32 logits).  Two paths each rf
+# from f32 differ by about sqrt(2)·rf: kernel vs plain is held to 2·rf,
+# and kernel vs f32 to 1.5·rf (the kernel is no less accurate).
+DECODE_KR_TOL = 2.0
+DECODE_KF_TOL = 1.5
 
 
 def fail(msg: str) -> None:
@@ -122,6 +163,395 @@ def graph_ms(fn, iters: int = 200, replays: int = 10) -> float:
     return _events_ms(run, iters * replays)
 
 
+def allclose_err(got, want, tol: float) -> tuple[float, float]:
+    """(max |got - want|, the largest excess over tol + tol·|want|) in
+    f32; the pair passes when the excess is ≤ 0."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return float(diff.max()), float((diff - tol - tol * w.abs()).max())
+
+
+def profile_call(fn) -> tuple[int, float, float]:
+    """One call of ``fn`` under ``torch.profiler``: (device kernels, device
+    busy ms, wall ms).  The profiler slows the host, so the busy share it
+    gives is a lower bound on the share without it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as pr:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in pr.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(evs), sum(e.time_range.elapsed_us() for e in evs) / 1e3,
+            wall * 1e3)
+
+
+def check_attention_kernels(dev) -> tuple[dict, dict]:
+    """Phase 2's attention cases, each kernel against its plain version
+    on the same card tensors: the ``tests/test_kernels.py`` sweep (MHA,
+    GQA, MQA, window 0/64, non-causal; decode lengths 1..W) and the
+    path's shapes (granite H32/KV8/hd64 and starcoder2 H24/KV2/hd128 at
+    S 1-512 through (B,S,H,hd) views; decode on strided (B,W,KV,hd)
+    cache views).  Returns ({kernel: {dtype: max |err|}}, case counts)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(20241231)
+    errs = {"flash_attention": {}, "decode_attention": {}}
+    cases = dict.fromkeys(errs, 0)
+
+    def record(kernel, dname, got, want, what):
+        torch.cuda.synchronize()
+        err, excess = allclose_err(got, want, ATT_TOL[dname])
+        if not excess <= 0.0:
+            fail(f"{kernel} {what} {dname}: kernel differs from the plain "
+                 f"version (max |err| {err}, tolerance {ATT_TOL[dname]})")
+        errs[kernel][dname] = max(errs[kernel].get(dname, 0.0), err)
+        cases[kernel] += 1
+
+    for dname, td in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=td)
+
+        for (b, h, kv, s, hd) in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
+                                  (1, 4, 1, 128, 128)):
+            q, k, v = rnd(b, h, s, hd), rnd(b, kv, s, hd), rnd(b, kv, s, hd)
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                record("flash_attention", dname,
+                       ops.flash_attention(q, k, v, causal=causal,
+                                           window=window),
+                       ref.ref_attention(q, k, v, causal=causal,
+                                         window=window),
+                       f"{(b, h, kv, s, hd)} causal={causal} w={window}")
+        for (h, kv, hd) in ((32, 8, 64), (24, 2, 128)):
+            for (b, s) in ((1, 1), (1, 17), (1, 64), (2, 128), (1, 512),
+                           (8, 512)):
+                if hd == 128 and b == 8:
+                    continue
+                q = rnd(b, s, h, hd).transpose(1, 2)
+                k = rnd(b, s, kv, hd).transpose(1, 2)
+                v = rnd(b, s, kv, hd).transpose(1, 2)
+                record("flash_attention", dname,
+                       ops.flash_attention(q, k, v, causal=True),
+                       ref.ref_attention(q, k, v, causal=True),
+                       f"path {(b, h, kv, s, hd)}")
+
+        for (b, h, kv, w, hd) in ((2, 4, 4, 512, 64), (3, 8, 2, 1024, 64),
+                                  (1, 4, 1, 256, 128), (8, 32, 8, 1024, 64),
+                                  (1, 24, 2, 128, 128)):
+            ck, cv, q = rnd(b, w, kv, hd), rnd(b, w, kv, hd), rnd(b, h, hd)
+            lens = [1, 2, 31, 32, 33, w // 2, w - 1, w]
+            if w == 1024:
+                lens.append(576)
+            for n in lens:
+                lengths = torch.randint(1, n + 1, (b,), generator=gen,
+                                        device=dev, dtype=torch.int32)
+                lengths[0] = n
+                record("decode_attention", dname,
+                       ops.decode_attention(q, ck.transpose(1, 2),
+                                            cv.transpose(1, 2), lengths),
+                       ref.ref_decode_attention(q, ck.transpose(1, 2),
+                                                cv.transpose(1, 2), lengths),
+                       f"{(b, h, kv, w, hd)} lengths ≤ {n}")
+    return errs, cases
+
+
+def phase_golden(dev) -> None:
+    """Phase 5: granite-3-2b at full width, 2 layers, f32, weights from
+    the golden file's numpy seed, against the JAX reference's numbers."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.models.model import Model
+    gold = json.load(open(GOLDEN_MODEL))
+    cfg = dataclasses.replace(
+        ARCHS[gold["arch"]], n_layers=gold["n_layers"], dtype=gold["dtype"],
+        param_dtype=gold["dtype"], attn_impl="kernel")
+    t0 = time.perf_counter()
+    params = convert.params_from_numpy(
+        cfg, convert.random_numpy_params(cfg, gold["weight_seed"]), dev)
+    model = Model(cfg, dev)
+    tokens = torch.tensor(gold["tokens"], dtype=torch.long, device=dev)
+    before = (flash_attention.launch_count, decode_attention.launch_count)
+    worst = dict(value=0.0, checksum=0.0)
+
+    def check_top(row, ids, values, what):
+        row = row.double()
+        got = row[ids]
+        err = max(float((got - torch.tensor(values, dtype=torch.float64))
+                        .abs().max()),
+                  abs(float(row.topk(len(ids)).values[-1]) - values[-1]))
+        worst["value"] = max(worst["value"], err)
+        if err > GOLD_TOL:
+            fail(f"golden {what}: top-{len(ids)} logits differ from the JAX "
+                 f"reference by {err} (tolerance {GOLD_TOL})")
+
+    logits = model.forward(params, {"tokens": tokens})[0].cpu()
+    for e in gold["forward"]:
+        row = logits[e["b"], e["pos"]]
+        check_top(row, e["ids"], e["values"], f"forward b{e['b']} "
+                  f"pos {e['pos']}")
+        err = abs(float(row[:cfg.vocab].double().sum()) - e["checksum"])
+        worst["checksum"] = max(worst["checksum"], err)
+        if err > GOLD_SUM_TOL:
+            fail(f"golden forward b{e['b']} pos {e['pos']}: checksum off "
+                 f"by {err} (tolerance {GOLD_SUM_TOL})")
+    prompt = gold["prompt"]
+    last, cache = model.prefill(params, {"tokens": tokens[:, :prompt]},
+                                gold["max_seq"])
+    last = last[:, 0].cpu()
+    for b, e in enumerate(gold["prefill"]):
+        check_top(last[b], e["ids"], e["values"], f"prefill b{b}")
+    for t, step in enumerate(gold["decode"]):
+        fed = torch.tensor(step["fed"], dtype=torch.long, device=dev)
+        out, cache = model.decode_step(params, cache, fed[:, None],
+                                       prompt + t)
+        out = out[:, 0].cpu().double()
+        for b in range(out.shape[0]):
+            want_id, v1 = step["top1"][b], step["top1_value"][b]
+            err = max(abs(float(out[b, want_id]) - v1),
+                      abs(float(out[b].max()) - v1))
+            worst["value"] = max(worst["value"], err)
+            if err > GOLD_TOL:
+                fail(f"golden decode step {t} b{b}: top-1 logit off by "
+                     f"{err} (tolerance {GOLD_TOL})")
+            if v1 - step["top2_value"][b] > 2 * GOLD_TOL \
+                    and int(out[b].argmax()) != want_id:
+                fail(f"golden decode step {t} b{b}: greedy token "
+                     f"{int(out[b].argmax())} != {want_id}")
+    launches = (flash_attention.launch_count - before[0],
+                decode_attention.launch_count - before[1])
+    say(f"phase5 golden {gold['arch']} full width × {gold['n_layers']} "
+        f"layers f32: forward (B {gold['batch']}, S {gold['seq']}), prefill "
+        f"{prompt} + {len(gold['decode'])} teacher-forced decode steps == "
+        f"JAX golden; max |Δ top logit| {worst['value']:.3e} (tol "
+        f"{GOLD_TOL}), max |Δ checksum| {worst['checksum']:.3e} (tol "
+        f"{GOLD_SUM_TOL}); kernel launches flash {launches[0]}, decode "
+        f"{launches[1]}; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_serve(dev) -> int:
+    """Phase 6, the serve path: the launcher's three roles at published
+    size under GEMS; returns flash_attention's launches in the stream."""
+    import torch
+    from repro_torch.core.schedulers import make_policy
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.engine import ServeEngine, run_stream
+    t0 = time.perf_counter()
+    models, fps = launch.build_roles(device=dev, full_size=True,
+                                     attn_impl="kernel")
+    attn_layers = {}
+    for name in models:
+        cfg = launch.role_config(launch.ROLES[name][0], full_size=True)
+        attn_layers[name] = 0 if cfg.family == "ssm" else cfg.n_layers
+    say(f"phase6 roles built and calibrated in {time.perf_counter() - t0:.1f}"
+        f" s; p95 ms {json.dumps({n: m.profile.t_edge for n, m in models.items()})}; "
+        f"FPS {json.dumps(fps)}; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    calls = dict.fromkeys(models, 0)
+    lock = threading.Lock()
+
+    def counted(name, run):
+        def call():
+            out = run()
+            with lock:
+                calls[name] += 1
+            return out
+        return call
+
+    models = {n: dataclasses.replace(m, run=counted(n, m.run))
+              for n, m in models.items()}
+    flash_attention.reset_count()
+    engine = ServeEngine(make_policy("GEMS"), models, cloud_concurrency=4,
+                         seed=0)
+    res = run_stream(engine, fps, SERVE_MS)
+    launches = flash_attention.launch_count
+    expected = sum(calls[n] * attn_layers[n] for n in models)
+    if launches <= 0 or launches != expected:
+        fail(f"serve: {launches} flash_attention launches, want "
+             f"{expected} (forwards {calls})")
+    if not all(calls[n] for n in models if attn_layers[n]):
+        fail(f"serve: an attention role never ran: forwards {calls}")
+    for n, st in res.per_model.items():
+        done = (st.edge_success + st.edge_miss + st.cloud_success
+                + st.cloud_miss + st.dropped)
+        if done > st.generated:
+            fail(f"serve {n}: {done} outcomes > {st.generated} generated")
+    say(f"phase6 serve GEMS {SERVE_MS / 1e3:.0f} s: generated "
+        f"{res.generated}, completed {res.completed}, completion rate "
+        f"{res.completion_rate:.4f}, QoS utility {res.qos_utility}, QoE "
+        f"utility {res.qoe_utility}, stolen {res.stolen}, migrated "
+        f"{res.migrated}; forwards {json.dumps(calls)}; flash_attention "
+        f"launches {launches} (= Σ forwards × attention layers)")
+    say(f"phase6 {res.summary()}")
+    for name, m in models.items():
+        n_k, busy, wall = profile_call(m.run)
+        say(f"phase6 profile of one {name} forward alone: {n_k} device "
+            f"kernels, device busy {busy:.3f} ms of {wall:.3f} ms wall")
+    return launches
+
+
+def phase_decode(dev) -> int:
+    """Phase 7, the decode path: greedy decoding of granite-3-2b in bf16
+    through the decode kernel, held against the plain path on the same
+    tokens; returns decode_attention's launches."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import decode_attention
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(ARCHS["granite-3-2b"], attn_impl="kernel")
+    b, p, steps = DECODE["batch"], DECODE["prompt"], DECODE["steps"]
+    mk = Model(cfg, dev)
+    mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
+    gen = torch.Generator(device=dev).manual_seed(DECODE["seed"])
+    params = mk.init(gen)
+    prompt = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache_k = mk.prefill(params, {"tokens": prompt}, DECODE["max_seq"])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache_r = {k: v.clone() for k, v in cache_k.items()}
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    fed, outs = [], []
+    decode_attention.reset_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        fed.append(tok)
+        logits, _ = mk.decode_step(params, cache_k, tok, p + t)
+        outs.append(logits[:, -1])
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = decode_attention.launch_count
+    n_k, busy, step_wall = profile_call(
+        lambda: mk.decode_step(params, cache_k, tok, p + steps))
+    if launches != cfg.n_layers * steps:
+        fail(f"decode: {launches} decode_attention launches, want "
+             f"{cfg.n_layers} × {steps}")
+    # the same tokens through the plain bf16 path and through an f32 copy
+    # of the model (plain attention): the yardstick of bf16 rounding
+    mf = Model(dataclasses.replace(cfg, attn_impl="ref", dtype="float32",
+                                   param_dtype="float32"), dev)
+    pf = {k: ({kk: vv.float() for kk, vv in v.items()}
+              if isinstance(v, dict) else v.float())
+          for k, v in params.items()}
+    _, cache_f = mf.prefill(pf, {"tokens": prompt}, DECODE["max_seq"])
+    sq = dict(kr=0.0, kf=0.0, rf=0.0, f=0.0)
+    mx = 0.0
+    for t in range(steps):
+        lr, _ = mr.decode_step(params, cache_r, fed[t], p + t)
+        lf, _ = mf.decode_step(pf, cache_f, fed[t], p + t)
+        k_, r_, f_ = (x[:, -1, :cfg.vocab].float()
+                      for x in (outs[t][:, None], lr, lf))
+        sq["kr"] += float((k_ - r_).square().sum())
+        sq["kf"] += float((k_ - f_).square().sum())
+        sq["rf"] += float((r_ - f_).square().sum())
+        sq["f"] += float(f_.square().sum())
+        mx = max(mx, float((k_ - r_).abs().max()))
+    rms = {k: (v / sq["f"]) ** 0.5 for k, v in sq.items() if k != "f"}
+    if not (rms["kr"] <= DECODE_KR_TOL * rms["rf"]
+            and rms["kf"] <= DECODE_KF_TOL * rms["rf"]):
+        fail(f"decode: relative RMS differences {json.dumps(rms)} (kernel vs"
+             f" plain kr, kernel vs f32 kf, plain vs f32 rf): want kr ≤ "
+             f"{DECODE_KR_TOL}·rf and kf ≤ {DECODE_KF_TOL}·rf")
+    say(f"phase7 decode granite-3-2b bf16 B {b}, prompt {p} (prefill "
+        f"{prefill_s:.3f} s), {steps} greedy steps in {wall:.3f} s = "
+        f"{b * steps / wall:.1f} tokens/s ({wall / steps * 1e3:.2f} ms a "
+        f"step); decode_attention launches {launches} (= {cfg.n_layers} × "
+        f"{steps}); profile of one more step: {n_k} device kernels, busy "
+        f"{busy:.3f} ms of {step_wall:.3f} ms wall; teacher-forced on the same tokens, RMS of the logit "
+        f"difference over RMS of the f32 logits: kernel vs attn_impl='ref' "
+        f"{rms['kr']:.4e} (tol {DECODE_KR_TOL}·rf), kernel vs f32 "
+        f"{rms['kf']:.4e} (tol {DECODE_KF_TOL}·rf), 'ref' vs f32 "
+        f"{rms['rf']:.4e}; max |kernel − ref| {mx:.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    return launches
+
+
+def phase_times(dev) -> dict:
+    """Phase 8: device ms per call (CUDA-graph replay) of each attention
+    kernel at the serve and decode shapes, beside its plain version's,
+    ``scaled_dot_product_attention``'s (timed only; the port never calls
+    it) and the bound; plus each kernel's mean time in a profiler trace."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    out = {}
+
+    def bound(nbytes, flops):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / BF16_OPS_PER_S * 1e3
+        return max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations"
+
+    def prof_us(fn, name, n=20):
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in pr.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.name]
+        return (sum(e.time_range.elapsed_us() for e in evs) / len(evs)
+                if evs else None)
+
+    for key, (b, h, kv, s, hd) in (("flash serve granite", (1, 32, 8, 64, 64)),
+                                   ("flash serve starcoder2",
+                                    (1, 24, 2, 64, 128)),
+                                   ("flash B8 S512", (8, 32, 8, 512, 64))):
+        q = torch.randn(b, s, h, hd, device=dev, dtype=bf).transpose(1, 2)
+        k = torch.randn(b, s, kv, hd, device=dev, dtype=bf).transpose(1, 2)
+        v = torch.randn(b, s, kv, hd, device=dev, dtype=bf).transpose(1, 2)
+        iters = 20 if s > 128 else 200
+        row = {name: graph_ms(fn, iters=iters) for name, fn in (
+            ("kernel", lambda: FA.cuda_flash_attention(q, k, v)),
+            ("plain", lambda: ref.ref_attention(q, k, v)),
+            ("sdpa", lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)))}
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * hd * b * h * s * (s + 1) // 2     # causal pairs only
+        row["bound"], row["bound_by"] = bound(nbytes, flops)
+        row["profile_us"] = prof_us(lambda: FA.cuda_flash_attention(q, k, v),
+                                    "flash_kernel")
+        out[key] = row
+
+    b, w, kv, h, hd, n = 8, 1024, 8, 32, 64, 576
+    ck = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
+    cv = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
+    q = torch.randn(b, h, hd, device=dev, dtype=bf)
+    lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    row = {name: graph_ms(fn) for name, fn in (
+        ("kernel", lambda: DA.cuda_decode_attention(q, kt, vt, lengths)),
+        ("plain", lambda: ref.ref_decode_attention(q, kt, vt, lengths)),
+        ("sdpa", lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt[:, :, :n], vt[:, :, :n], enable_gqa=True)))}
+    nbytes = 2 * (2 * b * kv * n * hd + 2 * q.numel()) + 4 * b
+    row["bound"], row["bound_by"] = bound(nbytes, 4 * b * h * n * hd)
+    row["profile_us"] = prof_us(
+        lambda: DA.cuda_decode_attention(q, kt, vt, lengths), "decode_kernel")
+    out["decode B8 W1024 L576"] = row
+    for key, row in out.items():
+        say(f"phase8 {key} (bf16): device ms per call (graph replay) kernel "
+            f"{row['kernel']:.6f}, plain {row['plain']:.6f}, "
+            f"scaled_dot_product_attention {row['sdpa']:.6f}; bound "
+            f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
+            f"launch {row['profile_us']}")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -132,14 +562,15 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     if not (os.path.isdir(os.path.join(SRC, "repro_torch"))
-            and os.path.isfile(GOLDEN)):
+            and os.path.isfile(GOLDEN) and os.path.isfile(GOLDEN_MODEL)):
         fail("run from a checkout of the repository: src/repro_torch and "
-             "the golden summaries are missing")
+             "the golden files are missing")
     sys.path.insert(0, SRC)
     import numpy as np
 
     from repro_torch.core import task
-    from repro_torch.kernels import _build, ref, sched_ops
+    from repro_torch.kernels import _build, decode_attention, ref, sched_ops
+    from repro_torch.kernels import flash_attention
     from repro_torch.scenarios.runner import fleet_summary
     from repro_torch.sim import fleet as F
     from repro_torch.sim import network
@@ -182,11 +613,24 @@ def main() -> int:
     say(f"phase1 device: {name}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; nvidia-smi name, power limit:")
     print(smi_line, flush=True)     # as nvidia-smi gives it, on its own
+    # full f32 in matrix products and convolutions: the f32 comparisons
+    # below (kernels, model golden) assume it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"phase1 TF32: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    kernel_names = [sched_ops.KERNEL, flash_attention.KERNEL,
+                    decode_attention.KERNEL]
     t0 = time.perf_counter()
-    builds = _build.build_all([sched_ops.KERNEL])
-    say(f"phase1 build: {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {builds[sched_ops.KERNEL]['seconds']:.3f} s); ptxas: "
-        + builds[sched_ops.KERNEL]["ptxas"].replace("\n", " | "))
+    builds = _build.build_all(kernel_names)     # one nvcc each, in parallel
+    say(f"phase1 build: {time.perf_counter() - t0:.3f} s for "
+        f"{len(kernel_names)} sources built at once")
+    for kname in kernel_names:
+        regs = [ln.split("info    : ")[-1] for ln in
+                builds[kname]["ptxas"].splitlines() if "Used" in ln]
+        say(f"phase1 build {kname}: nvcc {builds[kname]['seconds']:.3f} s; "
+            f"ptxas per instantiation: {' | '.join(regs)}")
 
     # ---- phase 2: kernel vs plain on the card ---------------------------
     rng = np.random.default_rng(20241230)
@@ -258,6 +702,12 @@ def main() -> int:
         mm = torch.rand(b, nn, device=dev) < 0.5
         shape_ms[f"{b}x{nn}"] = graph_ms(
             lambda: sched_ops.cuda_masked_argext(ss, mm, is_max=mx))
+    att_err, att_cases = check_attention_kernels(dev)
+    say(f"phase2 kernels: flash_attention {att_cases['flash_attention']} "
+        f"cases, decode_attention {att_cases['decode_attention']} cases "
+        f"within tolerance of the plain versions (|Δ| ≤ tol + tol·|want|, tol "
+        f"f32 {ATT_TOL['float32']}, bf16 {ATT_TOL['bfloat16']}); max |err| "
+        f"{json.dumps(att_err)}")
     say(f"phase2 timing (28x64), device ms per call (graph replay): "
         f"{json.dumps(dev_ms)}; issued eagerly, ms per call: "
         f"{json.dumps(call_ms)}; bound {bound_ms:.7f} ms ({bound_by}: bytes "
@@ -308,7 +758,19 @@ def main() -> int:
         fail("phase 4 ran no masked_argext launch")
     say(f"phase4 launches: masked_argext {launches}")
 
-    # ---- phase 5: metropolis fleet -------------------------------------
+    # ---- phases 5-8: the serve path and its kernels ----------------------
+    phase_golden(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    serve_launches = phase_serve(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    decode_launches = phase_decode(dev)
+    torch.cuda.empty_cache()
+    times = phase_times(dev)
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: metropolis fleet -------------------------------------
     coop = next(r for r in golden["runs"] if r["name"] == "paper-dems-coop")
     # launch-bound: a 1024-edge tick costs about what a 28-edge one does;
     # fit two runs, whole seconds of horizon, into what the budget leaves
@@ -335,14 +797,14 @@ def main() -> int:
         fail(f"metropolis run did not steal and peer-offload: {summ}")
     ticks = int(metro_ms / golden["dt"])
     wall = min(w for _, w, _ in metro)
-    say(f"phase5 metropolis DEMS-COOP {METRO_EDGES} edges × "
+    say(f"phase9 metropolis DEMS-COOP {METRO_EDGES} edges × "
         f"{metro_ms / 1e3:.0f} s: two runs bitwise equal; "
         f"{json.dumps(summ)}; {ticks / wall:.2f} ticks/s, "
         f"{ticks * METRO_EDGES / wall:.1f} edge-ticks/s (best of 2: "
         f"{metro[0][1]:.2f} s, {metro[1][1]:.2f} s); max memory allocated "
         f"{metro[0][2]} B")
 
-    # ---- phase 6: the tick never waits on the host ----------------------
+    # ---- phase 10: the tick never waits on the host ---------------------
     models = models_of(coop["models"])
     prof = F.Profiles.build(models, dev)
     pol = F.FleetPolicy.from_name(coop["policy"])
@@ -360,10 +822,10 @@ def main() -> int:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    say(f"phase6 sync: {SYNC_TICKS} DEMS-COOP ticks at {coop['n_edges']} "
+    say(f"phase10 sync: {SYNC_TICKS} DEMS-COOP ticks at {coop['n_edges']} "
         f"edges ran under set_sync_debug_mode('error')")
 
-    # ---- phase 7: profile ----------------------------------------------
+    # ---- phase 11: profile ---------------------------------------------
     from torch.profiler import ProfilerActivity, profile
     lo = 10 + SYNC_TICKS
     before = sched_ops.launch_count
@@ -385,7 +847,7 @@ def main() -> int:
         len(ours), 1)
     if n_dev and not ours:
         fail("profile shows no masked_argext kernel in the tick")
-    say(f"phase7 profile ({PROFILE_TICKS} DEMS-COOP ticks, "
+    say(f"phase11 profile ({PROFILE_TICKS} DEMS-COOP ticks, "
         f"{coop['n_edges']} edges): {n_dev / PROFILE_TICKS:.1f} device "
         f"kernels per tick, masked_argext {tick_launches / PROFILE_TICKS:.1f}"
         f" launches per tick at {ours_us:.3f} us per launch; device busy "
@@ -393,13 +855,31 @@ def main() -> int:
         f"({busy_us / 1e6 / wall:.3f}); torch.max(where) on (28, 64): "
         f"{compo_ms * 1e3:.3f} us")
 
+    flash_t = times["flash serve granite"]
+    decode_t = times["decode B8 W1024 L576"]
     print(json.dumps({"kernels": [{
         "name": "masked_argext", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/masked_argext.cu",
         "replaces": "src/repro/kernels/sched_ops.py:41",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": serve_launches,
+        "max_abs_err": max(att_err["flash_attention"].values()),
+        "ms": flash_t["kernel"], "plain_ms": flash_t["plain"],
+        "bound_ms": flash_t["bound"], "bound_by": flash_t["bound_by"],
+        "library_ms": flash_t["sdpa"]}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:24",
+        "launches": decode_launches,
+        "max_abs_err": max(att_err["decode_attention"].values()),
+        "ms": decode_t["kernel"], "plain_ms": decode_t["plain"],
+        "bound_ms": decode_t["bound"], "bound_by": decode_t["bound_by"],
+        "library_ms": decode_t["sdpa"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,30 @@
-"""Model profiles of the paper's workloads (paper §4, Tables 1 and 2).
+"""Task and utility model of the paper's workloads (paper §4, Tables 1
+and 2).
 
-A copy of the profile half of ``repro.core.task``: the port keeps its own
-so that it never imports the JAX package.  Each model carries a benefit
-``β_i``, a deadline duration ``δ_i``, expected execution latencies on the
-edge (``t_i``) and cloud (``t̂_i``) and per-task monetary costs ``K_i``
-(edge) / ``K̂_i`` (cloud).  All times are in milliseconds.
+A copy of ``repro.core.task``: the port keeps its own so that it never
+imports the JAX package.  Each model carries a benefit ``β_i``, a
+deadline duration ``δ_i``, expected execution latencies on the edge
+(``t_i``) and cloud (``t̂_i``) and per-task monetary costs ``K_i``
+(edge) / ``K̂_i`` (cloud).  A :class:`Task` is one execution of a model
+on one video segment; its realized QoS utility follows Eqn 1
+(γ^E = β−K on time at the edge, −K late; γ^C = β−K̂ / −K̂ on the cloud;
+0 dropped).  All times are in milliseconds.
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
+from typing import Optional
+
+
+class Outcome(enum.Enum):
+    """Terminal state of a task (paper Eqn 1 cases)."""
+
+    EDGE_SUCCESS = "edge_success"
+    EDGE_MISS = "edge_miss"
+    CLOUD_SUCCESS = "cloud_success"
+    CLOUD_MISS = "cloud_miss"
+    DROPPED = "dropped"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +52,73 @@ class ModelProfile:
         """Expected utility of an on-time cloud execution, γ^C = β − K̂."""
         return self.beta - self.cost_cloud
 
+    @property
+    def hpf_rank(self) -> float:
+        """Utility-per-edge-time rank used by the HPF baseline (§8.2)."""
+        return self.gamma_edge / self.t_edge
+
     def steal_rank(self) -> float:
         """Work-stealing rank (§5.3): (γ^E − γ^C) / t_i."""
         return (self.gamma_edge - self.gamma_cloud) / self.t_edge
+
+
+@dataclasses.dataclass
+class Task:
+    """One inference task τ_i^j."""
+
+    uid: int
+    model: ModelProfile
+    created: float               # t'_j  [ms] — segment creation time
+    drone: int = 0
+    # -- scheduling state ----------------------------------------------
+    deadline_ext: float = 0.0    # SOTA1 deadline buffer (scheduling only)
+    steal_only: bool = False     # negative-cloud-utility task parked on the
+                                 # cloud queue purely to be stolen (§5.3)
+    gems_rescheduled: bool = False
+    stolen: bool = False
+    migrated: bool = False
+    # -- result ---------------------------------------------------------
+    outcome: Optional[Outcome] = None
+    finished: Optional[float] = None  # completion timestamp [ms]
+
+    @property
+    def abs_deadline(self) -> float:
+        """Absolute deadline t'_j + δ_i (also the EDF priority, §5.1)."""
+        return self.created + self.model.deadline
+
+    @property
+    def sched_deadline(self) -> float:
+        """Deadline used for *scheduling* decisions (SOTA1 may extend it)."""
+        return self.abs_deadline + self.deadline_ext
+
+    def utility(self) -> float:
+        """Realized QoS utility γ_i^j (Eqn 1)."""
+        m = self.model
+        if self.outcome is Outcome.EDGE_SUCCESS:
+            return m.gamma_edge
+        if self.outcome is Outcome.EDGE_MISS:
+            return -m.cost_edge
+        if self.outcome is Outcome.CLOUD_SUCCESS:
+            return m.gamma_cloud
+        if self.outcome is Outcome.CLOUD_MISS:
+            return -m.cost_cloud
+        return 0.0
+
+    @property
+    def success(self) -> bool:
+        return self.outcome in (Outcome.EDGE_SUCCESS, Outcome.CLOUD_SUCCESS)
+
+
+def migration_score(m: ModelProfile, cloud_feasible: bool) -> float:
+    """DEM migration score S_i^j (Eqn 3).
+
+    S = γ^E − γ^C   if the task would finish on time on the cloud and
+                    γ^C > 0 (cheap to hand over — small score);
+    S = γ^E         otherwise (handing it over forfeits its whole value).
+    """
+    if cloud_feasible and m.gamma_cloud > 0:
+        return m.gamma_edge - m.gamma_cloud
+    return m.gamma_edge
 
 
 # Table 1 — Jetson Nano / AWS Lambda profiles for the six Ocularone DNNs.
@@ -77,3 +157,4 @@ def table2(workload: str, alpha: float) -> list[ModelProfile]:
         return [mk("HV", 360, 400, 100, 200), mk("DEV", 420, 600, 300, 400),
                 mk("MD", 480, 800, 200, 300), mk("CD", 600, 1000, 750, 950)]
     raise ValueError(f"unknown GEMS workload {workload!r}")
+

@@ -15,6 +15,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
@@ -22,9 +23,12 @@ BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# loaded libraries and their build records, by source name
+# loaded libraries and their build records, by source name; the lock
+# keeps threads that launch at once (the serve engine's) from building
+# one source twice
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, dict] = {}
+_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -80,10 +84,11 @@ def _finish(name: str, so, proc, tmp, t0) -> None:
 def build_all(names: list[str]) -> dict[str, dict]:
     """Build every named source at once (one ``nvcc`` each, all started
     together) and load them; returns the build records."""
-    started = {n: _start(n) for n in names if n not in _LIBS}
-    for n, job in started.items():
-        _finish(n, *job)
-    return {n: BUILD_LOG[n] for n in names}
+    with _LOCK:
+        started = {n: _start(n) for n in names if n not in _LIBS}
+        for n, job in started.items():
+            _finish(n, *job)
+        return {n: BUILD_LOG[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
 
-Each function here is the semantics its hand-written kernel reproduces
-bit for bit.  The CPU path runs these; on the card they are the yardstick
-the kernels are compared with.
+Each function here is the semantics its hand-written kernel reproduces:
+bit for bit for the selection kernel, and up to the order of its f32
+sums for the attention kernels.  The CPU path runs these; on the card
+they are the yardstick the kernels are compared with.
 """
 from __future__ import annotations
 
@@ -28,3 +29,50 @@ def ref_masked_argext(scores: torch.Tensor, mask: torch.Tensor, *,
     some = torch.broadcast_to(mask, v.shape).any(-1)
     val = v.amax(-1) if is_max else v.amin(-1)
     return torch.where(some, idx, -1), val
+
+
+def _repeat_heads(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """``jnp.repeat(x, groups, axis=1)``: KV heads → query heads."""
+    return x.repeat_interleave(groups, dim=1) if groups > 1 else x
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B,H,S,hd); k/v: (B,KV,S,hd) → (B,H,S,hd).  GQA via repeat.
+
+    Logits in f32, masked entries filled with -1e30, and the softmax cast
+    back to ``q.dtype`` before the product with ``v``.
+    """
+    s, hd = q.shape[2], q.shape[3]
+    groups = q.shape[1] // k.shape[1]
+    k = _repeat_heads(k, groups)
+    v = _repeat_heads(v, groups)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float()
+    logits = logits * hd ** -0.5
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, NEG)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def ref_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B,H,hd); k/v: (B,KV,W,hd); lengths: (B,) valid prefix →
+    (B,H,hd)."""
+    hd = q.shape[-1]
+    groups = q.shape[1] // k.shape[1]
+    k = _repeat_heads(k, groups)
+    v = _repeat_heads(v, groups)
+    logits = torch.einsum("bhd,bhkd->bhk", q, k).float()
+    logits = logits * hd ** -0.5
+    valid = (torch.arange(k.shape[2], device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])
+    logits = torch.where(valid[:, None, :], logits, NEG)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhk,bhkd->bhd", probs, v)

@@ -1,0 +1,381 @@
+"""Model assembly: the ``dense``, ``vlm`` and ``ssm`` (xLSTM) families.
+
+Port of ``repro.models.model``.  One :class:`Model` per
+:class:`~repro_torch.configs.base.ArchConfig` exposes:
+
+* ``init(generator)``          → parameter dict (blocks stacked per layer)
+* ``forward(params, batch)``   → (logits, aux), full sequence
+* ``init_cache(batch, max_seq)`` → decode cache dict
+* ``prefill(params, batch, max_seq)`` → (last logits, cache)
+* ``decode_step(params, cache, token, pos)`` → (logits, cache)
+
+Parameters keep the JAX package's tree (``params_from_numpy`` in
+:mod:`repro_torch.convert` carries a JAX ``Model.init`` tree across), and
+layers run as a Python loop over the stacked per-layer tensors in place
+of ``lax.scan``.  ``cfg.attn_impl == "kernel"`` sends ``forward``'s
+attention through the flash-attention kernel and ``decode_step``'s
+through the flash-decode kernel (contiguous caches only); ``prefill``
+runs plain attention in either case, as the JAX package does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models import xlstm as XL
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# families of the JAX package not ported yet, with their ROADMAP item
+_NOT_PORTED = {
+    "moe": "ROADMAP queue 1: the moe family (routing, experts, moe_gemm)",
+    "encdec": "ROADMAP queue 1: the encdec family (whisper encoder and "
+              "cross-attention)",
+    "hybrid": "ROADMAP queue 1: the hybrid family (Mamba2 SSD, ssm_scan)",
+}
+
+
+# ---------------------------------------------------------------------------
+# parameter tables:  name → shape
+# ---------------------------------------------------------------------------
+
+def _attn_defs(cfg: ArchConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
+         "wo": (h, hd, d)}
+    if cfg.qkv_bias:
+        p.update({"bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd)})
+    return p
+
+
+def _mlp_defs(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "silu":
+        return {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
+    return {"wi": (d, f), "wd": (f, d)}
+
+
+def _dense_block_defs(cfg: ArchConfig) -> dict:
+    return {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,),
+            **_attn_defs(cfg), **_mlp_defs(cfg)}
+
+
+def _mlstm_block_defs(cfg: ArchConfig) -> dict:
+    d, di = cfg.d_model, cfg.d_inner
+    return {"ln": (d,), "wq": (d, di), "wk": (d, di), "wv": (d, di),
+            "w_gate": (d, 2 * cfg.n_heads), "w_out": (di, d)}
+
+
+def _slstm_block_defs(cfg: ArchConfig) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    pd = d // h
+    return {"ln": (d,), "w_in": (d, d), "w_rec": (h, 2 * pd, 4 * pd),
+            "b_rec": (h, 4 * pd), "w_out": (d, d)}
+
+
+def _layer(stacked: dict, i: int) -> dict:
+    return {name: t[i] for name, t in stacked.items()}
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        if cfg.family in _NOT_PORTED:
+            raise NotImplementedError(
+                f"{cfg.name}: family {cfg.family!r} is not ported yet "
+                f"({_NOT_PORTED[cfg.family]})")
+        if cfg.attn_impl not in ("ref", "kernel"):
+            raise ValueError(f"attn_impl {cfg.attn_impl!r}: want 'ref' or "
+                             f"'kernel'")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[cfg.dtype]
+        self.pdtype = _DTYPES[cfg.param_dtype]
+        # embedding / lm-head padded to a multiple of 256; the pad logits
+        # are masked to -1e30 in unembed() so they never win
+        self.vpad = -(-cfg.vocab // 256) * 256
+
+    # -- structure ------------------------------------------------------
+    def layout(self) -> dict:
+        """{group name: (name → per-layer shape, stack count or None)}."""
+        cfg = self.cfg
+        if cfg.family in ("dense", "vlm"):
+            lay = {"blocks": (_dense_block_defs(cfg), cfg.n_layers)}
+            if cfg.family == "vlm":
+                lay["vis_proj"] = ({"w": (cfg.d_model, cfg.d_model)}, None)
+            return lay
+        g, rem = divmod(cfg.n_layers, cfg.slstm_every)
+        if rem:
+            raise ValueError(f"{cfg.name}: xlstm layers ({cfg.n_layers}) "
+                             f"must be a multiple of slstm_every "
+                             f"({cfg.slstm_every})")
+        return {"mlstm": (_mlstm_block_defs(cfg), g * (cfg.slstm_every - 1)),
+                "slstm": (_slstm_block_defs(cfg), g)}
+
+    def param_shapes(self) -> dict:
+        """The parameter tree's shapes, as :meth:`init` builds it."""
+        cfg = self.cfg
+        shapes = {"embed": (self.vpad, cfg.d_model),
+                  "final_norm": (cfg.d_model,)}
+        if not cfg.tie_embeddings:
+            shapes["lm_head"] = (cfg.d_model, self.vpad)
+        for name, (defs, n) in self.layout().items():
+            shapes[name] = {k: ((n, *s) if n else s) for k, s in defs.items()}
+        return shapes
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters from ``generator`` (on this model's device):
+        N(0, 1)/sqrt(fan_in) matrices, unit norms, zero biases, an
+        N(0, 0.02²) embedding — the JAX ``Model.init`` scheme, not its
+        numbers (the two generators differ)."""
+        cfg, dev = self.cfg, self.device
+
+        def normal(shape, std):
+            return (torch.randn(shape, generator=generator, device=dev)
+                    * std).to(self.pdtype)
+
+        params = {"embed": normal((self.vpad, cfg.d_model), 0.02),
+                  "final_norm": torch.ones(cfg.d_model, dtype=self.pdtype,
+                                           device=dev)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = normal((cfg.d_model, self.vpad),
+                                       1.0 / math.sqrt(cfg.d_model))
+        for group, (defs, n) in sorted(self.layout().items()):
+            out = {}
+            for name, shape in sorted(defs.items()):
+                full = (n, *shape) if n else shape
+                if name.startswith("ln"):
+                    out[name] = torch.ones(full, dtype=self.pdtype,
+                                           device=dev)
+                elif name.startswith("b"):
+                    out[name] = torch.zeros(full, dtype=self.pdtype,
+                                            device=dev)
+                else:
+                    fan_in = math.prod(shape[:-1]) if len(shape) > 1 \
+                        else shape[0]
+                    std = 1.0 / math.sqrt(fan_in)
+                    # one layer at a time: no f32 copy of the whole stack
+                    t = torch.empty(full, dtype=self.pdtype, device=dev)
+                    for i in range(n or 1):
+                        (t[i] if n else t).copy_(normal(shape, std))
+                    out[name] = t
+            params[group] = out
+        return params
+
+    # -- shared pieces ---------------------------------------------------
+    def _dense_block(self, p, x):
+        cfg = self.cfg
+        h = L.attention_block(p, cfg, L.rms_norm(x, p["ln1"], cfg.norm_eps))
+        x = x + h
+        return x + L.mlp(p, cfg, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+    def embed_tokens(self, params, tokens):
+        return params["embed"][tokens].to(self.dtype)
+
+    def unembed(self, params, x):
+        w = params.get("lm_head")
+        if w is None:
+            w = params["embed"].T
+        logits = torch.einsum("bsd,dv->bsv", x, w.to(self.dtype))
+        if self.vpad != self.cfg.vocab:      # mask padding columns
+            keep = torch.arange(self.vpad, device=x.device) < self.cfg.vocab
+            logits = torch.where(keep, logits, L.NEG)
+        return logits
+
+    def _embed_inputs(self, params, batch):
+        x = self.embed_tokens(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            img = batch["patches"].to(self.dtype) @ params["vis_proj"]["w"]
+            x = torch.cat([img, x], dim=1)
+        return x
+
+    # -- forward ------------------------------------------------------------
+    def forward(self, params, batch):
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            x = self._xlstm_forward(params, batch)
+        else:
+            x = self._embed_inputs(params, batch)
+            for i in range(cfg.n_layers):
+                x = self._dense_block(_layer(params["blocks"], i), x)
+            if cfg.family == "vlm":
+                x = x[:, cfg.n_image_tokens:]
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self.unembed(params, x), aux
+
+    def _xlstm_groups(self):
+        g = self.cfg.n_layers // self.cfg.slstm_every
+        return g, self.cfg.slstm_every - 1
+
+    def _xlstm_forward(self, params, batch):
+        cfg = self.cfg
+        x = self.embed_tokens(params, batch["tokens"])
+        g, per = self._xlstm_groups()
+        for gi in range(g):
+            for j in range(per):
+                p = _layer(params["mlstm"], gi * per + j)
+                y, _ = XL.mlstm_parallel(p, cfg, L.rms_norm(x, p["ln"],
+                                                            cfg.norm_eps))
+                x = x + y
+            sp = _layer(params["slstm"], gi)
+            y, _ = XL.slstm_scan(sp, cfg, L.rms_norm(x, sp["ln"],
+                                                     cfg.norm_eps))
+            x = x + y
+        return x
+
+    # ======================================================================
+    # decoding
+    # ======================================================================
+    def init_cache(self, batch_size: int, max_seq: int) -> dict:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        if cfg.family in ("dense", "vlm"):
+            return L.init_kv_cache(cfg, cfg.n_layers, batch_size, max_seq,
+                                   dt, dev)
+        g, per = self._xlstm_groups()
+        h, pd = cfg.n_heads, cfg.d_inner // cfg.n_heads
+        spd = cfg.d_model // cfg.n_heads
+
+        def zeros(shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        return {"m_c": zeros((g, per, batch_size, h, pd, pd)),
+                "m_n": zeros((g, per, batch_size, h, pd)),
+                "s_h": zeros((g, batch_size, h, spd)),
+                "s_c": zeros((g, batch_size, h, spd), torch.float32),
+                "s_n": zeros((g, batch_size, h, spd), torch.float32)}
+
+    def decode_step(self, params, cache: dict, token: torch.Tensor, pos):
+        """One serve step: next-token logits for ``token`` (B, 1) at
+        absolute position ``pos`` (an int, the same across the batch).
+
+        The cache is updated **in place** — the new K/V are written at
+        ``slot = min(pos, W-1)`` (``pos % W`` for a sliding-window ring
+        buffer), an xLSTM's states overwritten — and returned: a caller
+        must not reuse a cache expecting its old contents.
+        """
+        cfg = self.cfg
+        pos = int(pos)
+        x = self.embed_tokens(params, token)
+        if cfg.family == "ssm":
+            x = self._xlstm_decode(params, cache, x)
+        else:
+            for i in range(cfg.n_layers):
+                p = _layer(params["blocks"], i)
+                x = self._decode_self_attn(p, x, cache["k"][i],
+                                           cache["v"][i], pos)
+                x = x + L.mlp(p, cfg, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self.unembed(params, x), cache
+
+    def _decode_self_attn(self, p, x, ck, cv, pos: int):
+        """Self-attention sublayer against one layer's cache view (written
+        in place)."""
+        cfg = self.cfg
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        b = x.shape[0]
+        positions = torch.full((b, 1), pos, device=x.device)
+        q, k, v = L.qkv_proj(p, cfg, h, positions)
+        w = cfg.sliding_window
+        wsz = ck.shape[1]
+        slot = pos % wsz if w else min(pos, wsz - 1)
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        if cfg.attn_impl == "kernel" and not w:
+            # flash-decode kernel: contiguous caches only (the ring-buffer
+            # validity mask of SWA caches stays on the plain path); the
+            # kernel reads the cache through a transposed view
+            lengths = torch.full((b,), pos + 1, dtype=torch.int32,
+                                 device=x.device)
+            out = ops.decode_attention(q[:, 0], ck.transpose(1, 2),
+                                       cv.transpose(1, 2), lengths)[:, None]
+        else:
+            out = L.decode_attend(q, ck, cv, pos=pos, window=w)
+        return x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+    def _xlstm_decode(self, params, cache, x):
+        cfg = self.cfg
+        g, per = self._xlstm_groups()
+        for gi in range(g):
+            for j in range(per):
+                p = _layer(params["mlstm"], gi * per + j)
+                y, (c2, n2) = XL.mlstm_decode_step(
+                    p, cfg, L.rms_norm(x, p["ln"], cfg.norm_eps),
+                    (cache["m_c"][gi, j], cache["m_n"][gi, j]))
+                x = x + y
+                cache["m_c"][gi, j] = c2
+                cache["m_n"][gi, j] = n2
+            sp = _layer(params["slstm"], gi)
+            y, states = XL.slstm_decode_step(
+                sp, cfg, L.rms_norm(x, sp["ln"], cfg.norm_eps),
+                (cache["s_h"][gi], cache["s_c"][gi], cache["s_n"][gi]))
+            x = x + y
+            for name, st in zip(("s_h", "s_c", "s_n"), states):
+                cache[name][gi] = st
+        return x
+
+    # -- prefill -----------------------------------------------------------
+    def prefill(self, params, batch, max_seq: int):
+        """Run the full prompt, build the decode cache, return the last
+        position's logits.
+
+        Attention here is always the plain version (``attend_auto``
+        without ``impl``), whatever ``cfg.attn_impl`` says: the JAX
+        package's prefill does the same.
+        """
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b = tokens.shape[0]
+        cache = self.init_cache(b, max_seq)
+        if cfg.family == "ssm":
+            return self._xlstm_prefill(params, tokens, cache)
+        x = self._embed_inputs(params, batch)
+        s_total = x.shape[1]
+        positions = torch.arange(s_total, device=x.device).expand(
+            b, s_total)
+        w = cache["k"].shape[2]
+        take = min(w, s_total)
+        if cfg.sliding_window and take == w:
+            # ring placement: the slot of absolute position p is p % w
+            slots = torch.arange(s_total - take, s_total,
+                                 device=x.device) % w
+        else:
+            slots = torch.arange(take, device=x.device)
+        for i in range(cfg.n_layers):
+            p = _layer(params["blocks"], i)
+            hn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = L.qkv_proj(p, cfg, hn, positions)
+            out = L.attend_auto(q, k, v, causal=True,
+                                window=cfg.sliding_window)
+            x = x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
+            x = x + L.mlp(p, cfg, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+            cache["k"][i][:, slots] = k[:, s_total - take:]
+            cache["v"][i][:, slots] = v[:, s_total - take:]
+        if cfg.family == "vlm":
+            x = x[:, cfg.n_image_tokens:]
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self.unembed(params, x[:, -1:]), cache
+
+    def _xlstm_prefill(self, params, tokens, cache):
+        cfg = self.cfg
+        x = self.embed_tokens(params, tokens)
+        g, per = self._xlstm_groups()
+        for gi in range(g):
+            for j in range(per):
+                p = _layer(params["mlstm"], gi * per + j)
+                y, (c, n) = XL.mlstm_parallel(
+                    p, cfg, L.rms_norm(x, p["ln"], cfg.norm_eps))
+                x = x + y
+                cache["m_c"][gi, j] = c
+                cache["m_n"][gi, j] = n
+            sp = _layer(params["slstm"], gi)
+            y, states = XL.slstm_scan(sp, cfg, L.rms_norm(x, sp["ln"],
+                                                          cfg.norm_eps))
+            x = x + y
+            for name, st in zip(("s_h", "s_c", "s_n"), states):
+                cache[name][gi] = st
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self.unembed(params, x[:, -1:]), cache

@@ -1,9 +1,11 @@
-"""Link-shaping traces and the bandwidth-penalty convention (paper §8.5).
+"""Link-shaping traces, the bandwidth-penalty convention (paper §8.5) and
+the cloud latency model of the serve engine.
 
-The subset of ``repro.sim.network`` the fleet tick program needs, copied
-so the port never imports the JAX package.  Trace functions are
-array-native numpy (signals are built on the host from a seed); the
-bandwidth penalty is evaluated per tick on tensors.
+The subset of ``repro.sim.network`` the fleet tick program and the serve
+engine need, copied so the port never imports the JAX package.  Trace
+functions are array-native numpy (signals are built on the host from a
+seed); the fleet evaluates the bandwidth penalty per tick on tensors,
+the serve engine's :class:`CloudLatencyModel` on host floats.
 
 Bandwidth-penalty convention: the penalty is the **signed** difference
 ``transfer_ms(SEGMENT_KB, bw(t)) − transfer_ms(SEGMENT_KB,
@@ -11,6 +13,8 @@ NOMINAL_BW_MBPS)``, exactly ``0.0`` at ``bw ≡ NOMINAL_BW_MBPS``.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -34,6 +38,11 @@ def bandwidth_penalty_ms(bw_mbps: torch.Tensor,
             - segment_kb * 8.0 / NOMINAL_BW_MBPS)
 
 
+def transfer_ms(size_kb: float, bw_mbps: float) -> float:
+    """Transfer time of ``size_kb`` at ``bw_mbps`` (8 kb per kB)."""
+    return size_kb * 8.0 / max(bw_mbps, 1e-3)
+
+
 def sample_trace(fn: Callable, times: np.ndarray) -> np.ndarray:
     """Evaluate a trace over a time grid in one call (array-native traces
     evaluate vectorized; scalar-only callables fall back to a loop)."""
@@ -49,6 +58,12 @@ def sample_trace(fn: Callable, times: np.ndarray) -> np.ndarray:
 
 def _scalarize(out: np.ndarray, t) -> np.ndarray | float:
     return out if np.ndim(t) else float(out)
+
+
+def constant(value: float) -> Callable[[float], float]:
+    def trace(t):
+        return _scalarize(np.full(np.shape(t), value, dtype=float), t)
+    return trace
 
 
 def trapezium(low: float = 0.0, high: float = 400.0,
@@ -73,3 +88,39 @@ def trapezium(low: float = 0.0, high: float = 400.0,
         return _scalarize(out, t)
 
     return theta
+
+
+@dataclasses.dataclass
+class CloudLatencyModel:
+    """Actual cloud duration: FaaS execution + WAN effects (Fig 1b, 2).
+
+    ``t̂`` is the benchmarked p95 end-to-end estimate.  A sample is a
+    lognormal body calibrated so ~5 % of unshaped samples exceed t̂, plus
+    the shaped deltas: added latency θ(t) and the **signed** bandwidth
+    penalty relative to the nominal benchmark bandwidth.  Cold starts
+    appear as a small probability of a large additive delay (§4).
+    """
+
+    median_frac: float = 0.70
+    sigma: float = 0.18           # p95 of LogNormal(ln .7, .18) ≈ 0.94·t̂
+    cold_start_p: float = 0.01
+    cold_start_ms: float = 900.0
+    latency_at: Callable[[float], float] = dataclasses.field(
+        default_factory=lambda: constant(0.0))
+    bandwidth_at: Callable[[float], float] = dataclasses.field(
+        default_factory=lambda: constant(NOMINAL_BW_MBPS))
+    segment_kb: float = SEGMENT_KB
+
+    def shaped_delta(self, now: float) -> float:
+        """θ(now) plus the signed bandwidth penalty at time ``now``."""
+        return self.latency_at(now) + (
+            transfer_ms(self.segment_kb, self.bandwidth_at(now))
+            - self.segment_kb * 8.0 / NOMINAL_BW_MBPS)
+
+    def sample(self, rng: np.random.Generator, t_cloud: float,
+               now: float, model: str | None = None) -> float:
+        body = t_cloud * float(rng.lognormal(math.log(self.median_frac),
+                                             self.sigma))
+        if rng.random() < self.cold_start_p:
+            body += self.cold_start_ms
+        return body + self.shaped_delta(now)

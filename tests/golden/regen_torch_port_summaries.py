@@ -5,8 +5,8 @@ reference.
     PYTHONPATH=src python tests/golden/regen_torch_port_summaries.py --check
 
 Every run here is one that ``chip_smoke.py`` drives through the port on
-the card: the small 2-edge runs (phase 3) and the paper-scale 28-edge
-fleet of §8.6 (phase 4).  The file carries each run's definition beside
+the card: the small 2-edge runs (phase 3: DEMS-A, GEMS, DEMS-COOP and
+SOTA2) and the paper-scale 28-edge fleet of §8.6 (phase 4).  The file carries each run's definition beside
 its JAX ``fleet_summary``, so ``chip_smoke.py`` reads the workloads and
 their expected numbers from it and never imports the JAX package;
 ``tests/test_torch_golden.py`` re-runs the small entries through JAX and
@@ -33,6 +33,10 @@ RUNS = [
          n_edges=2, duration_ms=30_000.0, theta=MOVING),
     dict(name="small-dems-coop", phase=3, policy="DEMS-COOP",
          models="ACTIVE", n_edges=2, duration_ms=30_000.0, theta=MOVING),
+    # SOTA2 (Dedas): the only policy whose decisions read act_improves'
+    # mean-completion comparison
+    dict(name="small-sota2", phase=3, policy="SOTA2", models="PASSIVE",
+         n_edges=2, duration_ms=30_000.0, theta=MOVING),
     dict(name="paper-dems-a", phase=4, policy="DEMS-A", models="PASSIVE",
          n_edges=28, duration_ms=60_000.0, theta=PAPER),
     dict(name="paper-gems", phase=4, policy="GEMS", models="WL1@0.9",

@@ -1,0 +1,245 @@
+"""The port's attention kernels' plain versions against the JAX package.
+
+The same numpy inputs go through the JAX Pallas kernels in interpret mode
+(``repro.kernels.ops``, at the block sizes ``tests/test_kernels.py``
+uses), the JAX oracles (``repro.kernels.ref``) and the port's dispatch
+(``repro_torch.kernels.ops``), which on CPU tensors runs the plain
+PyTorch versions.  Tolerances are ``tests/test_kernels.py``'s: 1e-5 in
+float32, 2e-2 in bfloat16 (the two frameworks round bf16 products at
+other places).  The hand-written CUDA kernels are held against the plain
+versions on the card (marked ``cuda``; they skip without one).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else \
+        dict(rtol=1e-5, atol=1e-5)
+
+
+def _pair(arr, name):
+    """The same values as a JAX array and a torch tensor (bf16 rounding
+    from float32 is round-to-nearest-even in both)."""
+    jd, td = DTYPES[name]
+    return jnp.asarray(arr, jd), torch.from_numpy(arr).to(td)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      np.asarray(x, np.float32), np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,h,kv,s,hd", [
+    (1, 4, 4, 128, 64),      # MHA
+    (2, 8, 2, 256, 64),      # GQA 4:1
+    (1, 4, 1, 128, 128),     # MQA
+])
+@pytest.mark.parametrize("window", [0, 64])
+def test_plain_flash_matches_jax(b, h, kv, s, hd, dtype, window):
+    rng = np.random.default_rng(hash((b, h, s, window)) % 2**31)
+    qj, qt = _pair(rng.standard_normal((b, h, s, hd), np.float32), dtype)
+    kj, kt = _pair(rng.standard_normal((b, kv, s, hd), np.float32), dtype)
+    vj, vt = _pair(rng.standard_normal((b, kv, s, hd), np.float32), dtype)
+    got = tops.flash_attention(qt, kt, vt, causal=True, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    kernel = jops.flash_attention(qj, kj, vj, causal=True, window=window,
+                                  block_q=64, block_k=64)
+    oracle = jref.ref_attention(qj, kj, vj, causal=True, window=window)
+    np.testing.assert_allclose(_np(got), _np(kernel), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+
+def test_plain_flash_non_causal_matches_jax():
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((1, 2, 128, 64), np.float32)
+               for _ in range(3))
+    got = tops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                               causal=False)
+    want = jops.flash_attention(*map(jnp.asarray, (q, k, v)), causal=False,
+                                block_q=64, block_k=64)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [1, 17, 64])
+def test_plain_flash_on_serve_path_shapes(s):
+    """The serve path's shapes (one sequence, S ≤ 128, block = S as the
+    JAX ``attend_pallas`` picks it): granite's GQA 32/8 at hd 64 and a
+    starcoder2-like 12:1 group at hd 128, causal with a 16-key band."""
+    rng = np.random.default_rng(s)
+    for h, kv, hd in ((32, 8, 64), (24, 2, 128)):
+        q = rng.standard_normal((1, h, s, hd), np.float32)
+        k = rng.standard_normal((1, kv, s, hd), np.float32)
+        v = rng.standard_normal((1, kv, s, hd), np.float32)
+        for window in (0, 16):
+            got = tops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                       causal=True, window=window)
+            want = jops.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                        causal=True, window=window,
+                                        block_q=s, block_k=s)
+            np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_plain_flash_takes_transposed_views():
+    """The model hands the kernel (B,S,H,hd) activations as transposed
+    views; the result keeps the query's layout."""
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((2, 16, 4, 64), np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 16, 2, 64), np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 16, 2, 64), np.float32))
+    got = tops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2))
+    want = tref.ref_attention(q.transpose(1, 2).contiguous(),
+                              k.transpose(1, 2).contiguous(),
+                              v.transpose(1, 2).contiguous())
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,h,kv,w,hd", [
+    (2, 4, 4, 512, 64),
+    (3, 8, 2, 1024, 64),
+    (1, 4, 1, 256, 128),
+])
+def test_plain_decode_matches_jax(b, h, kv, w, hd, dtype):
+    rng = np.random.default_rng(hash((b, h, w)) % 2**31)
+    qj, qt = _pair(rng.standard_normal((b, h, hd), np.float32), dtype)
+    kj, kt = _pair(rng.standard_normal((b, kv, w, hd), np.float32), dtype)
+    vj, vt = _pair(rng.standard_normal((b, kv, w, hd), np.float32), dtype)
+    lengths = rng.integers(1, w + 1, (b,)).astype(np.int32)
+    got = tops.decode_attention(qt, kt, vt, torch.from_numpy(lengths))
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    kernel = jops.decode_attention(qj, kj, vj, jnp.asarray(lengths),
+                                   block_s=128)
+    oracle = jref.ref_decode_attention(qj, kj, vj, jnp.asarray(lengths))
+    np.testing.assert_allclose(_np(got), _np(kernel), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+
+
+@pytest.mark.parametrize("length", [1, 2, 255, 256])
+def test_plain_decode_on_strided_cache_view(length):
+    """The model's cache is (B,W,KV,hd); decode reads it through a
+    transposed (B,KV,W,hd) view — equal to the JAX kernel on the same
+    values laid out contiguously, for lengths from 1 to W."""
+    rng = np.random.default_rng(length)
+    b, w, kv, h, hd = 2, 256, 2, 8, 64
+    cache_k = rng.standard_normal((b, w, kv, hd), np.float32)
+    cache_v = rng.standard_normal((b, w, kv, hd), np.float32)
+    q = rng.standard_normal((b, h, hd), np.float32)
+    lengths = np.full((b,), length, np.int32)
+    kt = torch.from_numpy(cache_k).transpose(1, 2)
+    vt = torch.from_numpy(cache_v).transpose(1, 2)
+    assert not kt.is_contiguous()
+    got = tops.decode_attention(torch.from_numpy(q), kt, vt,
+                                torch.from_numpy(lengths))
+    want = jops.decode_attention(
+        jnp.asarray(q), jnp.asarray(cache_k.transpose(0, 2, 1, 3)),
+        jnp.asarray(cache_v.transpose(0, 2, 1, 3)), jnp.asarray(lengths),
+        block_s=128)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def test_wrappers_take_plain_path_only_on_cpu():
+    """A CPU tensor runs the plain version and counts no launch; any
+    other device goes to the hand kernels' checks, never the plain path."""
+    before = (tflash.launch_count, tdecode.launch_count)
+    q = torch.zeros(1, 2, 4, 64)
+    k = torch.zeros(1, 1, 4, 64)
+    tops.flash_attention(q, k, k)
+    tops.decode_attention(q[:, :, 0], k, k, torch.ones(1, dtype=torch.int32))
+    assert (tflash.launch_count, tdecode.launch_count) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.cuda_flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tdecode.cuda_decode_attention(q[:, :, 0], k, k,
+                                      torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.decode_attention(q[:, :, 0].to("meta"), k.to("meta"),
+                              k.to("meta"), torch.ones(1, device="meta"))
+
+
+def test_launch_counters_reset():
+    tflash.reset_count()
+    tdecode.reset_count()
+    assert tflash.launch_count == 0 and tdecode.launch_count == 0
+
+
+# ---------------------------------------------------------------------------
+# the hand kernels on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cuda_flash_matches_plain(cuda_device, dtype):
+    td = DTYPES[dtype][1]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, h, kv, s, hd in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
+                            (1, 4, 1, 128, 128), (1, 32, 8, 17, 64),
+                            (1, 24, 2, 64, 128)):
+        q, k, v = (torch.randn(shape, generator=gen, device=cuda_device,
+                               dtype=td)
+                   for shape in ((b, h, s, hd), (b, kv, s, hd),
+                                 (b, kv, s, hd)))
+        for causal, window in ((True, 0), (True, 64), (False, 0)):
+            got = tops.flash_attention(q, k, v, causal=causal, window=window)
+            want = tref.ref_attention(q, k, v, causal=causal, window=window)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_cuda_decode_matches_plain(cuda_device, dtype):
+    td = DTYPES[dtype][1]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    b, w, kv, h, hd = 3, 1024, 2, 8, 128
+    cache_k = torch.randn((b, w, kv, hd), generator=gen, device=cuda_device,
+                          dtype=td)
+    cache_v = torch.randn((b, w, kv, hd), generator=gen, device=cuda_device,
+                          dtype=td)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda_device, dtype=td)
+    for length in (1, 31, 32, 33, 500, 1024):
+        lengths = torch.full((b,), length, dtype=torch.int32,
+                             device=cuda_device)
+        got = tops.decode_attention(q, cache_k.transpose(1, 2),
+                                    cache_v.transpose(1, 2), lengths)
+        want = tref.ref_decode_attention(q, cache_k.transpose(1, 2),
+                                         cache_v.transpose(1, 2), lengths)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
