@@ -4,20 +4,25 @@
     python3 chip_smoke.py
 
 Drives the port (``src/repro_torch``) through its user entry points on
-its two paths: the fleet scheduler — ``simulate_fleet`` / ``run_fleet``
+its three paths: the fleet scheduler — ``simulate_fleet`` / ``run_fleet``
 / ``FleetProgram`` at the paper's §8.6 fleet scale (28 edges, 84 drones)
-and at a 1024-edge metropolis fleet — and live DNN serving — the
+and at a 1024-edge metropolis fleet — live DNN serving — the
 ``ServeEngine`` over the three launcher roles at their published sizes,
-and greedy decoding.  Its three hand-written ``sm_90a`` kernels
-(masked arg-extremum, flash attention, flash decode) are built from
+and greedy decoding — and the hybrid family: zamba2-7b (Mamba2 blocks and
+a shared attention block) served and decoded at its published width and
+depth.  Its five hand-written ``sm_90a`` kernels (masked arg-extremum,
+flash attention, flash decode, RMSNorm, selective scan) are built from
 ``src/repro_torch/kernels/csrc`` at first use.  Phases, each printed on
 its own line and each failing the script (non-zero exit) on error:
 
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 flags,
-   the three kernels built at once;
+   the five kernels built at once;
 2. kernels vs their plain PyTorch versions on the card: masked_argext
    exact; flash attention and flash decode on the kernel tests' sweep
-   and the serve/decode shapes (f32 1e-5, bf16 2e-2);
+   and the serve/decode shapes, hd 64, 112 and 128 (f32 1e-5, bf16
+   2e-2); RMSNorm (f32 1e-5, bf16 2e-2) and the selective scan (f32
+   2e-4, bf16 2e-2) on the kernel tests' shapes and the zamba2 path's
+   views;
 3. small parity: the 2-edge golden runs (DEMS-A, GEMS, DEMS-COOP,
    SOTA2) on the card and on the host, every final-state leaf equal,
    summaries equal to the golden JAX ones;
@@ -37,10 +42,23 @@ its own line and each failing the script (non-zero exit) on error:
    (its horizon shrinks to fit the time budget);
 10. sync check: ticks under ``torch.cuda.set_sync_debug_mode("error")``;
 11. profile: CUDA launches per tick, the arg-extremum kernel's time per
-    launch, and the nearest plain PyTorch composition's time.
+    launch, and the nearest plain PyTorch composition's time;
+12. hybrid golden: zamba2-7b at full width, 8 layers (6 Mamba2, the
+    shared block, a 2-layer tail), f32 — forward on S 256, prefill and
+    teacher-forced decode against the JAX reference's numbers;
+13. hybrid serve and decode (rmsnorm's and ssm_scan's main path; every
+    model kernel's launches are read over this phase and must equal the
+    path's exactly): zamba2-7b at 81 layers, bf16, ``"kernel"`` —
+    ``ServableModel.from_arch`` with ``probe_p95``, a 10 s GEMS stream,
+    then a 128-token prompt and 32 greedy steps against ``"ref"`` and
+    f32;
+14. the zamba2 path's kernel times: RMSNorm beside
+    ``torch.nn.functional.rms_norm``, the selective scan, and the two
+    attention kernels at hd 112.
 
-The expected numbers come from ``tests/golden/torch_port_summaries.json``
-and ``tests/golden/torch_port_model.json`` (JAX results written by
+The expected numbers come from ``tests/golden/torch_port_summaries.json``,
+``tests/golden/torch_port_model.json`` and
+``tests/golden/torch_port_zamba2.json`` (JAX results written by
 ``tests/golden/regen_torch_port_{summaries,model}.py``); the script
 imports nothing of the JAX package.  Its last two lines are the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.
@@ -57,14 +75,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_summaries.json")
 GOLDEN_MODEL = os.path.join(ROOT, "tests", "golden", "torch_port_model.json")
+GOLDEN_ZAMBA2 = os.path.join(ROOT, "tests", "golden",
+                             "torch_port_zamba2.json")
 METRO_EDGES = 1024
 METRO_MS = 60_000.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
-# phases 10-11, would pass this budget (about half the 1200 s the script
-# may take)
-BUDGET_S = 560.0
-RESERVE_S = 60.0
+# phases 10-14, would pass this budget
+BUDGET_S = 760.0
+RESERVE_S = 260.0
 MIN_METRO_MS = 10_000.0
 SYNC_TICKS = 50
 # the profiler's post-processing takes seconds per traced tick (thousands
@@ -76,6 +95,10 @@ BF16_OPS_PER_S = 989e12          # bf16 dense tensor cores, same sheet
 # the kernels' tolerances against their plain versions, as
 # tests/test_kernels.py states them: |got - want| <= atol + rtol * |want|
 ATT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the scan sums a state over up to 512 steps in another order than the
+# plain recurrence: tests/test_kernels.py's 2e-4 in f32
+SCAN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # model golden (f32, TF32 off): the card and the host's XLA sum in other
 # orders; logits are O(1), so 1e-3 is ~100x the f32 rounding seen over
 # two layers, and a row checksum of 49,155 logits gets 5e-2
@@ -92,6 +115,19 @@ DECODE = dict(batch=8, prompt=512, max_seq=1024, steps=64, seed=11)
 # and kernel vs f32 to 1.5·rf (the kernel is no less accurate).
 DECODE_KR_TOL = 2.0
 DECODE_KF_TOL = 1.5
+# The same f32 model on its two routes ("kernel" vs "ref", teacher-forced
+# on the same tokens) isolates the kernels from bf16: at 81 random-weight
+# layers zamba2's bf16 logits decorrelate from f32 on either route (the
+# JAX package's bf16 chunked scan as much as the port's plain path), while
+# f32 rounding differences stayed below 1e-3 of the logits' RMS in the
+# host's 48-layer runs.  A wrong kernel is O(1) off; 5e-2 is the bar.
+DECODE_F32_TOL = 5e-2
+# phase 13: zamba2-7b served as one role (the launcher's HV share,
+# deadline multiple, β and costs) at (B 1, S 64) for 10 s, then decoded
+# from a 128-token prompt for 32 greedy steps; the same yardsticks
+ZAMBA2 = dict(seq=64, share=0.7, deadline_p95=3.0, beta=125, cost_edge=1,
+              cost_cloud=25, serve_ms=10_000.0, prompt=128, max_seq=160,
+              steps=32, seed=13)
 
 
 def fail(msg: str) -> None:
@@ -194,9 +230,10 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
     """Phase 2's attention cases, each kernel against its plain version
     on the same card tensors: the ``tests/test_kernels.py`` sweep (MHA,
     GQA, MQA, window 0/64, non-causal; decode lengths 1..W) and the
-    path's shapes (granite H32/KV8/hd64 and starcoder2 H24/KV2/hd128 at
-    S 1-512 through (B,S,H,hd) views; decode on strided (B,W,KV,hd)
-    cache views).  Returns ({kernel: {dtype: max |err|}}, case counts)."""
+    path's shapes (granite H32/KV8/hd64, starcoder2 H24/KV2/hd128 and
+    zamba2 H32/KV32/hd112 at S 1-512 through (B,S,H,hd) views; decode on
+    strided (B,W,KV,hd) cache views, zamba2's at hd 112).  Returns
+    ({kernel: {dtype: max |err|}}, case counts)."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(20241231)
@@ -227,10 +264,10 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
                        ref.ref_attention(q, k, v, causal=causal,
                                          window=window),
                        f"{(b, h, kv, s, hd)} causal={causal} w={window}")
-        for (h, kv, hd) in ((32, 8, 64), (24, 2, 128)):
+        for (h, kv, hd) in ((32, 8, 64), (24, 2, 128), (32, 32, 112)):
             for (b, s) in ((1, 1), (1, 17), (1, 64), (2, 128), (1, 512),
-                           (8, 512)):
-                if hd == 128 and b == 8:
+                           (8, 512), (2, 256)):
+                if (hd == 128 and b == 8) or (hd != 112 and s == 256):
                     continue
                 q = rnd(b, s, h, hd).transpose(1, 2)
                 k = rnd(b, s, kv, hd).transpose(1, 2)
@@ -242,7 +279,8 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
 
         for (b, h, kv, w, hd) in ((2, 4, 4, 512, 64), (3, 8, 2, 1024, 64),
                                   (1, 4, 1, 256, 128), (8, 32, 8, 1024, 64),
-                                  (1, 24, 2, 128, 128)):
+                                  (1, 24, 2, 128, 128), (1, 32, 32, 160, 112),
+                                  (2, 8, 2, 512, 112)):
             ck, cv, q = rnd(b, w, kv, hd), rnd(b, w, kv, hd), rnd(b, h, hd)
             lens = [1, 2, 31, 32, 33, w // 2, w - 1, w]
             if w == 1024:
@@ -260,15 +298,57 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
     return errs, cases
 
 
-def phase_golden(dev) -> None:
-    """Phase 5: granite-3-2b at full width, 2 layers, f32, weights from
-    the golden file's numpy seed, against the JAX reference's numbers."""
+def path_launches(cfg, forwards: int = 0, prefills: int = 0,
+                  steps: int = 0) -> dict:
+    """The launches of each model kernel that ``forwards`` forward
+    passes, ``prefills`` prefills and ``steps`` decode steps of a model
+    under ``attn_impl="kernel"`` make: every norm, every ``forward``
+    attention layer, every decode attention layer on a contiguous cache,
+    and every Mamba2 scan in ``forward`` and ``prefill``."""
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.attn_every
+        attn, norms, scans = groups, cfg.n_layers + 2 * groups + 1, \
+            cfg.n_layers
+    elif cfg.family == "ssm":
+        attn, norms, scans = 0, cfg.n_layers + 1, 0
+    else:
+        attn, norms, scans = cfg.n_layers, 2 * cfg.n_layers + 1, 0
+    return {"flash_attention": attn * forwards,
+            "decode_attention": 0 if cfg.sliding_window else attn * steps,
+            "rmsnorm": norms * (forwards + prefills + steps),
+            "ssm_scan": scans * (forwards + prefills)}
+
+
+def model_counts() -> dict:
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import rmsnorm, ssm_scan
+    return {m.KERNEL: m.launch_count
+            for m in (flash_attention, decode_attention, rmsnorm, ssm_scan)}
+
+
+def reset_model_counts() -> None:
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import rmsnorm, ssm_scan
+    for m in (flash_attention, decode_attention, rmsnorm, ssm_scan):
+        m.reset_count()
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        fail(f"{what}: kernel launches {json.dumps(got)}, want "
+             f"{json.dumps(want)}")
+
+
+def phase_golden(dev, path: str, phase: int) -> None:
+    """A model golden file (phase 5: granite-3-2b, 2 layers; phase 12:
+    zamba2-7b, 8 layers), at full width in f32 with weights from the
+    file's numpy seed, against the JAX reference's numbers; the kernel
+    launches of the run must be exactly the path's."""
     import torch
     from repro_torch import convert
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.kernels import decode_attention, flash_attention
     from repro_torch.models.model import Model
-    gold = json.load(open(GOLDEN_MODEL))
+    gold = json.load(open(path))
     cfg = dataclasses.replace(
         ARCHS[gold["arch"]], n_layers=gold["n_layers"], dtype=gold["dtype"],
         param_dtype=gold["dtype"], attn_impl="kernel")
@@ -277,7 +357,7 @@ def phase_golden(dev) -> None:
         cfg, convert.random_numpy_params(cfg, gold["weight_seed"]), dev)
     model = Model(cfg, dev)
     tokens = torch.tensor(gold["tokens"], dtype=torch.long, device=dev)
-    before = (flash_attention.launch_count, decode_attention.launch_count)
+    reset_model_counts()
     worst = dict(value=0.0, checksum=0.0)
 
     def check_top(row, ids, values, what):
@@ -324,32 +404,33 @@ def phase_golden(dev) -> None:
                     and int(out[b].argmax()) != want_id:
                 fail(f"golden decode step {t} b{b}: greedy token "
                      f"{int(out[b].argmax())} != {want_id}")
-    launches = (flash_attention.launch_count - before[0],
-                decode_attention.launch_count - before[1])
-    say(f"phase5 golden {gold['arch']} full width × {gold['n_layers']} "
-        f"layers f32: forward (B {gold['batch']}, S {gold['seq']}), prefill "
-        f"{prompt} + {len(gold['decode'])} teacher-forced decode steps == "
-        f"JAX golden; max |Δ top logit| {worst['value']:.3e} (tol "
-        f"{GOLD_TOL}), max |Δ checksum| {worst['checksum']:.3e} (tol "
-        f"{GOLD_SUM_TOL}); kernel launches flash {launches[0]}, decode "
-        f"{launches[1]}; {time.perf_counter() - t0:.1f} s")
+    launches = model_counts()
+    check_launches(f"golden {gold['arch']}", launches, path_launches(
+        cfg, forwards=1, prefills=1, steps=len(gold["decode"])))
+    say(f"phase{phase} golden {gold['arch']} full width × "
+        f"{gold['n_layers']} layers f32: forward (B {gold['batch']}, S "
+        f"{gold['seq']}), prefill {prompt} + {len(gold['decode'])} "
+        f"teacher-forced decode steps == JAX golden; max |Δ top logit| "
+        f"{worst['value']:.3e} (tol {GOLD_TOL}), max |Δ checksum| "
+        f"{worst['checksum']:.3e} (tol {GOLD_SUM_TOL}); kernel launches "
+        f"{json.dumps(launches)} (= the path's); "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
-def phase_serve(dev) -> int:
+def phase_serve(dev) -> dict:
     """Phase 6, the serve path: the launcher's three roles at published
-    size under GEMS; returns flash_attention's launches in the stream."""
+    size under GEMS; returns the stream's kernel launches (flash
+    attention's main path)."""
     import torch
     from repro_torch.core.schedulers import make_policy
-    from repro_torch.kernels import flash_attention
     from repro_torch.launch import serve as launch
     from repro_torch.serve.engine import ServeEngine, run_stream
     t0 = time.perf_counter()
     models, fps = launch.build_roles(device=dev, full_size=True,
                                      attn_impl="kernel")
-    attn_layers = {}
-    for name in models:
-        cfg = launch.role_config(launch.ROLES[name][0], full_size=True)
-        attn_layers[name] = 0 if cfg.family == "ssm" else cfg.n_layers
+    cfgs = {name: launch.role_config(launch.ROLES[name][0], full_size=True,
+                                     attn_impl="kernel")
+            for name in models}
     say(f"phase6 roles built and calibrated in {time.perf_counter() - t0:.1f}"
         f" s; p95 ms {json.dumps({n: m.profile.t_edge for n, m in models.items()})}; "
         f"FPS {json.dumps(fps)}; peak memory "
@@ -367,16 +448,17 @@ def phase_serve(dev) -> int:
 
     models = {n: dataclasses.replace(m, run=counted(n, m.run))
               for n, m in models.items()}
-    flash_attention.reset_count()
+    reset_model_counts()
     engine = ServeEngine(make_policy("GEMS"), models, cloud_concurrency=4,
                          seed=0)
     res = run_stream(engine, fps, SERVE_MS)
-    launches = flash_attention.launch_count
-    expected = sum(calls[n] * attn_layers[n] for n in models)
-    if launches <= 0 or launches != expected:
-        fail(f"serve: {launches} flash_attention launches, want "
-             f"{expected} (forwards {calls})")
-    if not all(calls[n] for n in models if attn_layers[n]):
+    launches = model_counts()
+    expected = {k: sum(path_launches(cfgs[n], forwards=calls[n])[k]
+                       for n in models) for k in launches}
+    check_launches(f"serve (forwards {json.dumps(calls)})", launches,
+                   expected)
+    if launches["flash_attention"] <= 0 or not all(
+            calls[n] for n in models if cfgs[n].family != "ssm"):
         fail(f"serve: an attention role never ran: forwards {calls}")
     for n, st in res.per_model.items():
         done = (st.edge_success + st.edge_miss + st.cloud_success
@@ -387,8 +469,8 @@ def phase_serve(dev) -> int:
         f"{res.generated}, completed {res.completed}, completion rate "
         f"{res.completion_rate:.4f}, QoS utility {res.qos_utility}, QoE "
         f"utility {res.qoe_utility}, stolen {res.stolen}, migrated "
-        f"{res.migrated}; forwards {json.dumps(calls)}; flash_attention "
-        f"launches {launches} (= Σ forwards × attention layers)")
+        f"{res.migrated}; forwards {json.dumps(calls)}; kernel launches "
+        f"{json.dumps(launches)} (= Σ forwards × the role's layers)")
     say(f"phase6 {res.summary()}")
     for name, m in models.items():
         n_k, busy, wall = profile_call(m.run)
@@ -397,30 +479,30 @@ def phase_serve(dev) -> int:
     return launches
 
 
-def phase_decode(dev) -> int:
-    """Phase 7, the decode path: greedy decoding of granite-3-2b in bf16
-    through the decode kernel, held against the plain path on the same
-    tokens; returns decode_attention's launches."""
+def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
+                         max_seq: int) -> dict:
+    """Prefill ``prompt`` and decode ``steps`` greedy tokens with ``cfg``
+    (``attn_impl="kernel"``, bf16), then feed the same tokens through the
+    plain bf16 path and an f32 copy of the model on both routes: the RMS
+    of the logit differences over the RMS of the plain f32 logits (kr
+    kernel vs plain, kf kernel vs f32, rf plain vs f32, ff the two f32
+    routes), held to DECODE_KR_TOL·rf, DECODE_KF_TOL·rf and
+    DECODE_F32_TOL.  Returns the timings, the RMSs and the kernel
+    launches of the bf16 kernel model's prefill and steps."""
     import torch
-    from repro_torch.configs.registry import ARCHS
-    from repro_torch.kernels import decode_attention
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(ARCHS["granite-3-2b"], attn_impl="kernel")
-    b, p, steps = DECODE["batch"], DECODE["prompt"], DECODE["steps"]
+    b, p = prompt.shape
     mk = Model(cfg, dev)
     mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
-    gen = torch.Generator(device=dev).manual_seed(DECODE["seed"])
-    params = mk.init(gen)
-    prompt = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    reset_model_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, cache_k = mk.prefill(params, {"tokens": prompt}, DECODE["max_seq"])
+    last, cache_k = mk.prefill(params, {"tokens": prompt}, max_seq)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     cache_r = {k: v.clone() for k, v in cache_k.items()}
     tok = last[:, -1].argmax(-1, keepdim=True)
     fed, outs = [], []
-    decode_attention.reset_count()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(steps):
@@ -430,82 +512,208 @@ def phase_decode(dev) -> int:
         tok = logits[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = decode_attention.launch_count
+    launches = model_counts()
     n_k, busy, step_wall = profile_call(
         lambda: mk.decode_step(params, cache_k, tok, p + steps))
-    if launches != cfg.n_layers * steps:
-        fail(f"decode: {launches} decode_attention launches, want "
-             f"{cfg.n_layers} × {steps}")
-    # the same tokens through the plain bf16 path and through an f32 copy
-    # of the model (plain attention): the yardstick of bf16 rounding
-    mf = Model(dataclasses.replace(cfg, attn_impl="ref", dtype="float32",
-                                   param_dtype="float32"), dev)
+    f32 = dict(dtype="float32", param_dtype="float32")
+    mf = Model(dataclasses.replace(cfg, attn_impl="ref", **f32), dev)
+    mff = Model(dataclasses.replace(cfg, **f32), dev)
     pf = {k: ({kk: vv.float() for kk, vv in v.items()}
               if isinstance(v, dict) else v.float())
           for k, v in params.items()}
-    _, cache_f = mf.prefill(pf, {"tokens": prompt}, DECODE["max_seq"])
-    sq = dict(kr=0.0, kf=0.0, rf=0.0, f=0.0)
+    _, cache_f = mf.prefill(pf, {"tokens": prompt}, max_seq)
+    _, cache_ff = mff.prefill(pf, {"tokens": prompt}, max_seq)
+    sq = dict(kr=0.0, kf=0.0, rf=0.0, ff=0.0, f=0.0)
     mx = 0.0
     for t in range(steps):
         lr, _ = mr.decode_step(params, cache_r, fed[t], p + t)
         lf, _ = mf.decode_step(pf, cache_f, fed[t], p + t)
-        k_, r_, f_ = (x[:, -1, :cfg.vocab].float()
-                      for x in (outs[t][:, None], lr, lf))
+        lff, _ = mff.decode_step(pf, cache_ff, fed[t], p + t)
+        k_, r_, f_, ff_ = (x[:, -1, :cfg.vocab].float()
+                           for x in (outs[t][:, None], lr, lf, lff))
         sq["kr"] += float((k_ - r_).square().sum())
         sq["kf"] += float((k_ - f_).square().sum())
         sq["rf"] += float((r_ - f_).square().sum())
+        sq["ff"] += float((ff_ - f_).square().sum())
         sq["f"] += float(f_.square().sum())
         mx = max(mx, float((k_ - r_).abs().max()))
     rms = {k: (v / sq["f"]) ** 0.5 for k, v in sq.items() if k != "f"}
     if not (rms["kr"] <= DECODE_KR_TOL * rms["rf"]
-            and rms["kf"] <= DECODE_KF_TOL * rms["rf"]):
-        fail(f"decode: relative RMS differences {json.dumps(rms)} (kernel vs"
-             f" plain kr, kernel vs f32 kf, plain vs f32 rf): want kr ≤ "
-             f"{DECODE_KR_TOL}·rf and kf ≤ {DECODE_KF_TOL}·rf")
-    say(f"phase7 decode granite-3-2b bf16 B {b}, prompt {p} (prefill "
-        f"{prefill_s:.3f} s), {steps} greedy steps in {wall:.3f} s = "
-        f"{b * steps / wall:.1f} tokens/s ({wall / steps * 1e3:.2f} ms a "
-        f"step); decode_attention launches {launches} (= {cfg.n_layers} × "
-        f"{steps}); profile of one more step: {n_k} device kernels, busy "
-        f"{busy:.3f} ms of {step_wall:.3f} ms wall; teacher-forced on the same tokens, RMS of the logit "
-        f"difference over RMS of the f32 logits: kernel vs attn_impl='ref' "
-        f"{rms['kr']:.4e} (tol {DECODE_KR_TOL}·rf), kernel vs f32 "
-        f"{rms['kf']:.4e} (tol {DECODE_KF_TOL}·rf), 'ref' vs f32 "
-        f"{rms['rf']:.4e}; max |kernel − ref| {mx:.4f}; peak memory "
+            and rms["kf"] <= DECODE_KF_TOL * rms["rf"]
+            and rms["ff"] <= DECODE_F32_TOL):
+        fail(f"decode {cfg.name}: relative RMS differences "
+             f"{json.dumps(rms)} (kernel vs plain kr, kernel vs f32 kf, "
+             f"plain vs f32 rf, f32 kernel vs f32 plain ff): want kr ≤ "
+             f"{DECODE_KR_TOL}·rf, kf ≤ {DECODE_KF_TOL}·rf and ff ≤ "
+             f"{DECODE_F32_TOL}")
+    del pf, cache_f, cache_ff, mf, mff
+    return dict(prefill_s=prefill_s, wall=wall, rms=rms, max_diff=mx,
+                launches=launches, profile=(n_k, busy, step_wall),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def decode_line(r: dict, b: int, p: int, steps: int) -> str:
+    n_k, busy, step_wall = r["profile"]
+    rms = r["rms"]
+    return (f"B {b}, prompt {p} (prefill {r['prefill_s']:.3f} s), {steps} "
+            f"greedy steps in {r['wall']:.3f} s = {b * steps / r['wall']:.1f}"
+            f" tokens/s ({r['wall'] / steps * 1e3:.2f} ms a step); kernel "
+            f"launches {json.dumps(r['launches'])} (= the path's); profile "
+            f"of one more step: {n_k} device kernels, busy {busy:.3f} ms of "
+            f"{step_wall:.3f} ms wall; teacher-forced on the same tokens, "
+            f"RMS of the logit difference over RMS of the f32 logits: "
+            f"kernel vs attn_impl='ref' {rms['kr']:.4e} (tol "
+            f"{DECODE_KR_TOL}·rf), kernel vs f32 {rms['kf']:.4e} (tol "
+            f"{DECODE_KF_TOL}·rf), 'ref' vs f32 {rms['rf']:.4e}; f32 "
+            f"'kernel' vs f32 'ref' {rms['ff']:.4e} (tol {DECODE_F32_TOL}); "
+            f"max |kernel − ref| {r['max_diff']:.4f}; peak memory "
+            f"{r['peak']} B")
+
+
+def phase_decode(dev) -> dict:
+    """Phase 7, the decode path: greedy decoding of granite-3-2b in bf16
+    through the decode kernel, held against the plain path on the same
+    tokens; returns the kernel launches of the prefill and steps."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(ARCHS["granite-3-2b"], attn_impl="kernel")
+    b, p, steps = DECODE["batch"], DECODE["prompt"], DECODE["steps"]
+    gen = torch.Generator(device=dev).manual_seed(DECODE["seed"])
+    params = Model(cfg, dev).init(gen)
+    prompt = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    r = greedy_vs_yardsticks(dev, cfg, params, prompt, steps,
+                             DECODE["max_seq"])
+    check_launches("decode granite-3-2b", r["launches"],
+                   path_launches(cfg, prefills=1, steps=steps))
+    say(f"phase7 decode granite-3-2b bf16 {decode_line(r, b, p, steps)}")
+    return r["launches"]
+
+
+def phase_hybrid(dev) -> dict:
+    """Phase 13, the hybrid path at published width and depth (zamba2-7b,
+    81 layers, bf16, ``attn_impl="kernel"``): ``ServableModel.from_arch``
+    at (B 1, S 64) with the launcher's ``probe_p95``, a GEMS stream with
+    zamba2 as the served model, then greedy decoding held against the
+    plain and f32 paths.  Every model kernel's launches over the phase
+    must equal the path's exactly; returns them."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.schedulers import make_policy
+    from repro_torch.core.task import ModelProfile
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServableModel, ServeEngine
+    from repro_torch.serve.engine import run_stream
+    cfg = dataclasses.replace(ARCHS["zamba2-7b"], attn_impl="kernel")
+    z = ZAMBA2
+    calls = {"forward": 0}
+    lock = threading.Lock()
+    torch.cuda.synchronize()
+    reset_model_counts()
+    t0 = time.perf_counter()
+    prof = ModelProfile(name="ZAMBA2", beta=z["beta"], deadline=1.0,
+                        t_edge=1.0, t_cloud=1.0, cost_edge=z["cost_edge"],
+                        cost_cloud=z["cost_cloud"], qoe_beta=100.0,
+                        qoe_alpha=0.9, qoe_window=5_000.0)
+    sm = ServableModel.from_arch(prof, cfg, batch=1, seq=z["seq"],
+                                 device=dev)
+    calls["forward"] += 1                          # from_arch's warm call
+    run = sm.run
+
+    def counted():
+        out = run()
+        with lock:
+            calls["forward"] += 1
+        return out
+    sm = dataclasses.replace(sm, run=counted)
+    t95 = launch.probe_p95(sm)
+    fps = min(60.0, z["share"] * 1000.0 / t95)
+    prof = dataclasses.replace(prof, deadline=z["deadline_p95"] * t95
+                               + 30.0, t_edge=t95, t_cloud=t95 * 0.7 + 60.0)
+    sm = dataclasses.replace(sm, profile=prof)
+    build_s = time.perf_counter() - t0
+    engine = ServeEngine(make_policy("GEMS"), {"ZAMBA2": sm},
+                         cloud_concurrency=4, seed=0)
+    res = run_stream(engine, {"ZAMBA2": fps}, z["serve_ms"])
+    st = res.per_model["ZAMBA2"]
+    done = (st.edge_success + st.edge_miss + st.cloud_success
+            + st.cloud_miss + st.dropped)
+    if done > st.generated or res.completed <= 0:
+        fail(f"hybrid serve: {res.completed} completed, {done} outcomes of "
+             f"{st.generated} generated")
+    n_k, busy, fwd_wall = profile_call(sm.run)
+    served = dict(calls)
+    say(f"phase13 zamba2-7b bf16 {cfg.n_layers} layers "
+        f"({cfg.param_count()} parameters): from_arch + probe_p95 in "
+        f"{build_s:.1f} s, p95 {t95:.3f} ms, {fps:.2f} FPS, deadline "
+        f"{prof.deadline:.0f} ms; GEMS {z['serve_ms'] / 1e3:.0f} s: "
+        f"generated {res.generated}, completed {res.completed}, completion "
+        f"rate {res.completion_rate:.4f}, QoS utility {res.qos_utility}, "
+        f"QoE utility {res.qoe_utility}; forwards {served['forward']}; "
+        f"profile of one forward: {n_k} device kernels, busy {busy:.3f} ms "
+        f"of {fwd_wall:.3f} ms wall; peak memory "
         f"{torch.cuda.max_memory_allocated()} B")
+    serve_counts = model_counts()
+    del sm, engine, run
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(z["seed"])
+    params = Model(cfg, dev).init(gen)
+    prompt = torch.randint(0, cfg.vocab, (1, z["prompt"]), generator=gen,
+                           device=dev)
+    r = greedy_vs_yardsticks(dev, cfg, params, prompt, z["steps"],
+                             z["max_seq"])
+    launches = {k: serve_counts[k] + r["launches"][k] for k in serve_counts}
+    check_launches("hybrid zamba2-7b serve + decode", launches,
+                   path_launches(cfg, forwards=served["forward"], prefills=1,
+                                 steps=z["steps"]))
+    say(f"phase13 decode zamba2-7b bf16 "
+        f"{decode_line(r, 1, z['prompt'], z['steps'])}")
+    say(f"phase13 launches over the phase: {json.dumps(launches)} = "
+        f"{served['forward']} forwards, 1 prefill, {z['steps']} steps × the "
+        f"path's per-call counts")
     return launches
+
+
+def _bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
+    """(least ms, "bytes" or "operations") for moving ``nbytes`` at the
+    card's memory rate and doing ``ops`` at ``ops_per_s``."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    f_ms = ops / ops_per_s * 1e3
+    return max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations"
+
+
+def _prof_us(fn, name: str, n: int = 20):
+    """Mean device µs of the kernels named ``name`` over ``n`` calls of
+    ``fn`` in a ``torch.profiler`` trace (None if the trace shows none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as pr:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in pr.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and name in e.name]
+    return (sum(e.time_range.elapsed_us() for e in evs) / len(evs)
+            if evs else None)
 
 
 def phase_times(dev) -> dict:
     """Phase 8: device ms per call (CUDA-graph replay) of each attention
     kernel at the serve and decode shapes, beside its plain version's,
     ``scaled_dot_product_attention``'s (timed only; the port never calls
-    it) and the bound; plus each kernel's mean time in a profiler trace."""
+    it) and the bound; plus each kernel's mean time in a profiler trace.
+    Phase 14 adds the zamba2 shapes (hd 112) and the RMSNorm and
+    selective-scan kernels through :func:`kernel_times`."""
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     bf = torch.bfloat16
     out = {}
-
-    def bound(nbytes, flops):
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        f_ms = flops / BF16_OPS_PER_S * 1e3
-        return max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations"
-
-    def prof_us(fn, name, n=20):
-        with profile(activities=[ProfilerActivity.CUDA]) as pr:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in pr.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and name in e.name]
-        return (sum(e.time_range.elapsed_us() for e in evs) / len(evs)
-                if evs else None)
 
     for key, (b, h, kv, s, hd) in (("flash serve granite", (1, 32, 8, 64, 64)),
                                    ("flash serve starcoder2",
@@ -518,13 +726,13 @@ def phase_times(dev) -> dict:
         row = {name: graph_ms(fn, iters=iters) for name, fn in (
             ("kernel", lambda: FA.cuda_flash_attention(q, k, v)),
             ("plain", lambda: ref.ref_attention(q, k, v)),
-            ("sdpa", lambda: F.scaled_dot_product_attention(
+            ("library", lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)))}
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * hd * b * h * s * (s + 1) // 2     # causal pairs only
-        row["bound"], row["bound_by"] = bound(nbytes, flops)
-        row["profile_us"] = prof_us(lambda: FA.cuda_flash_attention(q, k, v),
-                                    "flash_kernel")
+        row["bound"], row["bound_by"] = _bound(nbytes, flops, BF16_OPS_PER_S)
+        row["profile_us"] = _prof_us(
+            lambda: FA.cuda_flash_attention(q, k, v), "flash_kernel")
         out[key] = row
 
     b, w, kv, h, hd, n = 8, 1024, 8, 32, 64, 576
@@ -536,20 +744,213 @@ def phase_times(dev) -> dict:
     row = {name: graph_ms(fn) for name, fn in (
         ("kernel", lambda: DA.cuda_decode_attention(q, kt, vt, lengths)),
         ("plain", lambda: ref.ref_decode_attention(q, kt, vt, lengths)),
-        ("sdpa", lambda: F.scaled_dot_product_attention(
+        ("library", lambda: F.scaled_dot_product_attention(
             q[:, :, None], kt[:, :, :n], vt[:, :, :n], enable_gqa=True)))}
     nbytes = 2 * (2 * b * kv * n * hd + 2 * q.numel()) + 4 * b
-    row["bound"], row["bound_by"] = bound(nbytes, 4 * b * h * n * hd)
-    row["profile_us"] = prof_us(
+    row["bound"], row["bound_by"] = _bound(nbytes, 4 * b * h * n * hd,
+                                           BF16_OPS_PER_S)
+    row["profile_us"] = _prof_us(
         lambda: DA.cuda_decode_attention(q, kt, vt, lengths), "decode_kernel")
     out["decode B8 W1024 L576"] = row
-    for key, row in out.items():
-        say(f"phase8 {key} (bf16): device ms per call (graph replay) kernel "
-            f"{row['kernel']:.6f}, plain {row['plain']:.6f}, "
-            f"scaled_dot_product_attention {row['sdpa']:.6f}; bound "
+    say_times(8, out)
+    return out
+
+
+def say_times(phase: int, rows: dict) -> None:
+    for key, row in rows.items():
+        say(f"phase{phase} {key} (bf16): device ms per call (graph replay) "
+            f"kernel {row['kernel']:.6f}, plain {row['plain']:.6f}, library "
+            f"{row['library']}; bound "
             f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
             f"launch {row['profile_us']}")
+
+
+def kernel_times(dev) -> dict:
+    """Phase 14: the zamba2 path's kernels at its serve and decode shapes,
+    bf16, as phase 8 times the others: ``rmsnorm`` on (64, 3584) beside
+    ``torch.nn.functional.rms_norm`` (timed only; the port never calls
+    it), ``ssm_scan`` on the model's views at (B 1, S 64, H 112, P = N =
+    64) (no one PyTorch call computes it), flash attention at (1, 32, 64,
+    112) and flash decode at (1, 32, W 160, 112) with 144 valid rows
+    beside ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssm_scan as SS
+    bf = torch.bfloat16
+    out = {}
+
+    x = torch.randn(64, 3584, device=dev, dtype=bf)
+    scale = torch.randn(3584, device=dev, dtype=bf) + 1.0
+    row = {name: graph_ms(fn) for name, fn in (
+        ("kernel", lambda: RN.cuda_rmsnorm(x, scale)),
+        ("plain", lambda: ref.ref_rmsnorm(x, scale)),
+        ("library", lambda: F.rms_norm(x, (3584,), scale, 1e-5)))}
+    # read x and scale once, write y once; square, sum, scale, multiply
+    row["bound"], row["bound_by"] = _bound(
+        2 * (2 * x.numel() + scale.numel()), 4 * x.numel(), F32_OPS_PER_S)
+    row["profile_us"] = _prof_us(lambda: RN.cuda_rmsnorm(x, scale),
+                                 "rmsnorm_kernel")
+    out["rmsnorm (64, 3584)"] = row
+
+    b, s, h, p, n = 1, 64, 112, 64, 64
+    views = scan_views(dev, bf, b, s, h, p, n, seed=5)
+    row = {"kernel": graph_ms(lambda: SS.cuda_ssm_scan(*views)),
+           "plain": graph_ms(lambda: ref.ref_selective_scan(*views),
+                             iters=5),
+           "library": None}
+    # x, dt, B, C (shared by the heads: read once), a, y and the final
+    # state, each once; 5 f32 operations per state entry per step
+    nbytes = 2 * (2 * b * h * s * p + b * h * s + 2 * b * s * n
+                  + b * h * p * n) + 4 * h
+    row["bound"], row["bound_by"] = _bound(nbytes, 5 * b * h * s * p * n,
+                                           F32_OPS_PER_S)
+    row["profile_us"] = _prof_us(lambda: SS.cuda_ssm_scan(*views),
+                                 "ssm_scan_kernel")
+    out["ssm_scan (B1, S64, H112, P64, N64)"] = row
+
+    b, h, s, hd = 1, 32, 64, 112
+    q, k, v = (torch.randn(b, s, h, hd, device=dev, dtype=bf).transpose(1, 2)
+               for _ in range(3))
+    row = {name: graph_ms(fn) for name, fn in (
+        ("kernel", lambda: FA.cuda_flash_attention(q, k, v)),
+        ("plain", lambda: ref.ref_attention(q, k, v)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)))}
+    row["bound"], row["bound_by"] = _bound(
+        2 * 4 * q.numel(), 4 * hd * b * h * s * (s + 1) // 2, BF16_OPS_PER_S)
+    row["profile_us"] = _prof_us(lambda: FA.cuda_flash_attention(q, k, v),
+                                 "flash_kernel")
+    out["flash serve zamba2 (1, 32, 64, 112)"] = row
+
+    b, w, kv, h, hd, nv = 1, 160, 32, 32, 112, 144
+    ck = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
+    cv = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
+    q = torch.randn(b, h, hd, device=dev, dtype=bf)
+    lengths = torch.full((b,), nv, dtype=torch.int32, device=dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    row = {name: graph_ms(fn) for name, fn in (
+        ("kernel", lambda: DA.cuda_decode_attention(q, kt, vt, lengths)),
+        ("plain", lambda: ref.ref_decode_attention(q, kt, vt, lengths)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt[:, :, :nv], vt[:, :, :nv])))}
+    row["bound"], row["bound_by"] = _bound(
+        2 * (2 * b * kv * nv * hd + 2 * q.numel()) + 4 * b,
+        4 * b * h * nv * hd, BF16_OPS_PER_S)
+    row["profile_us"] = _prof_us(
+        lambda: DA.cuda_decode_attention(q, kt, vt, lengths), "decode_kernel")
+    out["decode zamba2 B1 W160 L144"] = row
+    say_times(14, out)
     return out
+
+
+def scan_views(dev, dtype, b, s, h, p, n, seed):
+    """The selective scan's inputs as the model hands them over: xs and dt
+    as transposed views of one input projection, B and C shared by the
+    heads through a zero head stride, the f32 decay a stride-0 broadcast."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    di = h * p
+    proj = torch.randn(b, s, 2 * di + 2 * n + h, generator=gen, device=dev,
+                       dtype=dtype)
+    xs = proj[..., di:2 * di].reshape(b, s, h, p)
+    bm = proj[..., 2 * di:2 * di + n]
+    cm = proj[..., 2 * di + n:2 * di + 2 * n]
+    dt = F.softplus(proj[..., 2 * di + 2 * n:])
+    a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.3)
+    return (xs.transpose(1, 2), dt.transpose(1, 2), a.expand(b, h),
+            bm[:, None].expand(b, h, s, n), cm[:, None].expand(b, h, s, n))
+
+
+def check_norm_scan_kernels(dev) -> tuple[dict, dict]:
+    """Phase 2's RMSNorm and selective-scan cases, each kernel against its
+    plain version on the same card tensors: ``tests/test_kernels.py``'s
+    shapes (RMSNorm (2,128,256), (4,96,512), (1,1,64), (300,128); the scan
+    (4,256,64,64), (2,128,32,16), (8,512,64,64) and the carry case), a D
+    that is not a multiple of 8, strided and unaligned rows, and the
+    zamba2 path's shapes through the model's views (RMSNorm on
+    (1|64|128|512, 3584); the scan at S 64, 128 and 256 with B/C at a zero
+    head stride).  RMSNorm is also held to the model's plain ``rms_norm``
+    in f32.  Returns ({kernel: {dtype: max |err|}}, case counts)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(20241232)
+    errs = {"rmsnorm": {}, "ssm_scan": {}}
+    cases = dict.fromkeys(errs, 0)
+
+    def record(kernel, dname, got, want, tol, what):
+        torch.cuda.synchronize()
+        err, excess = allclose_err(got, want, tol)
+        if not excess <= 0.0:
+            fail(f"{kernel} {what} {dname}: kernel differs from the plain "
+                 f"version (max |err| {err}, tolerance {tol})")
+        errs[kernel][dname] = max(errs[kernel].get(dname, 0.0), err)
+        cases[kernel] += 1
+
+    for dname, td in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev)
+                    * scale).to(td)
+
+        tol = RMS_TOL[dname]
+        for shape in ((2, 128, 256), (4, 96, 512), (1, 1, 64), (300, 128),
+                      (3, 5, 1003), (1, 3584), (64, 3584), (128, 3584),
+                      (2, 256, 3584), (8, 2048), (64, 3072)):
+            x, scale = rnd(*shape), rnd(shape[-1]) + 1.0
+            record("rmsnorm", dname, ops.rmsnorm(x, scale),
+                   ref.ref_rmsnorm(x, scale), tol, f"{shape}")
+            if dname == "float32":
+                record("rmsnorm", dname,
+                       L.rms_norm(x, scale, 1e-5, "kernel"),
+                       L.rms_norm(x, scale, 1e-5), tol,
+                       f"{shape} vs the model's rms_norm")
+        x = rnd(4, 65, 3584)[:, 1:]                  # strided rows
+        scale = rnd(3584) + 1.0
+        record("rmsnorm", dname, ops.rmsnorm(x, scale),
+               ref.ref_rmsnorm(x, scale), tol, "strided rows")
+        x = rnd(2, 64, 3585)[..., 1:]                # unaligned rows
+        record("rmsnorm", dname, ops.rmsnorm(x, scale),
+               ref.ref_rmsnorm(x, scale), tol, "unaligned rows")
+
+        tol = SCAN_TOL[dname]
+        for (g, s, p, n) in ((4, 256, 64, 64), (2, 128, 32, 16),
+                             (8, 512, 64, 64), (3, 37, 64, 64),
+                             (2, 70, 48, 20)):
+            x = rnd(g, s, p)
+            dt = torch.nn.functional.softplus(rnd(g, s))
+            a = -torch.exp(torch.randn(g, generator=gen, device=dev) * 0.3)
+            bm, cm = rnd(g, s, n, scale=0.3), rnd(g, s, n, scale=0.3)
+            want = ref.ref_selective_scan(x, dt, a, bm, cm)
+            for got, w_, part in zip(ops.ssm_scan(x, dt, a, bm, cm), want,
+                                     ("y", "final")):
+                record("ssm_scan", dname, got, w_, tol,
+                       f"{(g, s, p, n)} {part}")
+        g, s, p, n = 1, 256, 8, 4                    # the carry case
+        ones = dict(device=dev, dtype=td)
+        args = (torch.ones(g, s, p, **ones),
+                torch.full((g, s), 1e-3, **ones),
+                torch.full((g,), -0.01, device=dev),
+                torch.ones(g, s, n, **ones), torch.ones(g, s, n, **ones))
+        y, _ = ops.ssm_scan(*args)
+        record("ssm_scan", dname, y, ref.ref_selective_scan(*args)[0], tol,
+               "carry")
+        if not float(y[0, -1, 0]) > 0.9 * s * 1e-3 * n:
+            fail(f"ssm_scan carry {dname}: y[-1] {float(y[0, -1, 0])}")
+        for (b, s) in ((1, 64), (1, 128), (2, 256)):
+            views = scan_views(dev, td, b, s, 112, 64, 64, seed=s)
+            want = ref.ref_selective_scan(*views)
+            for got, w_, part in zip(ops.ssm_scan(*views), want,
+                                     ("y", "final")):
+                record("ssm_scan", dname, got, w_, tol,
+                       f"zamba2 views (B {b}, S {s}) {part}")
+    return errs, cases
 
 
 T_START = time.perf_counter()
@@ -562,7 +963,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     if not (os.path.isdir(os.path.join(SRC, "repro_torch"))
-            and os.path.isfile(GOLDEN) and os.path.isfile(GOLDEN_MODEL)):
+            and all(os.path.isfile(f)
+                    for f in (GOLDEN, GOLDEN_MODEL, GOLDEN_ZAMBA2))):
         fail("run from a checkout of the repository: src/repro_torch and "
              "the golden files are missing")
     sys.path.insert(0, SRC)
@@ -570,7 +972,7 @@ def main() -> int:
 
     from repro_torch.core import task
     from repro_torch.kernels import _build, decode_attention, ref, sched_ops
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, rmsnorm, ssm_scan
     from repro_torch.scenarios.runner import fleet_summary
     from repro_torch.sim import fleet as F
     from repro_torch.sim import network
@@ -621,7 +1023,7 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     kernel_names = [sched_ops.KERNEL, flash_attention.KERNEL,
-                    decode_attention.KERNEL]
+                    decode_attention.KERNEL, rmsnorm.KERNEL, ssm_scan.KERNEL]
     t0 = time.perf_counter()
     builds = _build.build_all(kernel_names)     # one nvcc each, in parallel
     say(f"phase1 build: {time.perf_counter() - t0:.3f} s for "
@@ -708,6 +1110,12 @@ def main() -> int:
         f"within tolerance of the plain versions (|Δ| ≤ tol + tol·|want|, tol "
         f"f32 {ATT_TOL['float32']}, bf16 {ATT_TOL['bfloat16']}); max |err| "
         f"{json.dumps(att_err)}")
+    ns_err, ns_cases = check_norm_scan_kernels(dev)
+    say(f"phase2 kernels: rmsnorm {ns_cases['rmsnorm']} cases (tol f32 "
+        f"{RMS_TOL['float32']}, bf16 {RMS_TOL['bfloat16']}), ssm_scan "
+        f"{ns_cases['ssm_scan']} cases (tol f32 {SCAN_TOL['float32']}, bf16 "
+        f"{SCAN_TOL['bfloat16']}) within tolerance of the plain versions; "
+        f"max |err| {json.dumps(ns_err)}")
     say(f"phase2 timing (28x64), device ms per call (graph replay): "
         f"{json.dumps(dev_ms)}; issued eagerly, ms per call: "
         f"{json.dumps(call_ms)}; bound {bound_ms:.7f} ms ({bound_by}: bytes "
@@ -759,13 +1167,13 @@ def main() -> int:
     say(f"phase4 launches: masked_argext {launches}")
 
     # ---- phases 5-8: the serve path and its kernels ----------------------
-    phase_golden(dev)
+    phase_golden(dev, GOLDEN_MODEL, 5)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    serve_launches = phase_serve(dev)
+    serve_launches = phase_serve(dev)["flash_attention"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    decode_launches = phase_decode(dev)
+    decode_launches = phase_decode(dev)["decode_attention"]
     torch.cuda.empty_cache()
     times = phase_times(dev)
     torch.cuda.empty_cache()
@@ -855,8 +1263,20 @@ def main() -> int:
         f"({busy_us / 1e6 / wall:.3f}); torch.max(where) on (28, 64): "
         f"{compo_ms * 1e3:.3f} us")
 
+    # ---- phases 12-14: the hybrid path and its kernels -----------------
+    torch.cuda.empty_cache()
+    phase_golden(dev, GOLDEN_ZAMBA2, 12)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hybrid = phase_hybrid(dev)
+    torch.cuda.empty_cache()
+    ktimes = kernel_times(dev)
+    say(f"phases 1-14 done in {time.perf_counter() - T_START:.1f} s")
+
     flash_t = times["flash serve granite"]
     decode_t = times["decode B8 W1024 L576"]
+    rms_t = ktimes["rmsnorm (64, 3584)"]
+    scan_t = ktimes["ssm_scan (B1, S64, H112, P64, N64)"]
     print(json.dumps({"kernels": [{
         "name": "masked_argext", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/masked_argext.cu",
@@ -871,7 +1291,7 @@ def main() -> int:
         "max_abs_err": max(att_err["flash_attention"].values()),
         "ms": flash_t["kernel"], "plain_ms": flash_t["plain"],
         "bound_ms": flash_t["bound"], "bound_by": flash_t["bound_by"],
-        "library_ms": flash_t["sdpa"]}, {
+        "library_ms": flash_t["library"]}, {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:24",
@@ -879,7 +1299,23 @@ def main() -> int:
         "max_abs_err": max(att_err["decode_attention"].values()),
         "ms": decode_t["kernel"], "plain_ms": decode_t["plain"],
         "bound_ms": decode_t["bound"], "bound_by": decode_t["bound_by"],
-        "library_ms": decode_t["sdpa"]}]}))
+        "library_ms": decode_t["library"]}, {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:22",
+        "launches": hybrid["rmsnorm"],
+        "max_abs_err": max(ns_err["rmsnorm"].values()),
+        "ms": rms_t["kernel"], "plain_ms": rms_t["plain"],
+        "bound_ms": rms_t["bound"], "bound_by": rms_t["bound_by"],
+        "library_ms": rms_t["library"]}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:23",
+        "launches": hybrid["ssm_scan"],
+        "max_abs_err": max(ns_err["ssm_scan"].values()),
+        "ms": scan_t["kernel"], "plain_ms": scan_t["plain"],
+        "bound_ms": scan_t["bound"], "bound_by": scan_t["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Architecture configuration schema and reduced-variant helper.
 
 A copy of ``repro.configs.base`` (the port never imports the JAX
-package).  One difference: ``attn_impl`` takes ``"ref"`` (plain PyTorch
-attention) or ``"kernel"`` (the hand-written flash-attention and
-flash-decode kernels), where the JAX package says ``"pallas"``;
+package).  One difference: ``attn_impl`` takes ``"ref"`` (plain PyTorch)
+or ``"kernel"`` (every op of the model's path that has a hand-written
+kernel: flash attention, flash decode, RMSNorm and the Mamba2 selective
+scan), where the JAX package says ``"pallas"``;
 :func:`repro_torch.convert.arch_from_fields` maps one to the other.
 Fields that steer JAX-only machinery (``remat``, ``remat_policy``,
 ``unroll_layers``, ``opt_decode``, ``expert_split``, ``moe_groups``)
@@ -57,9 +58,11 @@ class ArchConfig:
     long_context_window: int = 0  # SWA width used ONLY for the long_500k
                                   # serving variant (cfg is otherwise full)
     # -- optimizations (§Perf) -------------------------------------------
-    attn_impl: str = "ref"      # "ref" (plain PyTorch) | "kernel" (the
-                                # hand-written flash attention + flash
-                                # decode; plain versions on CPU tensors)
+    attn_impl: str = "ref"      # "ref" (plain PyTorch) | "kernel" (every
+                                # op with a hand-written kernel: flash
+                                # attention, flash decode, RMSNorm, the
+                                # selective scan; plain versions on CPU
+                                # tensors)
     opt_decode: bool = False    # shard_map flash-decode (beyond-paper)
     expert_split: int = 1       # split each expert's d_ff s-ways so the
                                 # (E·s) dim divides the model axis: true

@@ -127,11 +127,12 @@ def params_to_numpy(params) -> dict:
 
 def random_numpy_params(cfg, seed: int) -> dict:
     """A parameter tree for ``cfg`` made with numpy from ``seed`` (float32,
-    the ``Model.init`` scheme: unit norms, zero biases, an N(0, 0.02²)
-    embedding, N(0, 1)/sqrt(fan_in) matrices), drawn leaf by leaf in
-    sorted order.  Both packages can take it, so it is how the tests and
-    the golden files give the JAX model and the port the same weights."""
-    from repro_torch.models.model import Model
+    the ``Model.init`` scheme: unit norms and D skips, zero biases and
+    ``a_log``, an N(0, 0.02²) embedding, N(0, 1)/sqrt(fan_in) matrices),
+    drawn leaf by leaf in sorted order.  Both packages can take it, so it
+    is how the tests and the golden files give the JAX model and the port
+    the same weights."""
+    from repro_torch.models.model import Model, init_constant
     model = Model(cfg, "cpu")
     rng = np.random.default_rng(seed)
 
@@ -147,10 +148,9 @@ def random_numpy_params(cfg, seed: int) -> dict:
         tree[group] = {}
         for name, shape in sorted(defs.items()):
             full = (n, *shape) if n else shape
-            if name.startswith("ln"):
-                tree[group][name] = np.ones(full, np.float32)
-            elif name.startswith("b"):
-                tree[group][name] = np.zeros(full, np.float32)
+            const = init_constant(name)
+            if const is not None:
+                tree[group][name] = np.full(full, const, np.float32)
             else:
                 fan_in = np.prod(shape[:-1]) if len(shape) > 1 else shape[0]
                 tree[group][name] = normal(full, 1.0 / np.sqrt(fan_in))

@@ -102,8 +102,8 @@ class CloudQueue(NamedTuple):
     rank: torch.Tensor        # f32[..., Qc] (γ^E−γ^C)/t_i steal rank
 
 
-def empty_edge_queue(capacity: int, lead: tuple = (),
-                     device="cpu") -> EdgeQueue:
+def empty_edge_queue(capacity: int, lead: tuple = (), *,
+                     device) -> EdgeQueue:
     shape = tuple(lead) + (capacity,)
 
     def z(dtype=torch.float32):
@@ -114,8 +114,8 @@ def empty_edge_queue(capacity: int, lead: tuple = (),
                      model=z(torch.int32))
 
 
-def empty_cloud_queue(capacity: int, lead: tuple = (),
-                      device="cpu") -> CloudQueue:
+def empty_cloud_queue(capacity: int, lead: tuple = (), *,
+                      device) -> CloudQueue:
     shape = tuple(lead) + (capacity,)
 
     def z(dtype=torch.float32):

@@ -25,10 +25,11 @@
 // to the warps in turn.  In a slice each lane scores one cache row (a dot
 // product over hd with q held in shared memory), the warp reduces the
 // slice max and sum with shuffles, and each lane then accumulates P.V into
-// its hd/32 output columns, reading V rows coalesced.  Each warp keeps its
-// own running (m, l, acc); the four are merged once at the end.  Query
-// heads of one KV head sit in neighbouring blocks, so their second and
-// later reads of the same cache rows are served from L2.
+// its ceil(hd/32) output columns (hd 64, 112 or 128; at 112 the fourth
+// column exists only for lanes 0-15), reading V rows coalesced.  Each
+// warp keeps its own running (m, l, acc); the four are merged once at the
+// end.  Query heads of one KV head sit in neighbouring blocks, so their
+// second and later reads of the same cache rows are served from L2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,7 +107,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               T* __restrict__ o, int64_t qsb, int64_t qsh, Strides3 ks,
               Strides3 vs, int64_t osb, int64_t osh, int W, int groups,
               float scale) {
-  constexpr int kCols = HD / kWarp;
+  constexpr int kCols = (HD + kWarp - 1) / kWarp;
+  // column j of this lane exists (always, unless HD is not a multiple
+  // of 32, as 112 is)
+  auto col_ok = [&](int j) {
+    return HD % kWarp == 0 || threadIdx.x % kWarp + j * kWarp < HD;
+  };
   __shared__ __align__(16) float q_s[HD];
   __shared__ float m_w[kWarps], l_w[kWarps];
   __shared__ float acc_w[kWarps][HD];
@@ -146,7 +152,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* vrow = vb + (base + cc) * vs.s;
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
-        acc[j] += pc * to_f(vrow[lane + j * kWarp]);
+        if (col_ok(j)) acc[j] += pc * to_f(vrow[lane + j * kWarp]);
     }
   }
 
@@ -155,7 +161,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_w[warp] = l;
   }
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) acc_w[warp][lane + j * kWarp] = acc[j];
+  for (int j = 0; j < kCols; ++j)
+    if (col_ok(j)) acc_w[warp][lane + j * kWarp] = acc[j];
   __syncthreads();
   float mm = m_w[0];
 #pragma unroll
@@ -205,17 +212,16 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   if (W <= 0 || groups <= 0 || H % groups != 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, lengths, o, strides, B, H, W, groups,
-                             scale, s);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, lengths, o, strides, B, H, W, groups,
-                              scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, lengths, o, strides, B, H, W,
-                                     groups, scale, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, lengths, o, strides, B, H, W,
-                                      groups, scale, s);
+#define DECODE_CASE(DT, T, HD)                                              \
+  if (dtype == DT && hd == HD)                                              \
+    return launch<T, HD>(q, k, v, lengths, o, strides, B, H, W, groups,     \
+                         scale, s);
+  DECODE_CASE(0, float, 64)
+  DECODE_CASE(0, float, 112)
+  DECODE_CASE(0, float, 128)
+  DECODE_CASE(1, __nv_bfloat16, 64)
+  DECODE_CASE(1, __nv_bfloat16, 112)
+  DECODE_CASE(1, __nv_bfloat16, 128)
+#undef DECODE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

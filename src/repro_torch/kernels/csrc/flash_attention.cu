@@ -12,7 +12,7 @@
 // its element strides over (b, h, s) with a contiguous hd axis, so the
 // model's (B,S,H,hd) activations are read and written in place through
 // transposed views.  Query head h reads KV head h / (H/KV) directly: no
-// repeated K/V is materialised.  hd is 64 or 128; f32 or bf16.
+// repeated K/V is materialised.  hd is 64, 112 or 128; f32 or bf16.
 //
 // Bound: at the serve path's shapes (S = 64, hd 64/128, one sequence) the
 // work is a few MFLOP per head against about 1 MB of q/k/v/out, so the
@@ -25,7 +25,8 @@
 // 8 query rows: lane j scores keys j and j+32 of the tile (K rows padded
 // by one float in shared memory, so the 32 lanes hit 32 banks), reduces
 // the row max and sum with shuffles, parks its probabilities in shared
-// memory, and then accumulates P.V over its hd/32 output columns.  Whole
+// memory, and then accumulates P.V over its ceil(hd/32) output columns
+// (at hd 112 the fourth column exists only for lanes 0-15).  Whole
 // K tiles outside the causal/window band are skipped (the loop ends at
 // the diagonal), the fringe is masked element by element, and a ragged
 // last tile (S not a multiple of 64) is masked rather than refused.
@@ -83,7 +84,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, Strides qs,
              Strides ks, Strides vs, Strides os, int S, int groups,
              float scale, int causal, int window) {
-  constexpr int kCols = HD / kWarp;      // output columns per lane
+  constexpr int kCols = (HD + kWarp - 1) / kWarp;  // columns per lane
+  // column j of this lane exists (always, unless HD is not a multiple
+  // of 32, as 112 is)
+  auto col_ok = [&](int j) {
+    return HD % kWarp == 0 || threadIdx.x % kWarp + j * kWarp < HD;
+  };
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // kBQ x HD
   float* k_s = q_s + kBQ * HD;                    // kBK x (HD + 1)
@@ -190,7 +196,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
         for (int j = 0; j < kCols; ++j)
-          vv[cc][j] = v_s[(c + cc) * HD + lane + j * kWarp];
+          vv[cc][j] = col_ok(j) ? v_s[(c + cc) * HD + lane + j * kWarp]
+                                : 0.f;
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const float4 pv =
@@ -211,7 +218,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      ob[qp * os.s + lane + j * kWarp] = from_f<T>(acc[i][j] / denom);
+      if (col_ok(j))
+        ob[qp * os.s + lane + j * kWarp] = from_f<T>(acc[i][j] / denom);
   }
 }
 
@@ -253,17 +261,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch<float, 64>(q, k, v, o, strides, B, H, S, groups, scale,
-                             causal, window, s);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128>(q, k, v, o, strides, B, H, S, groups, scale,
-                              causal, window, s);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, strides, B, H, S, groups,
-                                     scale, causal, window, s);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, strides, B, H, S, groups,
-                                      scale, causal, window, s);
+#define FLASH_CASE(DT, T, HD)                                               \
+  if (dtype == DT && hd == HD)                                              \
+    return launch<T, HD>(q, k, v, o, strides, B, H, S, groups, scale,       \
+                         causal, window, s);
+  FLASH_CASE(0, float, 64)
+  FLASH_CASE(0, float, 112)
+  FLASH_CASE(0, float, 128)
+  FLASH_CASE(1, __nv_bfloat16, 64)
+  FLASH_CASE(1, __nv_bfloat16, 112)
+  FLASH_CASE(1, __nv_bfloat16, 128)
+#undef FLASH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 
 KERNEL = "decode_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the hand kernel (one per wrapper call on CUDA tensors),

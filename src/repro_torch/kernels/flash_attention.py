@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 
 KERNEL = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of the hand kernel (one per wrapper call on CUDA tensors); the
@@ -55,7 +55,7 @@ def cuda_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: int = 0) -> torch.Tensor:
     """The hand kernel: q (B,H,S,hd), k/v (B,KV,S,hd) CUDA tensors of one
-    dtype (f32 or bf16), hd 64 or 128, any (b, h, s) strides with a
+    dtype (f32 or bf16), hd 64, 112 or 128, any (b, h, s) strides with a
     contiguous hd axis → (B,H,S,hd) in ``q``'s layout."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:

@@ -1,10 +1,10 @@
-"""Dispatch of the model zoo's attention kernels, in the manner of
-:mod:`repro_torch.kernels.sched_ops`.
+"""Dispatch of the model zoo's kernels (attention, flash decode, RMSNorm,
+the selective scan), in the manner of :mod:`repro_torch.kernels.sched_ops`.
 
 A CPU tensor takes the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor takes the hand-written kernel, which raises on what it does not
 take.  Nothing falls back to the plain version on the card.  Counterpart
-of the attention half of ``repro.kernels.ops``.
+of ``repro.kernels.ops`` (all of it but ``moe_gemm``).
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssm_scan as _ssm
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -29,3 +31,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.ref_decode_attention(q, k, v, lengths)
     return _decode.cuda_decode_attention(q, k, v, lengths.int())
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., D); scale: (D,) → x's shape and dtype."""
+    if x.device.type == "cpu":
+        return ref.ref_rmsnorm(x, scale, eps)
+    return _rms.cuda_rmsnorm(x, scale, eps)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (*L,S,P); dt: (*L,S); a: (*L); bmat/cmat: (*L,S,N), L = (G,) or
+    (B, H) → (y (*L,S,P), final state (*L,P,N))."""
+    if x.device.type == "cpu":
+        return ref.ref_selective_scan(x, dt, a, bmat, cmat)
+    return _ssm.cuda_ssm_scan(x, dt, a, bmat, cmat)

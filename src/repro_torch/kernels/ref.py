@@ -2,8 +2,9 @@
 
 Each function here is the semantics its hand-written kernel reproduces:
 bit for bit for the selection kernel, and up to the order of its f32
-sums for the attention kernels.  The CPU path runs these; on the card
-they are the yardstick the kernels are compared with.
+sums for the attention, RMSNorm and selective-scan kernels.  The CPU
+path runs these; on the card they are the yardstick the kernels are
+compared with.
 """
 from __future__ import annotations
 
@@ -76,3 +77,44 @@ def ref_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.where(valid[:, None, :], logits, NEG)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhk,bhkd->bhd", probs, v)
+
+
+def ref_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x (..., D), scale (D,): variance in f32, ``x·rsqrt(var+eps)·scale``
+    in f32, cast to ``x.dtype`` once at the end (the fused kernel's order;
+    the model's plain ``rms_norm`` casts the rsqrt first)."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def ref_selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       bmat: torch.Tensor, cmat: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence (the Mamba2 core), from a zero state.
+
+    x (*L,S,P); dt (*L,S); a (*L); bmat/cmat (*L,S,N), where the leading
+    shape L is (G,) with G = batch × heads, or (B, H):
+      state_t = exp(a·dt_t)·state_{t−1} + dt_t·(x_t ⊗ B_t)
+      y_t     = state_t · C_t
+    in f32.  Returns (y (*L,S,P), final state (*L,P,N)) in ``x.dtype``.
+    """
+    lead, (s, p) = x.shape[:-2], x.shape[-2:]
+    n = bmat.shape[-1]
+    xf = x.reshape(-1, s, p).float()
+    dtf = dt.reshape(-1, s).float()
+    af = a.reshape(-1).float()
+    bf = bmat.reshape(-1, s, n).float()
+    cf = cmat.reshape(-1, s, n).float()
+    state = torch.zeros((xf.shape[0], p, n), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(s):
+        dec = torch.exp(af * dtf[:, t])
+        state = state * dec[:, None, None] + dtf[:, t, None, None] * (
+            xf[:, t, :, None] * bf[:, t, None, :])
+        ys.append(torch.einsum("gpn,gn->gp", state, cf[:, t]))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros((xf.shape[0], 0, p))
+    return (y.reshape(*lead, s, p).to(x.dtype),
+            state.reshape(*lead, p, n).to(x.dtype))

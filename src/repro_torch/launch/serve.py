@@ -8,10 +8,11 @@ ServeEngine` — the §8.8 field validation without a drone.  Port of
 ``repro.launch.serve``.
 
 The roles are the JAX launcher's reduced models (2 layers, d_model 192,
-f32) on the card; ``--attn-impl kernel`` routes their attention through
-the hand-written flash-attention kernel, and ``--device cpu`` runs
-everything on the host.  ``build_roles(full_size=True)`` serves them at
-their published widths and depths in bf16 (``chip_smoke.py`` does).
+f32) on the card; ``--attn-impl kernel`` routes their attention and
+their norms through the hand-written flash-attention and RMSNorm
+kernels, and ``--device cpu`` runs everything on the host.
+``build_roles(full_size=True)`` serves them at their published widths
+and depths in bf16 (``chip_smoke.py`` does).
 ``--backend fleet`` (the compiled online control plane) is not ported
 yet.
 """
@@ -98,7 +99,12 @@ def main(argv=None) -> None:
                     help="thread = ServeEngine with live forward passes; "
                          "fleet = the compiled FleetController (not ported)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--attn-impl", default="ref", choices=("ref", "kernel"))
+    ap.add_argument("--attn-impl", default="ref", choices=("ref", "kernel"),
+                    help="kernel = every op of the models' path that has a "
+                         "hand-written CUDA kernel (flash attention, flash "
+                         "decode, RMSNorm, the Mamba2 selective scan); ref = "
+                         "plain PyTorch.  CPU tensors take the plain "
+                         "versions either way")
     args = ap.parse_args(argv)
     if args.backend == "fleet":
         raise NotImplementedError(

@@ -21,10 +21,15 @@ from repro_torch.kernels import ops
 NEG = -1e30
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
-             ) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             impl: str = "ref") -> torch.Tensor:
     """Variance in f32; the rsqrt is cast back to ``x.dtype`` before the
-    products (the model's order, not ``ref_rmsnorm``'s)."""
+    products (the model's order).  ``impl="kernel"`` routes through the
+    fused RMSNorm kernel (``kernels/ops.py``), which keeps the products
+    in f32 and rounds once (``ref_rmsnorm``'s order); the two agree
+    exactly in f32 up to the order of the sum."""
+    if impl == "kernel":
+        return ops.rmsnorm(x, scale, eps)
     var = x.float().square().mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
 

@@ -1,4 +1,5 @@
-"""Model assembly: the ``dense``, ``vlm`` and ``ssm`` (xLSTM) families.
+"""Model assembly: the ``dense``, ``vlm``, ``ssm`` (xLSTM) and ``hybrid``
+(Zamba2) families.
 
 Port of ``repro.models.model``.  One :class:`Model` per
 :class:`~repro_torch.configs.base.ArchConfig` exposes:
@@ -12,10 +13,14 @@ Port of ``repro.models.model``.  One :class:`Model` per
 Parameters keep the JAX package's tree (``params_from_numpy`` in
 :mod:`repro_torch.convert` carries a JAX ``Model.init`` tree across), and
 layers run as a Python loop over the stacked per-layer tensors in place
-of ``lax.scan``.  ``cfg.attn_impl == "kernel"`` sends ``forward``'s
-attention through the flash-attention kernel and ``decode_step``'s
-through the flash-decode kernel (contiguous caches only); ``prefill``
-runs plain attention in either case, as the JAX package does.
+of ``lax.scan``.  ``cfg.attn_impl == "kernel"`` sends every op of the
+path that has a hand kernel through it: ``forward``'s attention through
+the flash-attention kernel, ``decode_step``'s through the flash-decode
+kernel (contiguous caches only), every RMSNorm through the fused RMSNorm
+kernel, and the hybrid family's Mamba2 scans in ``forward`` and
+``prefill`` through the selective-scan kernel.  ``prefill``'s attention
+is plain in either case, as the JAX package's is; the hybrid's decode
+update has no kernel, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -36,7 +42,6 @@ _NOT_PORTED = {
     "moe": "ROADMAP queue 1: the moe family (routing, experts, moe_gemm)",
     "encdec": "ROADMAP queue 1: the encdec family (whisper encoder and "
               "cross-attention)",
-    "hybrid": "ROADMAP queue 1: the hybrid family (Mamba2 SSD, ssm_scan)",
 }
 
 
@@ -65,6 +70,12 @@ def _dense_block_defs(cfg: ArchConfig) -> dict:
             **_attn_defs(cfg), **_mlp_defs(cfg)}
 
 
+def _mamba_block_defs(cfg: ArchConfig) -> dict:
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return {"ln": (d,), "w_in": (d, 2 * di + 2 * n + h), "dt_bias": (h,),
+            "a_log": (h,), "d_skip": (h,), "w_out": (di, d)}
+
+
 def _mlstm_block_defs(cfg: ArchConfig) -> dict:
     d, di = cfg.d_model, cfg.d_inner
     return {"ln": (d,), "wq": (d, di), "wk": (d, di), "wv": (d, di),
@@ -76,6 +87,17 @@ def _slstm_block_defs(cfg: ArchConfig) -> dict:
     pd = d // h
     return {"ln": (d,), "w_in": (d, d), "w_rec": (h, 2 * pd, 4 * pd),
             "b_rec": (h, 4 * pd), "w_out": (d, d)}
+
+
+def init_constant(name: str):
+    """The constant a parameter starts at in the JAX ``Model.init`` scheme
+    (1 for norms and D skips, 0 for biases and ``a_log``), or None for a
+    matrix drawn at random."""
+    if name.startswith(("ln", "d_skip")):
+        return 1.0
+    if name in ("dt_bias", "a_log") or name.startswith("b"):
+        return 0.0
+    return None
 
 
 def _layer(stacked: dict, i: int) -> dict:
@@ -108,6 +130,13 @@ class Model:
             if cfg.family == "vlm":
                 lay["vis_proj"] = ({"w": (cfg.d_model, cfg.d_model)}, None)
             return lay
+        if cfg.family == "hybrid":       # Zamba2
+            g, tail = self._zamba_groups()
+            lay = {"mamba": (_mamba_block_defs(cfg), g * cfg.attn_every),
+                   "shared_attn": (_dense_block_defs(cfg), None)}
+            if tail:
+                lay["mamba_tail"] = (_mamba_block_defs(cfg), tail)
+            return lay
         g, rem = divmod(cfg.n_layers, cfg.slstm_every)
         if rem:
             raise ValueError(f"{cfg.name}: xlstm layers ({cfg.n_layers}) "
@@ -129,9 +158,10 @@ class Model:
 
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters from ``generator`` (on this model's device):
-        N(0, 1)/sqrt(fan_in) matrices, unit norms, zero biases, an
-        N(0, 0.02²) embedding — the JAX ``Model.init`` scheme, not its
-        numbers (the two generators differ)."""
+        N(0, 1)/sqrt(fan_in) matrices, unit norms and D skips, zero biases
+        (``dt_bias`` too) and ``a_log`` (A = −1 a head), an N(0, 0.02²)
+        embedding — the JAX ``Model.init`` scheme, not its numbers (the
+        two generators differ)."""
         cfg, dev = self.cfg, self.device
 
         def normal(shape, std):
@@ -148,12 +178,10 @@ class Model:
             out = {}
             for name, shape in sorted(defs.items()):
                 full = (n, *shape) if n else shape
-                if name.startswith("ln"):
-                    out[name] = torch.ones(full, dtype=self.pdtype,
+                const = init_constant(name)
+                if const is not None:
+                    out[name] = torch.full(full, const, dtype=self.pdtype,
                                            device=dev)
-                elif name.startswith("b"):
-                    out[name] = torch.zeros(full, dtype=self.pdtype,
-                                            device=dev)
                 else:
                     fan_in = math.prod(shape[:-1]) if len(shape) > 1 \
                         else shape[0]
@@ -167,11 +195,21 @@ class Model:
         return params
 
     # -- shared pieces ---------------------------------------------------
+    def _norm(self, x, scale):
+        """RMSNorm on ``cfg.attn_impl``'s route (the kernel or plain)."""
+        return L.rms_norm(x, scale, self.cfg.norm_eps, self.cfg.attn_impl)
+
     def _dense_block(self, p, x):
         cfg = self.cfg
-        h = L.attention_block(p, cfg, L.rms_norm(x, p["ln1"], cfg.norm_eps))
+        h = L.attention_block(p, cfg, self._norm(x, p["ln1"]))
         x = x + h
-        return x + L.mlp(p, cfg, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+        return x + L.mlp(p, cfg, self._norm(x, p["ln2"]))
+
+    def _mamba_block(self, p, x):
+        """Pre-norm Mamba2 block from a zero state; returns (x + y, final
+        state)."""
+        y, state = SSM.ssd_block(p, self.cfg, self._norm(x, p["ln"]))
+        return x + y, state
 
     def embed_tokens(self, params, tokens):
         return params["embed"][tokens].to(self.dtype)
@@ -198,13 +236,15 @@ class Model:
         cfg = self.cfg
         if cfg.family == "ssm":
             x = self._xlstm_forward(params, batch)
+        elif cfg.family == "hybrid":
+            x = self._zamba_forward(params, batch)
         else:
             x = self._embed_inputs(params, batch)
             for i in range(cfg.n_layers):
                 x = self._dense_block(_layer(params["blocks"], i), x)
             if cfg.family == "vlm":
                 x = x[:, cfg.n_image_tokens:]
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = self._norm(x, params["final_norm"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self.unembed(params, x), aux
 
@@ -219,13 +259,33 @@ class Model:
         for gi in range(g):
             for j in range(per):
                 p = _layer(params["mlstm"], gi * per + j)
-                y, _ = XL.mlstm_parallel(p, cfg, L.rms_norm(x, p["ln"],
-                                                            cfg.norm_eps))
+                y, _ = XL.mlstm_parallel(p, cfg, self._norm(x, p["ln"]))
                 x = x + y
             sp = _layer(params["slstm"], gi)
-            y, _ = XL.slstm_scan(sp, cfg, L.rms_norm(x, sp["ln"],
-                                                     cfg.norm_eps))
+            y, _ = XL.slstm_scan(sp, cfg, self._norm(x, sp["ln"]))
             x = x + y
+        return x
+
+    def _zamba_groups(self):
+        """(groups of ``attn_every`` Mamba2 layers, each followed by the
+        shared attention block; Mamba2 layers in the tail after them)."""
+        cfg = self.cfg
+        if cfg.attn_every <= 0:
+            raise ValueError(f"{cfg.name}: hybrid needs attn_every > 0")
+        g = cfg.n_layers // cfg.attn_every
+        return g, cfg.n_layers - g * cfg.attn_every
+
+    def _zamba_forward(self, params, batch):
+        cfg = self.cfg
+        x = self.embed_tokens(params, batch["tokens"])
+        g, tail = self._zamba_groups()
+        for gi in range(g):
+            for j in range(cfg.attn_every):
+                x, _ = self._mamba_block(
+                    _layer(params["mamba"], gi * cfg.attn_every + j), x)
+            x = self._dense_block(params["shared_attn"], x)
+        for i in range(tail):
+            x, _ = self._mamba_block(_layer(params["mamba_tail"], i), x)
         return x
 
     # ======================================================================
@@ -236,6 +296,17 @@ class Model:
         if cfg.family in ("dense", "vlm"):
             return L.init_kv_cache(cfg, cfg.n_layers, batch_size, max_seq,
                                    dt, dev)
+        if cfg.family == "hybrid":
+            g, tail = self._zamba_groups()
+            ssm = (batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                   cfg.ssm_state)
+            cache = L.init_kv_cache(cfg, g, batch_size, max_seq, dt, dev)
+            cache["state"] = torch.zeros((g, cfg.attn_every, *ssm),
+                                         dtype=dt, device=dev)
+            if tail:
+                cache["tail_state"] = torch.zeros((tail, *ssm), dtype=dt,
+                                                  device=dev)
+            return cache
         g, per = self._xlstm_groups()
         h, pd = cfg.n_heads, cfg.d_inner // cfg.n_heads
         spd = cfg.d_model // cfg.n_heads
@@ -262,20 +333,26 @@ class Model:
         x = self.embed_tokens(params, token)
         if cfg.family == "ssm":
             x = self._xlstm_decode(params, cache, x)
+        elif cfg.family == "hybrid":
+            x = self._zamba_decode(params, cache, x, pos)
         else:
             for i in range(cfg.n_layers):
-                p = _layer(params["blocks"], i)
-                x = self._decode_self_attn(p, x, cache["k"][i],
-                                           cache["v"][i], pos)
-                x = x + L.mlp(p, cfg, L.rms_norm(x, p["ln2"], cfg.norm_eps))
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+                x = self._decode_attn_block(_layer(params["blocks"], i), x,
+                                            cache["k"][i], cache["v"][i],
+                                            pos)
+        x = self._norm(x, params["final_norm"])
         return self.unembed(params, x), cache
+
+    def _decode_attn_block(self, p, x, ck, cv, pos: int):
+        """Pre-norm attention block against one layer's cache view."""
+        x = self._decode_self_attn(p, x, ck, cv, pos)
+        return x + L.mlp(p, self.cfg, self._norm(x, p["ln2"]))
 
     def _decode_self_attn(self, p, x, ck, cv, pos: int):
         """Self-attention sublayer against one layer's cache view (written
         in place)."""
         cfg = self.cfg
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = self._norm(x, p["ln1"])
         b = x.shape[0]
         positions = torch.full((b, 1), pos, device=x.device)
         q, k, v = L.qkv_proj(p, cfg, h, positions)
@@ -303,18 +380,40 @@ class Model:
             for j in range(per):
                 p = _layer(params["mlstm"], gi * per + j)
                 y, (c2, n2) = XL.mlstm_decode_step(
-                    p, cfg, L.rms_norm(x, p["ln"], cfg.norm_eps),
+                    p, cfg, self._norm(x, p["ln"]),
                     (cache["m_c"][gi, j], cache["m_n"][gi, j]))
                 x = x + y
                 cache["m_c"][gi, j] = c2
                 cache["m_n"][gi, j] = n2
             sp = _layer(params["slstm"], gi)
             y, states = XL.slstm_decode_step(
-                sp, cfg, L.rms_norm(x, sp["ln"], cfg.norm_eps),
+                sp, cfg, self._norm(x, sp["ln"]),
                 (cache["s_h"][gi], cache["s_c"][gi], cache["s_n"][gi]))
             x = x + y
             for name, st in zip(("s_h", "s_c", "s_n"), states):
                 cache[name][gi] = st
+        return x
+
+    def _zamba_decode(self, params, cache, x, pos: int):
+        cfg = self.cfg
+        g, tail = self._zamba_groups()
+
+        def mamba_step(p, x, state):
+            y, new = SSM.ssd_decode_step(p, cfg, self._norm(x, p["ln"]),
+                                         state)
+            state.copy_(new)
+            return x + y
+
+        for gi in range(g):
+            for j in range(cfg.attn_every):
+                x = mamba_step(_layer(params["mamba"],
+                                      gi * cfg.attn_every + j), x,
+                               cache["state"][gi, j])
+            x = self._decode_attn_block(params["shared_attn"], x,
+                                        cache["k"][gi], cache["v"][gi], pos)
+        for i in range(tail):
+            x = mamba_step(_layer(params["mamba_tail"], i), x,
+                           cache["tail_state"][i])
         return x
 
     # -- prefill -----------------------------------------------------------
@@ -324,7 +423,9 @@ class Model:
 
         Attention here is always the plain version (``attend_auto``
         without ``impl``), whatever ``cfg.attn_impl`` says: the JAX
-        package's prefill does the same.
+        package's prefill does the same.  Norms and the hybrid's scans
+        follow ``cfg.attn_impl``; the scan kernel's final state seeds the
+        decode cache.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -332,32 +433,42 @@ class Model:
         cache = self.init_cache(b, max_seq)
         if cfg.family == "ssm":
             return self._xlstm_prefill(params, tokens, cache)
+        if cfg.family == "hybrid":
+            return self._zamba_prefill(params, tokens, cache)
         x = self._embed_inputs(params, batch)
         s_total = x.shape[1]
         positions = torch.arange(s_total, device=x.device).expand(
             b, s_total)
-        w = cache["k"].shape[2]
-        take = min(w, s_total)
-        if cfg.sliding_window and take == w:
-            # ring placement: the slot of absolute position p is p % w
-            slots = torch.arange(s_total - take, s_total,
-                                 device=x.device) % w
-        else:
-            slots = torch.arange(take, device=x.device)
+        slots = self._cache_slots(s_total, cache["k"].shape[2], x.device)
         for i in range(cfg.n_layers):
-            p = _layer(params["blocks"], i)
-            hn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = L.qkv_proj(p, cfg, hn, positions)
-            out = L.attend_auto(q, k, v, causal=True,
-                                window=cfg.sliding_window)
-            x = x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
-            x = x + L.mlp(p, cfg, L.rms_norm(x, p["ln2"], cfg.norm_eps))
-            cache["k"][i][:, slots] = k[:, s_total - take:]
-            cache["v"][i][:, slots] = v[:, s_total - take:]
+            x = self._prefill_attn_block(_layer(params["blocks"], i), x,
+                                         positions, cache, i, slots)
         if cfg.family == "vlm":
             x = x[:, cfg.n_image_tokens:]
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = self._norm(x, params["final_norm"])
         return self.unembed(params, x[:, -1:]), cache
+
+    def _cache_slots(self, s: int, w: int, device) -> torch.Tensor:
+        """Cache slots of a prompt's last ``min(w, s)`` positions: the
+        first slots of a contiguous cache, or ``p % w`` for position p of
+        a sliding window's ring."""
+        take = min(w, s)
+        if self.cfg.sliding_window:
+            return torch.arange(s - take, s, device=device) % w
+        return torch.arange(take, device=device)
+
+    def _prefill_attn_block(self, p, x, positions, cache, i: int, slots):
+        """Pre-norm attention block over the prompt (plain attention),
+        writing its last K/V rows into cache layer ``i`` at ``slots``."""
+        cfg = self.cfg
+        q, k, v = L.qkv_proj(p, cfg, self._norm(x, p["ln1"]), positions)
+        out = L.attend_auto(q, k, v, causal=True, window=cfg.sliding_window)
+        x = x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        x = x + L.mlp(p, cfg, self._norm(x, p["ln2"]))
+        s, take = x.shape[1], len(slots)
+        cache["k"][i][:, slots] = k[:, s - take:]
+        cache["v"][i][:, slots] = v[:, s - take:]
+        return x
 
     def _xlstm_prefill(self, params, tokens, cache):
         cfg = self.cfg
@@ -366,16 +477,34 @@ class Model:
         for gi in range(g):
             for j in range(per):
                 p = _layer(params["mlstm"], gi * per + j)
-                y, (c, n) = XL.mlstm_parallel(
-                    p, cfg, L.rms_norm(x, p["ln"], cfg.norm_eps))
+                y, (c, n) = XL.mlstm_parallel(p, cfg,
+                                              self._norm(x, p["ln"]))
                 x = x + y
                 cache["m_c"][gi, j] = c
                 cache["m_n"][gi, j] = n
             sp = _layer(params["slstm"], gi)
-            y, states = XL.slstm_scan(sp, cfg, L.rms_norm(x, sp["ln"],
-                                                          cfg.norm_eps))
+            y, states = XL.slstm_scan(sp, cfg, self._norm(x, sp["ln"]))
             x = x + y
             for name, st in zip(("s_h", "s_c", "s_n"), states):
                 cache[name][gi] = st
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = self._norm(x, params["final_norm"])
+        return self.unembed(params, x[:, -1:]), cache
+
+    def _zamba_prefill(self, params, tokens, cache):
+        cfg = self.cfg
+        x = self.embed_tokens(params, tokens)
+        b, s = tokens.shape
+        g, tail = self._zamba_groups()
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        slots = self._cache_slots(s, cache["k"].shape[2], x.device)
+        for gi in range(g):
+            for j in range(cfg.attn_every):
+                x, cache["state"][gi, j] = self._mamba_block(
+                    _layer(params["mamba"], gi * cfg.attn_every + j), x)
+            x = self._prefill_attn_block(params["shared_attn"], x,
+                                         positions, cache, gi, slots)
+        for i in range(tail):
+            x, cache["tail_state"][i] = self._mamba_block(
+                _layer(params["mamba_tail"], i), x)
+        x = self._norm(x, params["final_norm"])
         return self.unembed(params, x[:, -1:]), cache

@@ -232,8 +232,8 @@ def init_state(prof: Profiles, n_edges: int, adapt_window: int = 10,
     busy = torch.where(torch.arange(total, device=dev) < cloud_slots, 0.0,
                        js.POS)
     return EdgeState(
-        eq=js.empty_edge_queue(EDGE_CAP, lead, dev),
-        cq=js.empty_cloud_queue(CLOUD_CAP, lead, dev),
+        eq=js.empty_edge_queue(EDGE_CAP, lead, device=dev),
+        cq=js.empty_cloud_queue(CLOUD_CAP, lead, device=dev),
         cq_model=zi((CLOUD_CAP,)),
         busy_rem=torch.zeros(lead, device=dev),
         cloud_busy_until=busy.expand(lead + (total,)).clone(),

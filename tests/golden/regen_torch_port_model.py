@@ -1,46 +1,65 @@
-"""Regenerate the PyTorch port's model golden file from the JAX reference.
+"""Regenerate the PyTorch port's model golden files from the JAX reference.
 
-    PYTHONPATH=src python tests/golden/regen_torch_port_model.py
+    PYTHONPATH=src python tests/golden/regen_torch_port_model.py [NAME ...]
     PYTHONPATH=src python tests/golden/regen_torch_port_model.py --check
 
-granite-3-2b at its full width (d_model 2048, 32/8 heads, hd 64, d_ff
-8192, vocab 49155 padded to 49408) cut to 2 layers, in float32, with
-weights drawn by ``repro_torch.convert.random_numpy_params`` from a
-numpy seed, run through the JAX ``Model`` with ``attn_impl="pallas"``
-(interpret mode on the CPU: the flash-attention kernel in ``forward``,
-the flash-decode kernel in ``decode_step``).  The file keeps what
-``chip_smoke.py`` holds the port to on the card, which has no JAX:
+Each file holds one model at its published width with its depth cut, in
+float32, with weights drawn by ``repro_torch.convert.random_numpy_params``
+from a numpy seed, run through the JAX ``Model`` with
+``attn_impl="pallas"`` (interpret mode on the CPU: the flash-attention
+kernel in ``forward``, the flash-decode kernel in ``decode_step``):
 
-* ``forward`` on (B 2, S 128) tokens: the top-8 ids and values and the
-  f64 sum of the real-vocabulary logits at a few positions;
+* ``torch_port_model.json``: granite-3-2b (d_model 2048, 32/8 heads,
+  hd 64, d_ff 8192, vocab 49155 padded to 49408) cut to 2 layers;
+  forward on (B 2, S 128);
+* ``torch_port_zamba2.json``: zamba2-7b (d_model 3584, Mamba2 heads
+  112 × 64 with a 64-wide state, the shared block's 32/32 heads at
+  hd 112, d_ff 14336, vocab 32000) cut to 8 layers — one group of 6
+  Mamba2 layers, the shared block, and a 2-layer tail; forward on
+  (B 2, S 256), so the JAX chunked scan crosses a chunk boundary
+  (about 4 GB of f32 weights).
+
+The files keep what ``chip_smoke.py`` holds the port to on the card,
+which has no JAX:
+
+* ``forward``: the top-8 ids and values and the f64 sum of the
+  real-vocabulary logits at a few positions;
 * ``prefill`` of the first 96 tokens (max_seq 128), then 8 greedy
   ``decode_step``s: the prefill's top-8, and per step the greedy token
   with its top-1 and top-2 logits.
 
 The tokens are stored in the file, so only the weights depend on the
-seed.  ``--check`` recomputes and fails (exit 1) if any number moved by
-more than 1e-5, without rewriting the file.
+seed.  NAME picks files by their stem (``torch_port_zamba2``); all by
+default.  ``--check`` recomputes and fails (exit 1) if any number moved
+by more than 1e-5, without rewriting the file.
 """
 import json
 import pathlib
 import sys
 
-PATH = pathlib.Path(__file__).parent / "torch_port_model.json"
-COMMON = dict(arch="granite-3-2b", n_layers=2, dtype="float32",
-              weight_seed=20241230, token_seed=7, batch=2, seq=128,
-              prompt=96, max_seq=128, decode_steps=8, top=8,
-              positions=[0, 1, 63, 95, 127])
+DIR = pathlib.Path(__file__).parent
+# file name → what it holds (every field is written into the file)
+GOLDENS = {
+    "torch_port_model.json": dict(
+        arch="granite-3-2b", n_layers=2, dtype="float32",
+        weight_seed=20241230, token_seed=7, batch=2, seq=128, prompt=96,
+        max_seq=128, decode_steps=8, top=8, positions=[0, 1, 63, 95, 127]),
+    "torch_port_zamba2.json": dict(
+        arch="zamba2-7b", n_layers=8, dtype="float32",
+        weight_seed=20241231, token_seed=8, batch=2, seq=256, prompt=96,
+        max_seq=128, decode_steps=8, top=8,
+        positions=[0, 1, 95, 127, 128, 255]),
+}
 
 
-def config():
-    """The golden model's config, in the port's terms (``"kernel"``)."""
+def config(spec: dict):
+    """A golden model's config, in the port's terms (``"kernel"``)."""
     import dataclasses
 
     from repro_torch.configs.registry import ARCHS
     return dataclasses.replace(
-        ARCHS[COMMON["arch"]], n_layers=COMMON["n_layers"],
-        dtype=COMMON["dtype"], param_dtype=COMMON["dtype"],
-        attn_impl="kernel")
+        ARCHS[spec["arch"]], n_layers=spec["n_layers"], dtype=spec["dtype"],
+        param_dtype=spec["dtype"], attn_impl="kernel")
 
 
 def _top(row, k):
@@ -49,7 +68,7 @@ def _top(row, k):
     return [int(i) for i in ids], [float(row[i]) for i in ids]
 
 
-def _compute() -> dict:
+def _compute(spec: dict) -> dict:
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -58,48 +77,48 @@ def _compute() -> dict:
     from repro.models.model import Model
     from repro_torch import convert
 
-    cfg = config()
+    cfg = config(spec)
     jcfg = ArchConfig(**convert.arch_to_fields(cfg))
     model = Model(jcfg)
     params = jax.tree.map(jnp.asarray, convert.random_numpy_params(
-        cfg, COMMON["weight_seed"]))
-    rng = np.random.default_rng(COMMON["token_seed"])
-    tokens = rng.integers(0, cfg.vocab, (COMMON["batch"], COMMON["seq"]),
+        cfg, spec["weight_seed"]))
+    rng = np.random.default_rng(spec["token_seed"])
+    tokens = rng.integers(0, cfg.vocab, (spec["batch"], spec["seq"]),
                           dtype=np.int32)
-    k, vocab = COMMON["top"], cfg.vocab
+    k, vocab = spec["top"], cfg.vocab
 
     logits, _ = model.forward(params, {"tokens": jnp.asarray(tokens)})
     logits = np.asarray(logits)
     fwd = []
-    for b in range(COMMON["batch"]):
-        for p in COMMON["positions"]:
+    for b in range(spec["batch"]):
+        for p in spec["positions"]:
             ids, vals = _top(logits[b, p], k)
             fwd.append(dict(b=b, pos=p, ids=ids, values=vals,
                             checksum=float(logits[b, p, :vocab].astype(
                                 np.float64).sum())))
 
-    prompt = COMMON["prompt"]
+    prompt = spec["prompt"]
     last, cache = model.prefill(
         params, {"tokens": jnp.asarray(tokens[:, :prompt])},
-        COMMON["max_seq"])
+        spec["max_seq"])
     last = np.asarray(last)[:, 0]
     pre = [dict(zip(("ids", "values"), _top(last[b], k)))
-           for b in range(COMMON["batch"])]
+           for b in range(spec["batch"])]
     tok = last.argmax(-1).astype(np.int32)
     steps = []
-    for t in range(COMMON["decode_steps"]):
+    for t in range(spec["decode_steps"]):
         step, cache = model.decode_step(params, cache,
                                         jnp.asarray(tok[:, None]),
                                         jnp.asarray(prompt + t, jnp.int32))
         row = np.asarray(step)[:, 0]
-        tops = [_top(row[b], 2) for b in range(COMMON["batch"])]
+        tops = [_top(row[b], 2) for b in range(spec["batch"])]
         steps.append(dict(fed=[int(x) for x in tok],
                           top1=[ids[0] for ids, _ in tops],
                           top1_value=[vals[0] for _, vals in tops],
                           top2_value=[vals[1] for _, vals in tops]))
         tok = row.argmax(-1).astype(np.int32)
-    return dict(COMMON, tokens=tokens.tolist(), forward=fwd,
-                prefill=pre, decode=steps)
+    return dict(spec, tokens=tokens.tolist(), forward=fwd, prefill=pre,
+                decode=steps)
 
 
 def _numbers(tree):
@@ -114,19 +133,32 @@ def _numbers(tree):
 
 
 def main() -> None:
-    fresh = _compute()
-    if "--check" in sys.argv[1:]:
-        golden = json.loads(PATH.read_text())
+    args = sys.argv[1:]
+    check = "--check" in args
+    names = [a for a in args if a != "--check"]
+    stale = []
+    for fname, spec in GOLDENS.items():
+        if names and pathlib.Path(fname).stem not in names:
+            continue
+        path = DIR / fname
+        fresh = _compute(spec)
+        if not check:
+            path.write_text(json.dumps(fresh, indent=1, sort_keys=True)
+                            + "\n")
+            print("wrote", path)
+            continue
+        golden = json.loads(path.read_text())
         old, new = list(_numbers(golden)), list(_numbers(fresh))
         if len(old) != len(new) or any(
                 (a != b) if isinstance(a, (int, str)) else abs(a - b) > 1e-5
                 for a, b in zip(old, new)):
-            print("golden file is stale — rerun without --check and commit")
-            sys.exit(1)
-        print("golden file is fresh:", PATH)
-        return
-    PATH.write_text(json.dumps(fresh, indent=1, sort_keys=True) + "\n")
-    print("wrote", PATH)
+            stale.append(path)
+        else:
+            print("golden file is fresh:", path)
+    if stale:
+        print("golden files are stale — rerun without --check and commit:",
+              *stale)
+        sys.exit(1)
 
 
 if __name__ == "__main__":

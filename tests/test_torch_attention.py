@@ -53,6 +53,7 @@ def _np(x):
     (1, 4, 4, 128, 64),      # MHA
     (2, 8, 2, 256, 64),      # GQA 4:1
     (1, 4, 1, 128, 128),     # MQA
+    (1, 4, 4, 128, 112),     # zamba2's head dim
 ])
 @pytest.mark.parametrize("window", [0, 64])
 def test_plain_flash_matches_jax(b, h, kv, s, hd, dtype, window):
@@ -83,10 +84,11 @@ def test_plain_flash_non_causal_matches_jax():
 @pytest.mark.parametrize("s", [1, 17, 64])
 def test_plain_flash_on_serve_path_shapes(s):
     """The serve path's shapes (one sequence, S ≤ 128, block = S as the
-    JAX ``attend_pallas`` picks it): granite's GQA 32/8 at hd 64 and a
-    starcoder2-like 12:1 group at hd 128, causal with a 16-key band."""
+    JAX ``attend_pallas`` picks it): granite's GQA 32/8 at hd 64, a
+    starcoder2-like 12:1 group at hd 128 and zamba2's shared block (32/32
+    heads at hd 112), causal with a 16-key band."""
     rng = np.random.default_rng(s)
-    for h, kv, hd in ((32, 8, 64), (24, 2, 128)):
+    for h, kv, hd in ((32, 8, 64), (24, 2, 128), (32, 32, 112)):
         q = rng.standard_normal((1, h, s, hd), np.float32)
         k = rng.standard_normal((1, kv, s, hd), np.float32)
         v = rng.standard_normal((1, kv, s, hd), np.float32)
@@ -124,6 +126,7 @@ def test_plain_flash_takes_transposed_views():
     (2, 4, 4, 512, 64),
     (3, 8, 2, 1024, 64),
     (1, 4, 1, 256, 128),
+    (2, 4, 4, 256, 112),
 ])
 def test_plain_decode_matches_jax(b, h, kv, w, hd, dtype):
     rng = np.random.default_rng(hash((b, h, w)) % 2**31)
@@ -212,7 +215,8 @@ def test_cuda_flash_matches_plain(cuda_device, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     for b, h, kv, s, hd in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
                             (1, 4, 1, 128, 128), (1, 32, 8, 17, 64),
-                            (1, 24, 2, 64, 128)):
+                            (1, 24, 2, 64, 128), (1, 32, 32, 64, 112),
+                            (2, 8, 2, 100, 112)):
         q, k, v = (torch.randn(shape, generator=gen, device=cuda_device,
                                dtype=td)
                    for shape in ((b, h, s, hd), (b, kv, s, hd),
@@ -229,13 +233,17 @@ def test_cuda_flash_matches_plain(cuda_device, dtype):
 def test_cuda_decode_matches_plain(cuda_device, dtype):
     td = DTYPES[dtype][1]
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    b, w, kv, h, hd = 3, 1024, 2, 8, 128
+    for b, w, kv, h, hd in ((3, 1024, 2, 8, 128), (2, 512, 32, 32, 112)):
+        _check_cuda_decode(cuda_device, gen, td, dtype, b, w, kv, h, hd)
+
+
+def _check_cuda_decode(cuda_device, gen, td, dtype, b, w, kv, h, hd):
     cache_k = torch.randn((b, w, kv, hd), generator=gen, device=cuda_device,
                           dtype=td)
     cache_v = torch.randn((b, w, kv, hd), generator=gen, device=cuda_device,
                           dtype=td)
     q = torch.randn((b, h, hd), generator=gen, device=cuda_device, dtype=td)
-    for length in (1, 31, 32, 33, 500, 1024):
+    for length in (1, 31, 32, 33, w // 2 - 12, w):
         lengths = torch.full((b,), length, dtype=torch.int32,
                              device=cuda_device)
         got = tops.decode_attention(q, cache_k.transpose(1, 2),

@@ -1,6 +1,10 @@
-"""The port's golden summaries: the JAX ``fleet_summary`` of every fleet
-run ``chip_smoke.py`` drives on the card (``tests/golden/
-torch_port_summaries.json``, written by ``regen_torch_port_summaries.py``).
+"""The port's golden files: the JAX ``fleet_summary`` of every fleet run
+``chip_smoke.py`` drives on the card (``tests/golden/
+torch_port_summaries.json``, written by ``regen_torch_port_summaries.py``),
+and the JAX model numbers it holds the full-width granite and zamba2
+models to (``torch_port_model.json``, ``torch_port_zamba2.json``, written
+by ``regen_torch_port_model.py``; each file must hold what its generator
+defines).
 
 The small 2-edge entries are re-run here through JAX and through the CPU
 port: both must reproduce the file exactly, and the port's final state
@@ -30,10 +34,9 @@ GOLDEN = json.loads((GOLDEN_DIR / "torch_port_summaries.json").read_text())
 SMALL = [r for r in GOLDEN["runs"] if r["phase"] == 3]
 
 
-def _regen_module():
+def _regen_module(name="regen_torch_port_summaries"):
     spec = importlib.util.spec_from_file_location(
-        "regen_torch_port_summaries",
-        GOLDEN_DIR / "regen_torch_port_summaries.py")
+        name, GOLDEN_DIR / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -85,3 +88,38 @@ def test_small_run_jax_and_port_reproduce_golden(run):
         assert run["summary"]["stolen"] > 0
     if run["policy"].endswith("-COOP"):
         assert run["summary"]["peer_offloaded"] > 0
+
+
+@pytest.mark.parametrize("fname", ["torch_port_model.json",
+                                   "torch_port_zamba2.json"])
+def test_model_golden_file_matches_its_generator(fname):
+    """The model golden file holds the entry its generator defines (the
+    spec's fields, tokens of its shape, a forward row per batch row and
+    position, the prefill's top-k, and a greedy decode chain that feeds
+    each step the previous step's top-1), and its config builds a port
+    model with the kernel route."""
+    from repro_torch.models.model import Model
+    regen = _regen_module("regen_torch_port_model")
+    assert set(regen.GOLDENS) == {"torch_port_model.json",
+                                  "torch_port_zamba2.json"}
+    spec = regen.GOLDENS[fname]
+    gold = json.loads((GOLDEN_DIR / fname).read_text())
+    assert set(gold) == set(spec) | {"tokens", "forward", "prefill",
+                                     "decode"}
+    assert {k: gold[k] for k in spec} == spec
+    cfg = regen.config(spec)
+    assert cfg.attn_impl == "kernel" and cfg.n_layers == spec["n_layers"]
+    Model(cfg, "cpu").param_shapes()
+    tokens = gold["tokens"]
+    assert len(tokens) == spec["batch"]
+    assert all(len(row) == spec["seq"] and max(row) < cfg.vocab
+               for row in tokens)
+    assert [(e["b"], e["pos"]) for e in gold["forward"]] == [
+        (b, p) for b in range(spec["batch"]) for p in spec["positions"]]
+    assert all(len(e["ids"]) == spec["top"] for e in gold["forward"])
+    assert len(gold["prefill"]) == spec["batch"]
+    assert len(gold["decode"]) == spec["decode_steps"]
+    fed = [e["ids"][0] for e in gold["prefill"]]
+    for step in gold["decode"]:
+        assert step["fed"] == fed
+        fed = step["top1"]
