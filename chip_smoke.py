@@ -8,26 +8,31 @@ its three paths: the fleet scheduler — ``simulate_fleet`` / ``run_fleet``
 / ``FleetProgram`` at the paper's §8.6 fleet scale (28 edges, 84 drones)
 and at a 1024-edge metropolis fleet — live DNN serving — the
 ``ServeEngine`` over the three launcher roles at their published sizes,
-and greedy decoding — and the hybrid family: zamba2-7b (Mamba2 blocks and
+and greedy decoding — the hybrid family: zamba2-7b (Mamba2 blocks and
 a shared attention block) served and decoded at its published width and
-depth.  Its five hand-written ``sm_90a`` kernels (masked arg-extremum,
-flash attention, flash decode, RMSNorm, selective scan) are built from
-``src/repro_torch/kernels/csrc`` at first use.  Phases, each printed on
+depth — and the moe family: qwen3-moe-30b-a3b (128 experts, top-8)
+served and decoded at its published width and depth.  Its six
+hand-written ``sm_90a`` kernels (masked arg-extremum, flash attention,
+flash decode, RMSNorm, selective scan, MoE grouped GEMM) are built from
+``src/repro_torch/kernels/csrc`` at first use, one ``nvcc`` each, all
+started together.  Phases, each printed on
 its own line and each failing the script (non-zero exit) on error:
 
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 flags,
-   the five kernels built at once;
+   the six kernels built at once;
 2. kernels vs their plain PyTorch versions on the card: masked_argext
    exact; flash attention and flash decode on the kernel tests' sweep
    and the serve/decode shapes, hd 64, 112 and 128 (f32 1e-5, bf16
    2e-2); RMSNorm (f32 1e-5, bf16 2e-2) and the selective scan (f32
    2e-4, bf16 2e-2) on the kernel tests' shapes and the zamba2 path's
-   views;
+   views; the grouped GEMM (f32 1e-4, bf16 3e-2 against f32) on the
+   kernel tests' sweep, ragged T and the qwen3-moe path's shapes, with
+   the rows that no expert owns exactly zero;
 3. small parity: the 2-edge golden runs (DEMS-A, GEMS, DEMS-COOP,
    SOTA2) on the card and on the host, every final-state leaf equal,
    summaries equal to the golden JAX ones;
 4. paper-scale fleet (masked_argext's main path; its launches are read
-   over this phase): DEMS-A, GEMS and DEMS-COOP, 28 edges × 60 s each,
+   over this phase): DEMS-A, GEMS and DEMS-COOP, 28 edges × 30 s each,
    each summary equal to its golden JAX entry;
 5. model golden: granite-3-2b at full width, 2 layers, f32 — forward,
    prefill and teacher-forced decode against the JAX reference's numbers;
@@ -54,11 +59,26 @@ its own line and each failing the script (non-zero exit) on error:
     f32;
 14. the zamba2 path's kernel times: RMSNorm beside
     ``torch.nn.functional.rms_norm``, the selective scan, and the two
-    attention kernels at hd 112.
+    attention kernels at hd 112;
+15. moe golden: qwen3-moe-30b-a3b at full width, 2 layers, f32 — forward
+    on (B 2, S 128) (capacity 21: pairs drop), prefill and teacher-forced
+    decode against the JAX reference's numbers;
+16. moe serve and decode (moe_gemm's main path; every model kernel's
+    launches are read over this phase and must equal the path's
+    exactly: 144 ``moe_gemm`` a forward, prefill or step): qwen3-moe at
+    48 layers, bf16 (61 GB of the card), ``"kernel"`` —
+    ``ServableModel.from_arch`` with ``probe_p95``, a 10 s GEMS stream,
+    one forward under ``set_sync_debug_mode("error")``, B 8 greedy
+    decoding against ``"ref"`` (relative RMS and routing agreement per
+    layer), then an f32 copy at 8 layers on both routes;
+17. ``moe_gemm``'s times at the serve, decode and prefill shapes and a
+    compacted ragged one, beside its plain version, ``torch.bmm`` and
+    ``torch._grouped_mm``.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``,
-``tests/golden/torch_port_model.json`` and
-``tests/golden/torch_port_zamba2.json`` (JAX results written by
+``tests/golden/torch_port_model.json``,
+``tests/golden/torch_port_zamba2.json`` and
+``tests/golden/torch_port_qwen3moe.json`` (JAX results written by
 ``tests/golden/regen_torch_port_{summaries,model}.py``); the script
 imports nothing of the JAX package.  Its last two lines are the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.
@@ -77,13 +97,15 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "torch_port_summaries.json")
 GOLDEN_MODEL = os.path.join(ROOT, "tests", "golden", "torch_port_model.json")
 GOLDEN_ZAMBA2 = os.path.join(ROOT, "tests", "golden",
                              "torch_port_zamba2.json")
+GOLDEN_QWEN3MOE = os.path.join(ROOT, "tests", "golden",
+                               "torch_port_qwen3moe.json")
 METRO_EDGES = 1024
 METRO_MS = 60_000.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
-# phases 10-14, would pass this budget
-BUDGET_S = 760.0
-RESERVE_S = 260.0
+# phases 10-17, would pass this budget
+BUDGET_S = 900.0
+RESERVE_S = 400.0
 MIN_METRO_MS = 10_000.0
 SYNC_TICKS = 50
 # the profiler's post-processing takes seconds per traced tick (thousands
@@ -99,6 +121,9 @@ RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the scan sums a state over up to 512 steps in another order than the
 # plain recurrence: tests/test_kernels.py's 2e-4 in f32
 SCAN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the grouped GEMM: tests/test_kernels.py's 1e-4 in f32, and 3e-2 for
+# bf16 against the f32 plain version of the same (bf16) inputs
+MOE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # model golden (f32, TF32 off): the card and the host's XLA sum in other
 # orders; logits are O(1), so 1e-3 is ~100x the f32 rounding seen over
 # two layers, and a row checksum of 49,155 logits gets 5e-2
@@ -128,6 +153,13 @@ DECODE_F32_TOL = 5e-2
 ZAMBA2 = dict(seq=64, share=0.7, deadline_p95=3.0, beta=125, cost_edge=1,
               cost_cloud=25, serve_ms=10_000.0, prompt=128, max_seq=160,
               steps=32, seed=13)
+# phase 16: qwen3-moe-30b-a3b (48 layers, bf16, 61 GB) served as one role
+# as zamba2 is, then decoded at B 8 from a 128-token prompt for 32 greedy
+# steps against "ref" on the same weights; then an f32 copy cut to
+# f32_layers layers (22.4 GB; 48 f32 layers would need 122 GB) decoded
+# on both routes, held to DECODE_F32_TOL
+QWEN3MOE = dict(ZAMBA2, batch=8, prompt=128, max_seq=160, steps=32,
+                seed=14, f32_layers=8)
 
 
 def fail(msg: str) -> None:
@@ -304,7 +336,9 @@ def path_launches(cfg, forwards: int = 0, prefills: int = 0,
     passes, ``prefills`` prefills and ``steps`` decode steps of a model
     under ``attn_impl="kernel"`` make: every norm, every ``forward``
     attention layer, every decode attention layer on a contiguous cache,
-    and every Mamba2 scan in ``forward`` and ``prefill``."""
+    every Mamba2 scan in ``forward`` and ``prefill``, and every expert
+    product of the moe family (3 a layer for silu experts, 2 for gelu)
+    in all three."""
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.attn_every
         attn, norms, scans = groups, cfg.n_layers + 2 * groups + 1, \
@@ -313,23 +347,27 @@ def path_launches(cfg, forwards: int = 0, prefills: int = 0,
         attn, norms, scans = 0, cfg.n_layers + 1, 0
     else:
         attn, norms, scans = cfg.n_layers, 2 * cfg.n_layers + 1, 0
+    gemms = (3 if cfg.act == "silu" else 2) * cfg.n_layers \
+        if cfg.family == "moe" else 0
     return {"flash_attention": attn * forwards,
             "decode_attention": 0 if cfg.sliding_window else attn * steps,
             "rmsnorm": norms * (forwards + prefills + steps),
-            "ssm_scan": scans * (forwards + prefills)}
+            "ssm_scan": scans * (forwards + prefills),
+            "moe_gemm": gemms * (forwards + prefills + steps)}
+
+
+def _model_kernels():
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import moe_gemm, rmsnorm, ssm_scan
+    return (flash_attention, decode_attention, rmsnorm, ssm_scan, moe_gemm)
 
 
 def model_counts() -> dict:
-    from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels import rmsnorm, ssm_scan
-    return {m.KERNEL: m.launch_count
-            for m in (flash_attention, decode_attention, rmsnorm, ssm_scan)}
+    return {m.KERNEL: m.launch_count for m in _model_kernels()}
 
 
 def reset_model_counts() -> None:
-    from repro_torch.kernels import decode_attention, flash_attention
-    from repro_torch.kernels import rmsnorm, ssm_scan
-    for m in (flash_attention, decode_attention, rmsnorm, ssm_scan):
+    for m in _model_kernels():
         m.reset_count()
 
 
@@ -341,7 +379,8 @@ def check_launches(what: str, got: dict, want: dict) -> None:
 
 def phase_golden(dev, path: str, phase: int) -> None:
     """A model golden file (phase 5: granite-3-2b, 2 layers; phase 12:
-    zamba2-7b, 8 layers), at full width in f32 with weights from the
+    zamba2-7b, 8 layers; phase 15: qwen3-moe-30b-a3b, 2 layers), at full
+    width in f32 with weights from the
     file's numpy seed, against the JAX reference's numbers; the kernel
     launches of the run must be exactly the path's."""
     import torch
@@ -590,29 +629,23 @@ def phase_decode(dev) -> dict:
     return r["launches"]
 
 
-def phase_hybrid(dev) -> dict:
-    """Phase 13, the hybrid path at published width and depth (zamba2-7b,
-    81 layers, bf16, ``attn_impl="kernel"``): ``ServableModel.from_arch``
-    at (B 1, S 64) with the launcher's ``probe_p95``, a GEMS stream with
-    zamba2 as the served model, then greedy decoding held against the
-    plain and f32 paths.  Every model kernel's launches over the phase
-    must equal the path's exactly; returns them."""
+def serve_one_role(dev, cfg, z: dict, role: str, phase: int) -> int:
+    """``cfg`` served as the one role ``role`` (the launcher's HV share,
+    deadline multiple, β and costs, from ``z``): ``ServableModel.from_arch``
+    at (B 1, S ``z["seq"]``) calibrated by the launcher's ``probe_p95``,
+    a GEMS stream of ``z["serve_ms"]`` and one forward under the
+    profiler.  The model is freed before returning; returns the forwards
+    run."""
     import torch
-    from repro_torch.configs.registry import ARCHS
     from repro_torch.core.schedulers import make_policy
     from repro_torch.core.task import ModelProfile
     from repro_torch.launch import serve as launch
-    from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServableModel, ServeEngine
     from repro_torch.serve.engine import run_stream
-    cfg = dataclasses.replace(ARCHS["zamba2-7b"], attn_impl="kernel")
-    z = ZAMBA2
     calls = {"forward": 0}
     lock = threading.Lock()
-    torch.cuda.synchronize()
-    reset_model_counts()
     t0 = time.perf_counter()
-    prof = ModelProfile(name="ZAMBA2", beta=z["beta"], deadline=1.0,
+    prof = ModelProfile(name=role, beta=z["beta"], deadline=1.0,
                         t_edge=1.0, t_cloud=1.0, cost_edge=z["cost_edge"],
                         cost_cloud=z["cost_cloud"], qoe_beta=100.0,
                         qoe_alpha=0.9, qoe_window=5_000.0)
@@ -633,30 +666,46 @@ def phase_hybrid(dev) -> dict:
                                + 30.0, t_edge=t95, t_cloud=t95 * 0.7 + 60.0)
     sm = dataclasses.replace(sm, profile=prof)
     build_s = time.perf_counter() - t0
-    engine = ServeEngine(make_policy("GEMS"), {"ZAMBA2": sm},
+    engine = ServeEngine(make_policy("GEMS"), {role: sm},
                          cloud_concurrency=4, seed=0)
-    res = run_stream(engine, {"ZAMBA2": fps}, z["serve_ms"])
-    st = res.per_model["ZAMBA2"]
+    res = run_stream(engine, {role: fps}, z["serve_ms"])
+    st = res.per_model[role]
     done = (st.edge_success + st.edge_miss + st.cloud_success
             + st.cloud_miss + st.dropped)
     if done > st.generated or res.completed <= 0:
-        fail(f"hybrid serve: {res.completed} completed, {done} outcomes of "
-             f"{st.generated} generated")
+        fail(f"{cfg.name} serve: {res.completed} completed, {done} outcomes "
+             f"of {st.generated} generated")
     n_k, busy, fwd_wall = profile_call(sm.run)
-    served = dict(calls)
-    say(f"phase13 zamba2-7b bf16 {cfg.n_layers} layers "
+    say(f"phase{phase} {cfg.name} bf16 {cfg.n_layers} layers "
         f"({cfg.param_count()} parameters): from_arch + probe_p95 in "
         f"{build_s:.1f} s, p95 {t95:.3f} ms, {fps:.2f} FPS, deadline "
         f"{prof.deadline:.0f} ms; GEMS {z['serve_ms'] / 1e3:.0f} s: "
         f"generated {res.generated}, completed {res.completed}, completion "
         f"rate {res.completion_rate:.4f}, QoS utility {res.qos_utility}, "
-        f"QoE utility {res.qoe_utility}; forwards {served['forward']}; "
+        f"QoE utility {res.qoe_utility}; forwards {calls['forward']}; "
         f"profile of one forward: {n_k} device kernels, busy {busy:.3f} ms "
         f"of {fwd_wall:.3f} ms wall; peak memory "
         f"{torch.cuda.max_memory_allocated()} B")
-    serve_counts = model_counts()
-    del sm, engine, run
+    del sm, engine, run, counted
     torch.cuda.empty_cache()
+    return calls["forward"]
+
+
+def phase_hybrid(dev) -> dict:
+    """Phase 13, the hybrid path at published width and depth (zamba2-7b,
+    81 layers, bf16, ``attn_impl="kernel"``): served as one role by
+    :func:`serve_one_role`, then greedy decoding held against the plain
+    and f32 paths.  Every model kernel's launches over the phase must
+    equal the path's exactly; returns them."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(ARCHS["zamba2-7b"], attn_impl="kernel")
+    z = ZAMBA2
+    torch.cuda.synchronize()
+    reset_model_counts()
+    forwards = serve_one_role(dev, cfg, z, "ZAMBA2", 13)
+    serve_counts = model_counts()
     gen = torch.Generator(device=dev).manual_seed(z["seed"])
     params = Model(cfg, dev).init(gen)
     prompt = torch.randint(0, cfg.vocab, (1, z["prompt"]), generator=gen,
@@ -665,12 +714,12 @@ def phase_hybrid(dev) -> dict:
                              z["max_seq"])
     launches = {k: serve_counts[k] + r["launches"][k] for k in serve_counts}
     check_launches("hybrid zamba2-7b serve + decode", launches,
-                   path_launches(cfg, forwards=served["forward"], prefills=1,
+                   path_launches(cfg, forwards=forwards, prefills=1,
                                  steps=z["steps"]))
     say(f"phase13 decode zamba2-7b bf16 "
         f"{decode_line(r, 1, z['prompt'], z['steps'])}")
     say(f"phase13 launches over the phase: {json.dumps(launches)} = "
-        f"{served['forward']} forwards, 1 prefill, {z['steps']} steps × the "
+        f"{forwards} forwards, 1 prefill, {z['steps']} steps × the "
         f"path's per-call counts")
     return launches
 
@@ -683,20 +732,25 @@ def _bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
     return max(b_ms, f_ms), "bytes" if b_ms >= f_ms else "operations"
 
 
-def _prof_us(fn, name: str, n: int = 20):
+def _prof_us(fn, name: str, n: int = 20, windows: int = 3):
     """Mean device µs of the kernels named ``name`` over ``n`` calls of
-    ``fn`` in a ``torch.profiler`` trace (None if the trace shows none)."""
+    ``fn`` in a ``torch.profiler`` trace (None if no trace shows one).
+    On the H100 machine a trace taken late in the script has been seen
+    to hold only some of the window's kernel records, or none, so an
+    empty window is traced again, up to ``windows`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as pr:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in pr.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and name in e.name]
-    return (sum(e.time_range.elapsed_us() for e in evs) / len(evs)
-            if evs else None)
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in pr.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.name]
+        if evs:
+            return sum(e.time_range.elapsed_us() for e in evs) / len(evs)
+    return None
 
 
 def phase_times(dev) -> dict:
@@ -953,6 +1007,316 @@ def check_norm_scan_kernels(dev) -> tuple[dict, dict]:
     return errs, cases
 
 
+def check_moe_gemm(dev) -> tuple[dict, int]:
+    """Phase 2's grouped-GEMM cases, the kernel against its plain version
+    on the same card tensors (bf16 inputs against the f32 plain version
+    of the same values): ``tests/test_kernels.py``'s sweep ((256,64,128,
+    4), (512,128,64,8), (128,32,32,3) with random ragged offsets), its
+    empty-experts and bf16 cases, ragged T that is not a multiple of 64
+    and D, F off the 16-byte vector width, and the qwen3-moe path's shapes
+    with E 128 on uniform offsets: (768, 2048→768), (768, 768→2048) and
+    (128, 2048→768).  Rows that no expert owns must be exactly zero.
+    Returns ({dtype: max |err|}, case count)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(20241233)
+    errs, cases = {}, 0
+
+    def ragged(t, e):
+        cuts = torch.randint(0, t + 1, (e - 1,), generator=gen,
+                             device=dev).sort().values
+        zero = torch.zeros(1, dtype=cuts.dtype, device=dev)
+        return torch.cat([zero, cuts, zero + t]).int()
+
+    def uniform(t, e):
+        return (torch.arange(e + 1, device=dev) * (t // e)).int()
+
+    cases_def = [((256, 64, 128, 4), ragged), ((512, 128, 64, 8), ragged),
+                 ((128, 32, 32, 3), ragged),
+                 ((128, 32, 32, 4), lambda t, e: torch.tensor(
+                     [0, 0, t, t, t], dtype=torch.int32, device=dev)),
+                 ((256, 64, 64, 4), uniform), ((203, 72, 40, 5), ragged),
+                 ((1000, 256, 96, 7), ragged), ((1, 64, 64, 2), ragged),
+                 ((77, 33, 17, 3), ragged), ((768, 2048, 768, 128), uniform),
+                 ((768, 768, 2048, 128), uniform),
+                 ((128, 2048, 768, 128), uniform),
+                 ((768, 2048, 768, 128), ragged)]
+    for dname, td in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        tol = MOE_TOL[dname]
+        for (t, d, f, e), offs in cases_def:
+            x = torch.randn(t, d, generator=gen, device=dev).to(td)
+            w = (torch.randn(e, d, f, generator=gen, device=dev)
+                 / d ** 0.5).to(td)
+            off = offs(t, e)
+            got = ops.moe_gemm(x, w, off)
+            want = ref.ref_moe_gemm(x.float(), w.float(), off)
+            torch.cuda.synchronize()
+            err, excess = allclose_err(got, want, tol)
+            if not excess <= 0.0:
+                fail(f"moe_gemm {(t, d, f, e)} {dname}: kernel differs from "
+                     f"the plain version (max |err| {err}, tolerance {tol})")
+            errs[dname] = max(errs.get(dname, 0.0), err)
+            cases += 1
+        # rows before offsets[0] and from offsets[E] on: exactly zero
+        x = torch.randn(203, 72, generator=gen, device=dev).to(td)
+        w = torch.randn(3, 72, 40, generator=gen, device=dev).to(td)
+        off = torch.tensor([16, 40, 40, 150], dtype=torch.int32, device=dev)
+        got = ops.moe_gemm(x, w, off)
+        want = ref.ref_moe_gemm(x.float(), w.float(), off)
+        torch.cuda.synchronize()
+        err, excess = allclose_err(got[16:150], want[16:150], tol)
+        if got[:16].any() or got[150:].any() or not excess <= 0.0:
+            fail(f"moe_gemm uncovered rows {dname}: want zeros outside "
+                 f"[16, 150) and the plain version inside (max |err| {err})")
+        cases += 1
+    return errs, cases
+
+
+class RouteLog:
+    """Within ``with``, records the experts (g, T, k) of every router call
+    of the port's MoE layer, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.mod, self.real, self.calls = MOE, MOE.router, []
+
+        def spy(p, x, cfg):
+            out = self.real(p, x, cfg)
+            self.calls.append(out[1])
+            return out
+        MOE.router = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.router = self.real
+
+
+def routing_agreement(a: list, b: list, n_layers: int) -> list:
+    """Per layer, the share of (token, k) choices that the two routes'
+    router calls (the same calls in the same order) have in common."""
+    if len(a) != len(b):
+        fail(f"routing logs differ in length: {len(a)} != {len(b)}")
+    same, total = [0] * n_layers, [0] * n_layers
+    for i, (x, y) in enumerate(zip(a, b)):
+        hit = (x[..., :, None] == y[..., None, :]).any(-1)
+        same[i % n_layers] += int(hit.sum())
+        total[i % n_layers] += hit.numel()
+    return [s_ / t_ for s_, t_ in zip(same, total)]
+
+
+def teacher_forced(dev, cfg, params, prompt, steps: int, max_seq: int):
+    """Greedy decoding under ``cfg`` (``"kernel"``), then the same tokens
+    through ``"ref"`` on the same weights: returns (relative RMS of the
+    logit difference over the plain logits' RMS, per-layer routing
+    agreement over the prefill and the steps, kernel launches of the
+    kernel route, prefill s, steps s)."""
+    import torch
+    from repro_torch.models.model import Model
+    p = prompt.shape[1]
+    mk = Model(cfg, dev)
+    mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
+    before = model_counts()
+    with RouteLog() as lk:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = mk.prefill(params, {"tokens": prompt}, max_seq)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = last[:, -1].argmax(-1, keepdim=True)
+        fed, outs = [], []
+        t0 = time.perf_counter()
+        for t in range(steps):
+            fed.append(tok)
+            logits, _ = mk.decode_step(params, cache, tok, p + t)
+            outs.append(logits[:, -1, :cfg.vocab].float())
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    after = model_counts()
+    del cache
+    with RouteLog() as lr:
+        _, cache = mr.prefill(params, {"tokens": prompt}, max_seq)
+        sq_d = sq_r = 0.0
+        for t in range(steps):
+            logits, _ = mr.decode_step(params, cache, fed[t], p + t)
+            r_ = logits[:, -1, :cfg.vocab].float()
+            if not (torch.isfinite(outs[t]).all() and torch.isfinite(r_).all()):
+                fail(f"decode {cfg.name}: non-finite logits at step {t}")
+            sq_d += float((outs[t] - r_).square().sum())
+            sq_r += float(r_.square().sum())
+    agree = routing_agreement(lk.calls, lr.calls, cfg.n_layers)
+    launches = {k: after[k] - before[k] for k in after}
+    return ((sq_d / sq_r) ** 0.5, agree, launches, prefill_s, wall)
+
+
+def phase_moe(dev) -> dict:
+    """Phase 16, the moe path at published width and depth
+    (qwen3-moe-30b-a3b, 48 layers, bf16, ``attn_impl="kernel"``): served
+    as one role by :func:`serve_one_role`, one forward under
+    ``set_sync_debug_mode("error")``, greedy decoding at B 8 held against
+    ``"ref"`` on the same weights (relative RMS and routing agreement
+    reported), then an f32 copy cut to 8 layers decoded on both routes
+    and held to DECODE_F32_TOL.  Every model kernel's launches over the
+    phase must equal the path's exactly; returns them."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(ARCHS["qwen3-moe-30b-a3b"], attn_impl="kernel")
+    z = QWEN3MOE
+    torch.cuda.synchronize()
+    reset_model_counts()
+    forwards = serve_one_role(dev, cfg, z, "QWEN3MOE", 16)
+    gen = torch.Generator(device=dev).manual_seed(z["seed"])
+    params = Model(cfg, dev).init(gen)
+    b, p = z["batch"], z["prompt"]
+    prompt = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    mk = Model(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, aux = mk.forward(params, {"tokens": prompt[:1, :z["seq"]]})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    forwards += 1
+    if not (bool(torch.isfinite(logits).all()) and float(aux) > 0.0):
+        fail(f"moe forward: non-finite logits or aux {float(aux)}")
+    say(f"phase16 sync: one (B 1, S {z['seq']}) forward of qwen3-moe ran "
+        f"under set_sync_debug_mode('error'); router aux {float(aux):.6f}")
+    del logits
+    torch.cuda.reset_peak_memory_stats()
+    rms, agree, dec_launches, prefill_s, wall = teacher_forced(
+        dev, cfg, params, prompt, z["steps"], z["max_seq"])
+    say(f"phase16 decode qwen3-moe bf16 B {b}, prompt {p} (prefill "
+        f"{prefill_s:.3f} s), {z['steps']} greedy steps in {wall:.3f} s = "
+        f"{b * z['steps'] / wall:.1f} tokens/s ({wall / z['steps'] * 1e3:.2f}"
+        f" ms a step); kernel launches {json.dumps(dec_launches)}; "
+        f"teacher-forced on the same tokens, RMS of the logit difference "
+        f"over RMS of the 'ref' logits {rms:.4e}; routing agreement with "
+        f"'ref' per layer (share of (token, k) choices in common): first "
+        f"{agree[0]:.4f}, mean {sum(agree) / len(agree):.4f}, min "
+        f"{min(agree):.4f}, last {agree[-1]:.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    say(f"phase16 routing agreement by layer: "
+        f"{json.dumps([round(a, 4) for a in agree])}")
+    n_k, busy, pre_wall = profile_call(lambda: mk.prefill(
+        params, {"tokens": prompt}, z["max_seq"]))
+    say(f"phase16 profile of one B {b} × {p} prefill: {n_k} device kernels,"
+        f" busy {busy:.3f} ms of {pre_wall:.3f} ms wall")
+    del params, mk
+    torch.cuda.empty_cache()
+
+    cfg8 = dataclasses.replace(cfg, n_layers=z["f32_layers"],
+                               dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(z["seed"] + 1)
+    params = Model(cfg8, dev).init(gen)
+    rms8, agree8, launches8, _, wall8 = teacher_forced(
+        dev, cfg8, params, prompt, z["steps"], z["max_seq"])
+    if not rms8 <= DECODE_F32_TOL:
+        fail(f"decode qwen3-moe f32 {cfg8.n_layers} layers: 'kernel' vs "
+             f"'ref' relative RMS {rms8} > {DECODE_F32_TOL}")
+    say(f"phase16 decode qwen3-moe f32 {cfg8.n_layers} layers B {b}: "
+        f"'kernel' vs 'ref' teacher-forced relative RMS {rms8:.4e} (tol "
+        f"{DECODE_F32_TOL}); routing agreement per layer "
+        f"{json.dumps([round(a, 4) for a in agree8])}; {z['steps']} steps in "
+        f"{wall8:.3f} s; kernel launches {json.dumps(launches8)}")
+    del params
+    torch.cuda.empty_cache()
+    launches = model_counts()
+    want = path_launches(cfg, forwards=forwards, prefills=2,
+                         steps=z["steps"])
+    want8 = path_launches(cfg8, prefills=1, steps=z["steps"])
+    check_launches("moe qwen3-moe serve + decode", launches,
+                   {k: want[k] + want8[k] for k in want})
+    say(f"phase16 launches over the phase: {json.dumps(launches)} = "
+        f"{forwards} forwards, 2 prefills and {z['steps']} steps at 48 "
+        f"layers, 1 prefill and {z['steps']} steps at {cfg8.n_layers}, × "
+        f"the path's per-call counts")
+    return launches
+
+
+def moe_times(dev) -> dict:
+    """Phase 17: ``moe_gemm`` at the qwen3-moe path's shapes, bf16, as
+    phase 8 times the others — serve (B 1, S 64: C 6, 768 rows) for
+    ``we_g`` (2048→768) and ``we_d`` (768→2048), decode (B 8: C 1, 128
+    rows) and prefill (B 8 × 128: C 81, 10,368 rows) on uniform offsets,
+    and the serve's 512 routed pairs compacted over 128 experts (ragged
+    offsets, no padding) — beside the plain version, ``torch.bmm`` over
+    the (E, C, D) view (the uniform shapes) and ``torch._grouped_mm`` (the
+    ragged one, where the card's torch has it); both timed only, the port
+    never calls them."""
+    import torch
+
+    from repro_torch.kernels import moe_gemm as MG
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+    e = 128
+    out = {}
+    for key, (c, d, f) in (("serve we_g (768, 2048→768)", (6, 2048, 768)),
+                           ("serve we_d (768, 768→2048)", (6, 768, 2048)),
+                           ("decode we_g (128, 2048→768)", (1, 2048, 768)),
+                           ("prefill we_g (10368, 2048→768)",
+                            (81, 2048, 768))):
+        t = e * c
+        x = torch.randn(t, d, generator=gen, device=dev).to(bf)
+        w = (torch.randn(e, d, f, generator=gen, device=dev)
+             / d ** 0.5).to(bf)
+        off = (torch.arange(e + 1, device=dev) * c).int()
+        xe = x.view(e, c, d)
+        row = {"kernel": graph_ms(lambda: MG.cuda_moe_gemm(x, w, off),
+                                  iters=20),
+               "plain": graph_ms(lambda: ref.ref_moe_gemm(x, w, off),
+                                 iters=2, replays=3)
+               if c <= 6 else None,
+               "library": graph_ms(lambda: torch.bmm(xe, w), iters=20)}
+        nbytes = 2 * (x.numel() + w.numel() + t * f) + 4 * (e + 1)
+        row["bound"], row["bound_by"] = _bound(nbytes, 2 * t * d * f,
+                                               BF16_OPS_PER_S)
+        row["profile_us"] = _prof_us(lambda: MG.cuda_moe_gemm(x, w, off),
+                                     "moe_gemm_kernel")
+        out[key] = row
+        del x, w, xe
+    # ragged: 512 (token, k) pairs of the serve shape, compacted
+    counts = torch.bincount(torch.randint(0, e, (512,), generator=gen,
+                                          device=dev), minlength=e)
+    off = torch.cat([torch.zeros(1, device=dev, dtype=torch.long),
+                     counts.cumsum(0)]).int()
+    d, f, t = 2048, 768, 512
+    x = torch.randn(t, d, generator=gen, device=dev).to(bf)
+    w = (torch.randn(e, d, f, generator=gen, device=dev) / d ** 0.5).to(bf)
+    row = {"kernel": graph_ms(lambda: MG.cuda_moe_gemm(x, w, off), iters=20),
+           "plain": graph_ms(lambda: ref.ref_moe_gemm(x, w, off), iters=2,
+                             replays=3)}
+    used = int((counts > 0).sum())
+    if hasattr(torch, "_grouped_mm"):
+        ends = off[1:].contiguous()
+        got = torch._grouped_mm(x, w, offs=ends)
+        want = ref.ref_moe_gemm(x.float(), w.float(), off)
+        err = float((got.float() - want).abs().max())
+        row["library"] = graph_ms(
+            lambda: torch._grouped_mm(x, w, offs=ends), iters=20)
+        row["library_note"] = f"torch._grouped_mm, max |err| {err:.3e}"
+    else:
+        row["library"] = None
+        row["library_note"] = "torch._grouped_mm absent"
+    # only the experts that own rows need their weights
+    nbytes = 2 * (x.numel() + used * d * f + t * f) + 4 * (e + 1)
+    row["bound"], row["bound_by"] = _bound(nbytes, 2 * t * d * f,
+                                           BF16_OPS_PER_S)
+    row["profile_us"] = _prof_us(lambda: MG.cuda_moe_gemm(x, w, off),
+                                 "moe_gemm_kernel")
+    out[f"ragged 512 pairs over {used} experts (512, 2048→768)"] = row
+    for key, row in out.items():
+        say(f"phase17 moe_gemm {key} (bf16): device ms per call (graph "
+            f"replay) kernel {row['kernel']:.6f}, plain {row['plain']}, "
+            f"library {row['library']} "
+            f"({row.get('library_note', 'torch.bmm over (E, C, D)')}); bound "
+            f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
+            f"launch {row['profile_us']}")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -964,7 +1328,8 @@ def main() -> int:
         return 2
     if not (os.path.isdir(os.path.join(SRC, "repro_torch"))
             and all(os.path.isfile(f)
-                    for f in (GOLDEN, GOLDEN_MODEL, GOLDEN_ZAMBA2))):
+                    for f in (GOLDEN, GOLDEN_MODEL, GOLDEN_ZAMBA2,
+                              GOLDEN_QWEN3MOE))):
         fail("run from a checkout of the repository: src/repro_torch and "
              "the golden files are missing")
     sys.path.insert(0, SRC)
@@ -972,7 +1337,8 @@ def main() -> int:
 
     from repro_torch.core import task
     from repro_torch.kernels import _build, decode_attention, ref, sched_ops
-    from repro_torch.kernels import flash_attention, rmsnorm, ssm_scan
+    from repro_torch.kernels import flash_attention, moe_gemm, rmsnorm
+    from repro_torch.kernels import ssm_scan
     from repro_torch.scenarios.runner import fleet_summary
     from repro_torch.sim import fleet as F
     from repro_torch.sim import network
@@ -1023,7 +1389,8 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     kernel_names = [sched_ops.KERNEL, flash_attention.KERNEL,
-                    decode_attention.KERNEL, rmsnorm.KERNEL, ssm_scan.KERNEL]
+                    decode_attention.KERNEL, rmsnorm.KERNEL, ssm_scan.KERNEL,
+                    moe_gemm.KERNEL]
     t0 = time.perf_counter()
     builds = _build.build_all(kernel_names)     # one nvcc each, in parallel
     say(f"phase1 build: {time.perf_counter() - t0:.3f} s for "
@@ -1116,6 +1483,11 @@ def main() -> int:
         f"{ns_cases['ssm_scan']} cases (tol f32 {SCAN_TOL['float32']}, bf16 "
         f"{SCAN_TOL['bfloat16']}) within tolerance of the plain versions; "
         f"max |err| {json.dumps(ns_err)}")
+    moe_err, moe_cases = check_moe_gemm(dev)
+    say(f"phase2 kernels: moe_gemm {moe_cases} cases within tolerance of "
+        f"the plain version (tol f32 {MOE_TOL['float32']}, bf16 "
+        f"{MOE_TOL['bfloat16']} against f32), rows that no expert owns "
+        f"exactly zero; max |err| {json.dumps(moe_err)}")
     say(f"phase2 timing (28x64), device ms per call (graph replay): "
         f"{json.dumps(dev_ms)}; issued eagerly, ms per call: "
         f"{json.dumps(call_ms)}; bound {bound_ms:.7f} ms ({bound_by}: bytes "
@@ -1273,10 +1645,21 @@ def main() -> int:
     ktimes = kernel_times(dev)
     say(f"phases 1-14 done in {time.perf_counter() - T_START:.1f} s")
 
+    # ---- phases 15-17: the moe path and its kernel --------------------
+    torch.cuda.empty_cache()
+    phase_golden(dev, GOLDEN_QWEN3MOE, 15)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe = phase_moe(dev)
+    torch.cuda.empty_cache()
+    mtimes = moe_times(dev)
+    say(f"phases 1-17 done in {time.perf_counter() - T_START:.1f} s")
+
     flash_t = times["flash serve granite"]
     decode_t = times["decode B8 W1024 L576"]
     rms_t = ktimes["rmsnorm (64, 3584)"]
     scan_t = ktimes["ssm_scan (B1, S64, H112, P64, N64)"]
+    moe_t = mtimes["serve we_g (768, 2048→768)"]
     print(json.dumps({"kernels": [{
         "name": "masked_argext", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/masked_argext.cu",
@@ -1315,7 +1698,15 @@ def main() -> int:
         "max_abs_err": max(ns_err["ssm_scan"].values()),
         "ms": scan_t["kernel"], "plain_ms": scan_t["plain"],
         "bound_ms": scan_t["bound"], "bound_by": scan_t["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "moe_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm.py:24",
+        "launches": moe["moe_gemm"],
+        "max_abs_err": max(moe_err.values()),
+        "ms": moe_t["kernel"], "plain_ms": moe_t["plain"],
+        "bound_ms": moe_t["bound"], "bound_by": moe_t["bound_by"],
+        "library_ms": moe_t["library"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

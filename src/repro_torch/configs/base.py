@@ -3,13 +3,16 @@
 A copy of ``repro.configs.base`` (the port never imports the JAX
 package).  One difference: ``attn_impl`` takes ``"ref"`` (plain PyTorch)
 or ``"kernel"`` (every op of the model's path that has a hand-written
-kernel: flash attention, flash decode, RMSNorm and the Mamba2 selective
-scan), where the JAX package says ``"pallas"``;
+kernel: flash attention, flash decode, RMSNorm, the Mamba2 selective
+scan and the MoE expert GEMMs), where the JAX package says ``"pallas"``;
 :func:`repro_torch.convert.arch_from_fields` maps one to the other.
 Fields that steer JAX-only machinery (``remat``, ``remat_policy``,
-``unroll_layers``, ``opt_decode``, ``expert_split``, ``moe_groups``)
-are kept so that a config converts field for field, and do nothing in
-the port.
+``unroll_layers``, ``opt_decode``) are kept so that a config converts
+field for field, and do nothing in the port.  ``moe_groups`` is honoured:
+MoE dispatch and its capacity are per group, so it changes results.
+``expert_split > 1`` (the JAX package's split-expert parameter layout
+for a model-parallel axis) is refused by the MoE model with a
+``NotImplementedError``: one card has no model axis.
 """
 from __future__ import annotations
 
@@ -61,8 +64,8 @@ class ArchConfig:
     attn_impl: str = "ref"      # "ref" (plain PyTorch) | "kernel" (every
                                 # op with a hand-written kernel: flash
                                 # attention, flash decode, RMSNorm, the
-                                # selective scan; plain versions on CPU
-                                # tensors)
+                                # selective scan, the MoE expert GEMMs;
+                                # plain versions on CPU tensors)
     opt_decode: bool = False    # shard_map flash-decode (beyond-paper)
     expert_split: int = 1       # split each expert's d_ff s-ways so the
                                 # (E·s) dim divides the model axis: true

@@ -9,7 +9,9 @@ float32, int32 and bool, and anything else raises.
 For the serve path, :func:`arch_from_fields` / :func:`arch_to_fields`
 convert model configs, and :func:`params_from_numpy` /
 :func:`params_to_numpy` carry a JAX ``Model.init`` parameter tree (as
-numpy) to and from the port's parameters.
+numpy) to and from the port's parameters, for every ported family (the
+moe family's ``router`` and expert tensors included: they follow the
+model's layout like any other leaf).
 """
 from __future__ import annotations
 

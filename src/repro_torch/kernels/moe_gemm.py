@@ -1,0 +1,96 @@
+"""Ragged grouped GEMM: the MoE family's expert products.
+
+Port of ``repro.kernels.moe_gemm`` (the Pallas TPU kernel
+``_moe_kernel``); semantics in :func:`repro_torch.kernels.ref.
+ref_moe_gemm` on the rows that some expert owns.  :func:`cuda_moe_gemm`
+launches the hand-written ``sm_90a`` kernel of ``csrc/moe_gemm.cu``
+(built at first use) on CUDA tensors and raises on anything it does not
+take; the dispatch between it and the plain version is
+:func:`repro_torch.kernels.ops.moe_gemm`.
+
+Unlike the Pallas version, any T is taken (no ``T % block_t == 0``).
+Rows before ``offsets[0]`` or from ``offsets[E]`` on come out as zero, as
+``_moe_kernel`` gives them; ``ref_moe_gemm`` clips them to expert 0 or
+E−1 instead, so the two are compared where ``offsets[0] == 0`` and
+``offsets[E] == T`` (always so on the model's path).  ``offsets`` are
+read on the device, so the caller keeps them nondecreasing; values
+outside [0, T] are clipped there.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+
+KERNEL = "moe_gemm"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the hand kernel (one per wrapper call on CUDA tensors),
+# counted under a lock; chip_smoke.py zeroes it before driving a path
+launch_count = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def reset_count() -> None:
+    global launch_count
+    with _COUNT_LOCK:
+        launch_count = 0
+
+
+def _counted() -> None:
+    global launch_count
+    with _COUNT_LOCK:
+        launch_count += 1
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    fn = lib.moe_gemm_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def cuda_moe_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """The hand kernel: x_sorted (T, D) and w (E, D, F) CUDA tensors of one
+    type (float32 or bfloat16), offsets (E+1,) int32 on the same card →
+    (T, F) in x's type."""
+    if x_sorted.device.type != "cuda" or w.device != x_sorted.device \
+            or offsets.device != x_sorted.device:
+        raise ValueError("cuda_moe_gemm: x_sorted, w and offsets must lie on "
+                         "the same CUDA device")
+    if x_sorted.dtype not in _DTYPES or w.dtype != x_sorted.dtype:
+        raise TypeError(f"cuda_moe_gemm: want x and w both float32 or both "
+                        f"bfloat16, got {x_sorted.dtype}, {w.dtype}")
+    if offsets.dtype != torch.int32:
+        raise TypeError(f"cuda_moe_gemm: want int32 offsets, got "
+                        f"{offsets.dtype}")
+    if x_sorted.dim() != 2 or w.dim() != 3 \
+            or w.shape[1] != x_sorted.shape[1] \
+            or offsets.shape != (w.shape[0] + 1,) or w.shape[0] < 1:
+        raise ValueError(f"cuda_moe_gemm: want x (T, D), w (E, D, F) and "
+                         f"offsets (E+1,), got {tuple(x_sorted.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(offsets.shape)}")
+    t, d = x_sorted.shape
+    e, _, f = w.shape
+    if max(t, d, f, e + 1) >= 2 ** 31 or e >= 65535:
+        raise ValueError(f"cuda_moe_gemm: shape {(t, d, f, e)} is too large")
+    out = torch.empty((t, f), dtype=x_sorted.dtype, device=x_sorted.device)
+    if out.numel() == 0:
+        return out
+    x_sorted, w = x_sorted.contiguous(), w.contiguous()
+    offsets = offsets.contiguous()
+    stream = torch.cuda.current_stream(x_sorted.device).cuda_stream
+    err = _lib().moe_gemm_launch(
+        x_sorted.data_ptr(), w.data_ptr(), offsets.data_ptr(),
+        out.data_ptr(), t, d, f, e, _DTYPES[x_sorted.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gemm launch failed: cudaError {err}")
+    _counted()
+    return out

@@ -1,10 +1,11 @@
 """Dispatch of the model zoo's kernels (attention, flash decode, RMSNorm,
-the selective scan), in the manner of :mod:`repro_torch.kernels.sched_ops`.
+the selective scan, the MoE grouped GEMM), in the manner of
+:mod:`repro_torch.kernels.sched_ops`.
 
 A CPU tensor takes the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor takes the hand-written kernel, which raises on what it does not
 take.  Nothing falls back to the plain version on the card.  Counterpart
-of ``repro.kernels.ops`` (all of it but ``moe_gemm``).
+of ``repro.kernels.ops``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_gemm as _moe
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssm_scan as _ssm
@@ -49,3 +51,13 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ref_selective_scan(x, dt, a, bmat, cmat)
     return _ssm.cuda_ssm_scan(x, dt, a, bmat, cmat)
+
+
+def moe_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
+             offsets: torch.Tensor) -> torch.Tensor:
+    """x_sorted: (T,D) rows sorted by expert; w: (E,D,F); offsets: (E+1,)
+    → (T,F).  Rows outside [offsets[0], offsets[E]) differ between the
+    routes (see :mod:`repro_torch.kernels.moe_gemm`)."""
+    if x_sorted.device.type == "cpu":
+        return ref.ref_moe_gemm(x_sorted, w, offsets)
+    return _moe.cuda_moe_gemm(x_sorted, w, offsets.int())

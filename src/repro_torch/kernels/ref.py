@@ -2,7 +2,8 @@
 
 Each function here is the semantics its hand-written kernel reproduces:
 bit for bit for the selection kernel, and up to the order of its f32
-sums for the attention, RMSNorm and selective-scan kernels.  The CPU
+sums for the attention, RMSNorm, selective-scan and grouped-GEMM kernels
+(the last on rows that some expert owns: see :func:`ref_moe_gemm`).  The CPU
 path runs these; on the card they are the yardstick the kernels are
 compared with.
 """
@@ -118,3 +119,24 @@ def ref_selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.stack(ys, 1) if ys else xf.new_zeros((xf.shape[0], 0, p))
     return (y.reshape(*lead, s, p).to(x.dtype),
             state.reshape(*lead, p, n).to(x.dtype))
+
+
+def ref_moe_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
+                 offsets: torch.Tensor) -> torch.Tensor:
+    """Ragged grouped GEMM oracle.
+
+    x_sorted: (T,D) rows sorted by expert; w: (E,D,F); offsets: (E+1,) —
+    expert e owns rows [offsets[e], offsets[e+1]).  Each row is multiplied
+    by its expert's weights.  A row before ``offsets[0]`` or from
+    ``offsets[E]`` on is clipped to expert 0 or E−1 here, where the kernel
+    (like the JAX package's ``_moe_kernel``) writes zeros: the two agree
+    where ``offsets[0] == 0`` and ``offsets[E] == T``, as on the model's
+    path.
+    """
+    t = x_sorted.shape[0]
+    e = w.shape[0]
+    rows = torch.arange(t, device=x_sorted.device)
+    expert_of = (rows[:, None] >= offsets.to(x_sorted.device)[None, 1:]
+                 ).sum(1)
+    expert_of = expert_of.clamp(0, e - 1)
+    return torch.einsum("td,tdf->tf", x_sorted, w[expert_of])

@@ -1,5 +1,5 @@
-"""Model assembly: the ``dense``, ``vlm``, ``ssm`` (xLSTM) and ``hybrid``
-(Zamba2) families.
+"""Model assembly: the ``dense``, ``vlm``, ``moe``, ``ssm`` (xLSTM) and
+``hybrid`` (Zamba2) families.
 
 Port of ``repro.models.model``.  One :class:`Model` per
 :class:`~repro_torch.configs.base.ArchConfig` exposes:
@@ -17,10 +17,13 @@ of ``lax.scan``.  ``cfg.attn_impl == "kernel"`` sends every op of the
 path that has a hand kernel through it: ``forward``'s attention through
 the flash-attention kernel, ``decode_step``'s through the flash-decode
 kernel (contiguous caches only), every RMSNorm through the fused RMSNorm
-kernel, and the hybrid family's Mamba2 scans in ``forward`` and
-``prefill`` through the selective-scan kernel.  ``prefill``'s attention
-is plain in either case, as the JAX package's is; the hybrid's decode
-update has no kernel, as in the JAX package.
+kernel, the hybrid family's Mamba2 scans in ``forward`` and ``prefill``
+through the selective-scan kernel, and the moe family's expert products
+(in ``forward``, ``prefill`` and ``decode_step``) through the grouped-GEMM
+kernel.  ``prefill``'s attention is plain in either case, as the JAX
+package's is; the hybrid's decode update has no kernel, as in the JAX
+package.  ``forward`` returns the moe family's router aux loss summed
+over layers as ``aux`` (zero for the other families).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 
@@ -39,7 +43,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # families of the JAX package not ported yet, with their ROADMAP item
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1: the moe family (routing, experts, moe_gemm)",
     "encdec": "ROADMAP queue 1: the encdec family (whisper encoder and "
               "cross-attention)",
 }
@@ -68,6 +71,17 @@ def _mlp_defs(cfg: ArchConfig) -> dict:
 def _dense_block_defs(cfg: ArchConfig) -> dict:
     return {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,),
             **_attn_defs(cfg), **_mlp_defs(cfg)}
+
+
+def _moe_block_defs(cfg: ArchConfig) -> dict:
+    d, e, fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    p = {"ln1": (d,), "ln2": (d,), **_attn_defs(cfg), "router": (d, e)}
+    if cfg.act == "silu":
+        p.update({"we_g": (e, d, fe), "we_u": (e, d, fe)})
+    else:
+        p["we_i"] = (e, d, fe)
+    p["we_d"] = (e, fe, d)
+    return p
 
 
 def _mamba_block_defs(cfg: ArchConfig) -> dict:
@@ -110,6 +124,8 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
                 f"({_NOT_PORTED[cfg.family]})")
+        if cfg.family == "moe":
+            MOE.check_split(cfg)
         if cfg.attn_impl not in ("ref", "kernel"):
             raise ValueError(f"attn_impl {cfg.attn_impl!r}: want 'ref' or "
                              f"'kernel'")
@@ -130,6 +146,8 @@ class Model:
             if cfg.family == "vlm":
                 lay["vis_proj"] = ({"w": (cfg.d_model, cfg.d_model)}, None)
             return lay
+        if cfg.family == "moe":
+            return {"blocks": (_moe_block_defs(cfg), cfg.n_layers)}
         if cfg.family == "hybrid":       # Zamba2
             g, tail = self._zamba_groups()
             lay = {"mamba": (_mamba_block_defs(cfg), g * cfg.attn_every),
@@ -199,11 +217,26 @@ class Model:
         """RMSNorm on ``cfg.attn_impl``'s route (the kernel or plain)."""
         return L.rms_norm(x, scale, self.cfg.norm_eps, self.cfg.attn_impl)
 
+    def _ffn(self, p, x):
+        """The block's feed-forward on normed x: the moe family's experts
+        (their aux dropped, as the JAX package's prefill and decode drop
+        it) or the dense MLP."""
+        if self.cfg.family == "moe":
+            return MOE.moe_mlp(p, self.cfg, x)[0]
+        return L.mlp(p, self.cfg, x)
+
     def _dense_block(self, p, x):
         cfg = self.cfg
         h = L.attention_block(p, cfg, self._norm(x, p["ln1"]))
         x = x + h
         return x + L.mlp(p, cfg, self._norm(x, p["ln2"]))
+
+    def _moe_block(self, p, x):
+        """Pre-norm attention + MoE block; returns (x + y, router aux)."""
+        h = L.attention_block(p, self.cfg, self._norm(x, p["ln1"]))
+        x = x + h
+        y, aux = MOE.moe_mlp(p, self.cfg, self._norm(x, p["ln2"]))
+        return x + y, aux
 
     def _mamba_block(self, p, x):
         """Pre-norm Mamba2 block from a zero state; returns (x + y, final
@@ -234,10 +267,16 @@ class Model:
     # -- forward ------------------------------------------------------------
     def forward(self, params, batch):
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         if cfg.family == "ssm":
             x = self._xlstm_forward(params, batch)
         elif cfg.family == "hybrid":
             x = self._zamba_forward(params, batch)
+        elif cfg.family == "moe":
+            x = self.embed_tokens(params, batch["tokens"])
+            for i in range(cfg.n_layers):
+                x, a = self._moe_block(_layer(params["blocks"], i), x)
+                aux = aux + a
         else:
             x = self._embed_inputs(params, batch)
             for i in range(cfg.n_layers):
@@ -245,7 +284,6 @@ class Model:
             if cfg.family == "vlm":
                 x = x[:, cfg.n_image_tokens:]
         x = self._norm(x, params["final_norm"])
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self.unembed(params, x), aux
 
     def _xlstm_groups(self):
@@ -293,7 +331,7 @@ class Model:
     # ======================================================================
     def init_cache(self, batch_size: int, max_seq: int) -> dict:
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        if cfg.family in ("dense", "vlm"):
+        if cfg.family in ("dense", "vlm", "moe"):
             return L.init_kv_cache(cfg, cfg.n_layers, batch_size, max_seq,
                                    dt, dev)
         if cfg.family == "hybrid":
@@ -346,7 +384,7 @@ class Model:
     def _decode_attn_block(self, p, x, ck, cv, pos: int):
         """Pre-norm attention block against one layer's cache view."""
         x = self._decode_self_attn(p, x, ck, cv, pos)
-        return x + L.mlp(p, self.cfg, self._norm(x, p["ln2"]))
+        return x + self._ffn(p, self._norm(x, p["ln2"]))
 
     def _decode_self_attn(self, p, x, ck, cv, pos: int):
         """Self-attention sublayer against one layer's cache view (written
@@ -464,7 +502,7 @@ class Model:
         q, k, v = L.qkv_proj(p, cfg, self._norm(x, p["ln1"]), positions)
         out = L.attend_auto(q, k, v, causal=True, window=cfg.sliding_window)
         x = x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
-        x = x + L.mlp(p, cfg, self._norm(x, p["ln2"]))
+        x = x + self._ffn(p, self._norm(x, p["ln2"]))
         s, take = x.shape[1], len(slots)
         cache["k"][i][:, slots] = k[:, s - take:]
         cache["v"][i][:, slots] = v[:, s - take:]

@@ -1,0 +1,155 @@
+"""Mixture-of-Experts layer: top-k router with group-wise capacity dispatch.
+
+Port of ``repro.models.moe``.  Tokens are reshaped into ``cfg.moe_groups``
+groups (halved until they divide the token count), and dispatch — stable
+sort by expert, rank within the expert, capacity drop — happens
+independently per group; the JAX package's ``vmap`` over groups is an
+explicit leading group axis here.  Capacity is per call:
+``int(tg · top_k / n_experts · capacity_factor) + 1`` for tg tokens a
+group, so forward, prefill and decode each dispatch over their own T.
+
+The capacity buffer is built expert-major: (E·g·C, D) rows ordered
+(expert, group, slot), plus one trash row that every dropped pair writes
+to.  It is thus sorted by expert, with the constant offsets
+``arange(E+1)·g·C``, and feeds the grouped-GEMM kernel as it stands
+under ``cfg.attn_impl == "kernel"``: ``ops.moe_gemm`` for ``we_g`` and
+``we_u`` (or ``we_i``) on the buffer and ``we_d`` on the hidden rows, the
+rows the JAX package's einsums multiply, row for row.  Under ``"ref"``
+the same buffer goes through those einsums (``gecd,edf->gecf``, then
+``gecf,efd->gecd``).  Nothing here syncs with the host: shapes and
+offsets are static, counts come from a sorted search, not ``bincount``
+(which reads its maximum on the host).
+
+``cfg.expert_split > 1`` (the JAX package's split-expert layout for a
+model-parallel axis) is refused: one card has no model axis.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+SPLIT_NOT_PORTED = ("ROADMAP queue 1 item 3c: expert_split > 1 (the "
+                    "layout of a model-parallel axis)")
+
+# offsets of the expert-major buffer, one device tensor per shape
+_OFFSETS: dict = {}
+
+
+def check_split(cfg: ArchConfig) -> None:
+    if cfg.expert_split > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: expert_split {cfg.expert_split} is not ported "
+            f"({SPLIT_NOT_PORTED})")
+
+
+def router(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """Top-k routing of x (..., T, D) over the last token axis.
+
+    Returns (weights (..., T, k) in x's dtype, experts (..., T, k) int64,
+    aux (...,) f32).  Ties go to the lower expert index, as with
+    ``jax.lax.top_k``: a stable descending sort, not ``torch.topk``.
+    """
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)                        # (.., T, E)
+    srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, experts = srt[..., :cfg.top_k], idx[..., :cfg.top_k]
+    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Shazeer-style load-balance auxiliary loss
+    density = F.one_hot(experts[..., 0], cfg.n_experts).float().mean(-2)
+    mean_probs = probs.mean(-2)
+    aux = cfg.router_aux_coef * cfg.n_experts * (density * mean_probs).sum(-1)
+    return weights.to(x.dtype), experts, aux
+
+
+def capacity_dispatch(experts: torch.Tensor, n_experts: int, capacity: int):
+    """Assign each (token, k) pair a slot in an (E, C) buffer, per group.
+
+    experts: (g, T, k).  Returns (slot (g, T·k), keep (g, T·k)) where
+    ``slot = e·C + rank`` for kept pairs, rank counting the group's earlier
+    pairs (in (token, k) order) routed to the same expert; pairs past an
+    expert's capacity are dropped, their slot clipped to the expert's last.
+    """
+    g = experts.shape[0]
+    flat = experts.reshape(g, -1)                                # (g, T·k)
+    tk = flat.shape[1]
+    srt, order = torch.sort(flat, dim=-1, stable=True)
+    # first sorted position of every expert: its rows start there
+    start = torch.searchsorted(
+        srt, torch.arange(n_experts, device=flat.device).repeat(g, 1))
+    pos = torch.arange(tk, device=flat.device).expand(g, -1)
+    sorted_rank = pos - torch.gather(start, 1, srt)
+    rank = torch.empty_like(sorted_rank).scatter_(1, order, sorted_rank)
+    keep = rank < capacity
+    slot = flat * capacity + rank.clamp_max(capacity - 1)
+    return slot, keep
+
+
+def _buffer_rows(slot: torch.Tensor, capacity: int, groups: int):
+    """Row of each pair's slot in the expert-major (E·g·C, D) buffer:
+    slot e·C + c of group gi sits at row (e·g + gi)·C + c."""
+    gi = torch.arange(groups, device=slot.device)[:, None]
+    e, c = slot // capacity, slot % capacity
+    return (e * groups + gi) * capacity + c
+
+
+def _offsets(n_experts: int, rows: int, device) -> torch.Tensor:
+    """``arange(E+1)·rows`` as int32 on ``device``, built once a shape."""
+    key = (n_experts, rows, str(device))
+    off = _OFFSETS.get(key)
+    if off is None:
+        off = (torch.arange(n_experts + 1, dtype=torch.int32, device=device)
+               * rows)
+        _OFFSETS[key] = off
+    return off
+
+
+def _expert_mlp(p: dict, cfg: ArchConfig, buf: torch.Tensor, groups: int,
+                capacity: int) -> torch.Tensor:
+    """The experts' MLP on the (E·g·C, D) buffer → (E·g·C, D)."""
+    e, d = cfg.n_experts, buf.shape[-1]
+    act = L.activation(cfg.act)
+    up = ("we_g", "we_u") if cfg.act == "silu" else ("we_i",)
+    if cfg.attn_impl == "kernel":
+        off = _offsets(e, groups * capacity, buf.device)
+        hs = [ops.moe_gemm(buf, p[name], off) for name in up]
+        h = act(hs[0]) * hs[1] if cfg.act == "silu" else act(hs[0])
+        return ops.moe_gemm(h, p["we_d"], off)
+    # the JAX package's einsums, over a (g, E, C, D) view of the buffer
+    gecd = buf.view(e, groups, capacity, d).transpose(0, 1)
+    hs = [torch.einsum("gecd,edf->gecf", gecd, p[name]) for name in up]
+    h = act(hs[0]) * hs[1] if cfg.act == "silu" else act(hs[0])
+    out = torch.einsum("gecf,efd->gecd", h, p["we_d"])
+    return out.transpose(0, 1).reshape(-1, d)
+
+
+def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
+    """(B, S, D) → (B, S, D), plus the router aux loss (f32 scalar)."""
+    check_split(cfg)
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.top_k, cfg.n_experts
+    g = max(1, cfg.moe_groups)
+    while t % g:                      # tiny smoke batches: shrink groups
+        g //= 2
+    tg = t // g
+    capacity = int(tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor) + 1
+    xf = x.reshape(g, tg, d)
+
+    weights, experts, aux = router(p, xf, cfg)
+    aux = aux.mean()
+    slot, keep = capacity_dispatch(experts, e, capacity)
+    rows = _buffer_rows(slot, capacity, g)                      # (g, tg·k)
+    trash = e * g * capacity
+    # every (token, k) pair's copy of its token, in (group, token, k) order
+    src = xf[:, :, None, :].expand(g, tg, k, d).reshape(-1, d)
+    buf = torch.zeros((trash + 1, d), dtype=x.dtype, device=x.device)
+    buf[torch.where(keep, rows, trash).reshape(-1)] = src
+    out = _expert_mlp(p, cfg, buf[:-1], g, capacity)
+
+    gathered = out[rows.reshape(-1)] * (
+        weights.reshape(-1, 1) * keep.reshape(-1, 1))
+    y = gathered.view(g, tg, k, d).sum(2)     # a token's k rows, in order
+    return y.reshape(b, s, d).to(x.dtype), aux

@@ -17,7 +17,13 @@ kernel in ``forward``, the flash-decode kernel in ``decode_step``):
   hd 112, d_ff 14336, vocab 32000) cut to 8 layers — one group of 6
   Mamba2 layers, the shared block, and a 2-layer tail; forward on
   (B 2, S 256), so the JAX chunked scan crosses a chunk boundary
-  (about 4 GB of f32 weights).
+  (about 4 GB of f32 weights);
+* ``torch_port_qwen3moe.json``: qwen3-moe-30b-a3b (d_model 2048, 32/4
+  heads, hd 128, 128 experts of d_ff 768, top-8, capacity factor 1.25,
+  vocab 151936 padded to 152064) cut to 2 layers; forward on (B 2,
+  S 128), so T 256 gives a capacity of 21 and pairs drop; the prefill's
+  T 192 gives 16 and each decode step's T 2 gives 1 (about 7.5 GB of
+  f32 weights).  The JAX MoE runs its dense-dispatch einsums.
 
 The files keep what ``chip_smoke.py`` holds the port to on the card,
 which has no JAX:
@@ -49,6 +55,10 @@ GOLDENS = {
         weight_seed=20241231, token_seed=8, batch=2, seq=256, prompt=96,
         max_seq=128, decode_steps=8, top=8,
         positions=[0, 1, 95, 127, 128, 255]),
+    "torch_port_qwen3moe.json": dict(
+        arch="qwen3-moe-30b-a3b", n_layers=2, dtype="float32",
+        weight_seed=20241232, token_seed=9, batch=2, seq=128, prompt=96,
+        max_seq=128, decode_steps=8, top=8, positions=[0, 1, 63, 95, 127]),
 }
 
 
@@ -68,8 +78,20 @@ def _top(row, k):
     return [int(i) for i in ids], [float(row[i]) for i in ids]
 
 
+def _to_jax(tree: dict) -> dict:
+    """The numpy tree as JAX arrays, each numpy leaf dropped once copied
+    (one copy of the weights in memory at a time, not two)."""
+    import jax.numpy as jnp
+    out = {}
+    for name in list(tree):
+        val = tree.pop(name)
+        out[name] = _to_jax(val) if isinstance(val, dict) \
+            else jnp.asarray(val)
+        del val
+    return out
+
+
 def _compute(spec: dict) -> dict:
-    import jax
     import jax.numpy as jnp
     import numpy as np
 
@@ -80,8 +102,7 @@ def _compute(spec: dict) -> dict:
     cfg = config(spec)
     jcfg = ArchConfig(**convert.arch_to_fields(cfg))
     model = Model(jcfg)
-    params = jax.tree.map(jnp.asarray, convert.random_numpy_params(
-        cfg, spec["weight_seed"]))
+    params = _to_jax(convert.random_numpy_params(cfg, spec["weight_seed"]))
     rng = np.random.default_rng(spec["token_seed"])
     tokens = rng.integers(0, cfg.vocab, (spec["batch"], spec["seq"]),
                           dtype=np.int32)

@@ -21,11 +21,12 @@ PATH = pathlib.Path(__file__).parent / "torch_port_summaries.json"
 COMMON = dict(dt=25.0, seed=0, drones_per_edge=3, edge_frac=0.62,
               cloud_frac=0.80, cloud_slots=16)
 # θ that moves inside a 30 s run, and the paper's §8.5 trapezium (rise
-# over 60-90 s, fall over 210-240 s of 300 s) compressed 5× into 60 s:
+# over 60-90 s, fall over 210-240 s of 300 s) compressed 10× into 30 s:
 # the eager port is launch-bound on the card (PERF.md), so a 300 s run
-# alone would take most of chip_smoke.py's time limit
+# alone would take most of chip_smoke.py's time limit, and three 60 s
+# runs took a third of it
 MOVING = dict(ramp_up=[5_000.0, 10_000.0], ramp_down=[20_000.0, 25_000.0])
-PAPER = dict(ramp_up=[12_000.0, 18_000.0], ramp_down=[42_000.0, 48_000.0])
+PAPER = dict(ramp_up=[6_000.0, 9_000.0], ramp_down=[21_000.0, 24_000.0])
 RUNS = [
     dict(name="small-dems-a", phase=3, policy="DEMS-A", models="PASSIVE",
          n_edges=2, duration_ms=30_000.0, theta=MOVING),
@@ -38,11 +39,11 @@ RUNS = [
     dict(name="small-sota2", phase=3, policy="SOTA2", models="PASSIVE",
          n_edges=2, duration_ms=30_000.0, theta=MOVING),
     dict(name="paper-dems-a", phase=4, policy="DEMS-A", models="PASSIVE",
-         n_edges=28, duration_ms=60_000.0, theta=PAPER),
+         n_edges=28, duration_ms=30_000.0, theta=PAPER),
     dict(name="paper-gems", phase=4, policy="GEMS", models="WL1@0.9",
-         n_edges=28, duration_ms=60_000.0, theta=None),
+         n_edges=28, duration_ms=30_000.0, theta=None),
     dict(name="paper-dems-coop", phase=4, policy="DEMS-COOP",
-         models="ACTIVE", n_edges=28, duration_ms=60_000.0, theta=None),
+         models="ACTIVE", n_edges=28, duration_ms=30_000.0, theta=None),
 ]
 
 

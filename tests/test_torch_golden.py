@@ -1,10 +1,10 @@
 """The port's golden files: the JAX ``fleet_summary`` of every fleet run
 ``chip_smoke.py`` drives on the card (``tests/golden/
 torch_port_summaries.json``, written by ``regen_torch_port_summaries.py``),
-and the JAX model numbers it holds the full-width granite and zamba2
-models to (``torch_port_model.json``, ``torch_port_zamba2.json``, written
-by ``regen_torch_port_model.py``; each file must hold what its generator
-defines).
+and the JAX model numbers it holds the full-width granite, zamba2 and
+qwen3-moe models to (``torch_port_model.json``, ``torch_port_zamba2.json``,
+``torch_port_qwen3moe.json``, written by ``regen_torch_port_model.py``;
+each file must hold what its generator defines).
 
 The small 2-edge entries are re-run here through JAX and through the CPU
 port: both must reproduce the file exactly, and the port's final state
@@ -91,7 +91,8 @@ def test_small_run_jax_and_port_reproduce_golden(run):
 
 
 @pytest.mark.parametrize("fname", ["torch_port_model.json",
-                                   "torch_port_zamba2.json"])
+                                   "torch_port_zamba2.json",
+                                   "torch_port_qwen3moe.json"])
 def test_model_golden_file_matches_its_generator(fname):
     """The model golden file holds the entry its generator defines (the
     spec's fields, tokens of its shape, a forward row per batch row and
@@ -101,7 +102,8 @@ def test_model_golden_file_matches_its_generator(fname):
     from repro_torch.models.model import Model
     regen = _regen_module("regen_torch_port_model")
     assert set(regen.GOLDENS) == {"torch_port_model.json",
-                                  "torch_port_zamba2.json"}
+                                  "torch_port_zamba2.json",
+                                  "torch_port_qwen3moe.json"}
     spec = regen.GOLDENS[fname]
     gold = json.loads((GOLDEN_DIR / fname).read_text())
     assert set(gold) == set(spec) | {"tokens", "forward", "prefill",
