@@ -15,19 +15,24 @@ served and decoded at its published width and depth.  Its six
 hand-written ``sm_90a`` kernels (masked arg-extremum, flash attention,
 flash decode, RMSNorm, selective scan, MoE grouped GEMM) are built from
 ``src/repro_torch/kernels/csrc`` at first use, one ``nvcc`` each, all
-started together.  Phases, each printed on
+started together.  Flash attention and the grouped GEMM have two bodies:
+f32 on the CUDA cores, bf16 on the tensor cores (``mma.sync`` fed by
+``cp.async``); the earlier CUDA-core bf16 body is checked and timed
+beside it as ``previous``.  Phases, each printed on
 its own line and each failing the script (non-zero exit) on error:
 
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 flags,
-   the six kernels built at once;
+   the six kernels built at once, registers per instantiation;
 2. kernels vs their plain PyTorch versions on the card: masked_argext
    exact; flash attention and flash decode on the kernel tests' sweep
    and the serve/decode shapes, hd 64, 112 and 128 (f32 1e-5, bf16
-   2e-2); RMSNorm (f32 1e-5, bf16 2e-2) and the selective scan (f32
-   2e-4, bf16 2e-2) on the kernel tests' shapes and the zamba2 path's
-   views; the grouped GEMM (f32 1e-4, bf16 3e-2 against f32) on the
-   kernel tests' sweep, ragged T and the qwen3-moe path's shapes, with
-   the rows that no expert owns exactly zero;
+   2e-2), bf16 flash also over every hd × S 1-512 × band × MHA/GQA/MQA;
+   RMSNorm (f32 1e-5, bf16 2e-2) and the selective scan (f32 2e-4, bf16
+   2e-2) on the kernel tests' shapes and the zamba2 path's views; the
+   grouped GEMM (f32 1e-4, bf16 3e-2 against f32) on the kernel tests'
+   sweep, ragged T, the qwen3-moe path's shapes and 0-130 rows an
+   expert, with the rows that no expert owns exactly zero; every bf16
+   flash and GEMM case on both bodies (tensor cores and previous);
 3. small parity: the 2-edge golden runs (DEMS-A, GEMS, DEMS-COOP,
    SOTA2) on the card and on the host, every final-state leaf equal,
    summaries equal to the golden JAX ones;
@@ -38,11 +43,14 @@ its own line and each failing the script (non-zero exit) on error:
    prefill and teacher-forced decode against the JAX reference's numbers;
 6. serve (flash_attention's main path): HV starcoder2-3b, DEV
    granite-3-2b and BP xlstm-1.3b, published widths and depths, bf16,
-   ``attn_impl="kernel"``, p95-calibrated, under GEMS for 15 s;
+   ``attn_impl="kernel"``, p95-calibrated, under GEMS for 15 s (here and
+   in phases 7, 13 and 16 every bf16 flash and GEMM launch must have
+   taken the tensor cores; in the f32 goldens 5, 12 and 15 none);
 7. decode (decode_attention's main path): granite-3-2b, bf16, batch 8,
    a 512-token prompt, 64 greedy steps, against ``attn_impl="ref"``;
 8. attention kernel times at the serve and decode shapes, beside the
-   plain versions', ``scaled_dot_product_attention``'s and the bounds;
+   previous body's (flash), the plain versions',
+   ``scaled_dot_product_attention``'s and the bounds;
 9. metropolis fleet: DEMS-COOP on 1024 edges, two runs bitwise equal
    (its horizon shrinks to fit the time budget);
 10. sync check: ticks under ``torch.cuda.set_sync_debug_mode("error")``;
@@ -59,7 +67,7 @@ its own line and each failing the script (non-zero exit) on error:
     f32;
 14. the zamba2 path's kernel times: RMSNorm beside
     ``torch.nn.functional.rms_norm``, the selective scan, and the two
-    attention kernels at hd 112;
+    attention kernels at hd 112 (flash beside its previous body);
 15. moe golden: qwen3-moe-30b-a3b at full width, 2 layers, f32 — forward
     on (B 2, S 128) (capacity 21: pairs drop), prefill and teacher-forced
     decode against the JAX reference's numbers;
@@ -72,8 +80,8 @@ its own line and each failing the script (non-zero exit) on error:
     decoding against ``"ref"`` (relative RMS and routing agreement per
     layer), then an f32 copy at 8 layers on both routes;
 17. ``moe_gemm``'s times at the serve, decode and prefill shapes and a
-    compacted ragged one, beside its plain version, ``torch.bmm`` and
-    ``torch._grouped_mm``.
+    compacted ragged one, beside its previous CUDA-core bf16 body, its
+    plain version, ``torch.bmm`` and ``torch._grouped_mm``.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``,
 ``tests/golden/torch_port_model.json``,
@@ -86,6 +94,7 @@ imports nothing of the JAX package.  Its last two lines are the
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -104,7 +113,7 @@ METRO_MS = 60_000.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
 # phases 10-17, would pass this budget
-BUDGET_S = 900.0
+BUDGET_S = 850.0
 RESERVE_S = 400.0
 MIN_METRO_MS = 10_000.0
 SYNC_TICKS = 50
@@ -179,6 +188,69 @@ def leaves(tree):
         yield tree
 
 
+def _short_name(mangled: str) -> str:
+    """``kernel<args>`` from an entry function's mangled name: enough of
+    the Itanium scheme for this repo's kernels (nested names such as
+    nvcc's hashed anonymous namespace, and int, bool, float and
+    named-type template arguments)."""
+    if not mangled.startswith("_Z"):
+        return mangled[:48]
+    i = 2
+    nested = mangled[i:i + 1] == "N"
+    i += nested
+    name = None
+    while i < len(mangled) and mangled[i].isdigit():
+        n = re.match(r"\d+", mangled[i:]).group()
+        i += len(n)
+        name = mangled[i:i + int(n)]
+        i += int(n)
+        if not nested:
+            break
+    if name is None:
+        return mangled[:48]
+    args = []
+    if mangled[i:i + 1] == "I":
+        i += 1
+        while i < len(mangled) and mangled[i] != "E":
+            if mangled[i] == "L":
+                j = mangled.index("E", i)
+                lit = mangled[i + 2:j]
+                args.append(lit if mangled[i + 1] == "i"
+                            else ("true" if lit == "1" else "false"))
+                i = j + 1
+            elif mangled[i] == "f":
+                args.append("float")
+                i += 1
+            elif mangled[i].isdigit():
+                n = re.match(r"\d+", mangled[i:]).group()
+                i += len(n)
+                args.append(mangled[i:i + int(n)].replace("__nv_", ""))
+                i += int(n)
+            else:
+                break
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_rows(text: str) -> list:
+    """One ``kernel<args>: registers, barriers, shared memory[, spills]``
+    entry per entry function of ``nvcc -Xptxas -v``'s output."""
+    rows, name, spill = [], None, "0"
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = _short_name(m.group(1)), "0"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        if "Used" in ln and name:
+            rows.append(f"{name}: {ln.split('Used ')[-1].strip()}"
+                        + (f", {spill} B spill stores" if spill != "0"
+                           else ""))
+            name = None
+    return rows
+
+
 def states_equal(a, b) -> bool:
     import torch
     return all(torch.equal(x.cpu(), y.cpu())
@@ -209,9 +281,13 @@ def eager_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return _events_ms(run, iters)
 
 
-def graph_ms(fn, iters: int = 200, replays: int = 10) -> float:
+def graph_ms(fn, iters: int = 200, replays: int = 10,
+             warm: int = 3) -> float:
     """Device time per call of ``fn``, in ms: ``iters`` calls captured in
-    one CUDA graph and replayed, so the host does not pace the card."""
+    one CUDA graph and replayed, so the host does not pace the card.
+    ``warm`` replays run first: after a long host-bound phase the first
+    replays ran slower (phase 17's first row read 160.6 µs a call where
+    the profiler gave 137.5 µs, NVIDIA H100 80GB HBM3 at 700 W)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -223,7 +299,8 @@ def graph_ms(fn, iters: int = 200, replays: int = 10) -> float:
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-    graph.replay()
+    for _ in range(warm):
+        graph.replay()
 
     def run():
         for _ in range(replays):
@@ -261,16 +338,34 @@ def profile_call(fn) -> tuple[int, float, float]:
 def check_attention_kernels(dev) -> tuple[dict, dict]:
     """Phase 2's attention cases, each kernel against its plain version
     on the same card tensors: the ``tests/test_kernels.py`` sweep (MHA,
-    GQA, MQA, window 0/64, non-causal; decode lengths 1..W) and the
-    path's shapes (granite H32/KV8/hd64, starcoder2 H24/KV2/hd128 and
-    zamba2 H32/KV32/hd112 at S 1-512 through (B,S,H,hd) views; decode on
-    strided (B,W,KV,hd) cache views, zamba2's at hd 112).  Returns
-    ({kernel: {dtype: max |err|}}, case counts)."""
+    GQA, MQA, window 0/64, non-causal; decode lengths 1..W), the path's
+    shapes (granite H32/KV8/hd64, starcoder2 H24/KV2/hd128 and zamba2
+    H32/KV32/hd112 at S 1-512 through (B,S,H,hd) views; decode on
+    strided (B,W,KV,hd) cache views, zamba2's at hd 112) and, for the
+    bf16 flash routes, every hd (64, 112, 128) × S (1, 17, 64, 100, 203,
+    512) × (causal, window 64, non-causal) × (MHA, GQA, MQA) through
+    (B,S,H,hd) views.  Every bf16 flash case runs on the tensor-core
+    route (``ops``) and on the previous CUDA-core route (``_route=CORE``,
+    key "flash_attention previous").  Returns ({kernel: {dtype: max
+    |err|}}, case counts)."""
     import torch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(20241231)
-    errs = {"flash_attention": {}, "decode_attention": {}}
+    errs = {"flash_attention": {}, "flash_attention previous": {},
+            "decode_attention": {}}
     cases = dict.fromkeys(errs, 0)
+
+    def flash(dname, q, k, v, what, causal=True, window=0):
+        want = ref.ref_attention(q, k, v, causal=causal, window=window)
+        record("flash_attention", dname,
+               ops.flash_attention(q, k, v, causal=causal, window=window),
+               want, what)
+        if dname == "bfloat16":
+            record("flash_attention previous", dname,
+                   FA.cuda_flash_attention(q, k, v, causal=causal,
+                                           window=window, _route=FA.CORE),
+                   want, what)
 
     def record(kernel, dname, got, want, what):
         torch.cuda.synchronize()
@@ -290,12 +385,9 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
                                   (1, 4, 1, 128, 128)):
             q, k, v = rnd(b, h, s, hd), rnd(b, kv, s, hd), rnd(b, kv, s, hd)
             for causal, window in ((True, 0), (True, 64), (False, 0)):
-                record("flash_attention", dname,
-                       ops.flash_attention(q, k, v, causal=causal,
-                                           window=window),
-                       ref.ref_attention(q, k, v, causal=causal,
-                                         window=window),
-                       f"{(b, h, kv, s, hd)} causal={causal} w={window}")
+                flash(dname, q, k, v,
+                      f"{(b, h, kv, s, hd)} causal={causal} w={window}",
+                      causal, window)
         for (h, kv, hd) in ((32, 8, 64), (24, 2, 128), (32, 32, 112)):
             for (b, s) in ((1, 1), (1, 17), (1, 64), (2, 128), (1, 512),
                            (8, 512), (2, 256)):
@@ -304,10 +396,19 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
                 q = rnd(b, s, h, hd).transpose(1, 2)
                 k = rnd(b, s, kv, hd).transpose(1, 2)
                 v = rnd(b, s, kv, hd).transpose(1, 2)
-                record("flash_attention", dname,
-                       ops.flash_attention(q, k, v, causal=True),
-                       ref.ref_attention(q, k, v, causal=True),
-                       f"path {(b, h, kv, s, hd)}")
+                flash(dname, q, k, v, f"path {(b, h, kv, s, hd)}")
+        if dname == "bfloat16":     # the tensor-core route's sweep
+            for hd in FA.HEAD_DIMS:
+                for (h, kv) in ((8, 8), (8, 2), (8, 1)):
+                    for s in (1, 17, 64, 100, 203, 512):
+                        q = rnd(2, s, h, hd).transpose(1, 2)
+                        k = rnd(2, s, kv, hd).transpose(1, 2)
+                        v = rnd(2, s, kv, hd).transpose(1, 2)
+                        for causal, window in ((True, 0), (True, 64),
+                                               (False, 0)):
+                            flash(dname, q, k, v, f"route sweep "
+                                  f"{(2, h, kv, s, hd)} causal={causal} "
+                                  f"w={window}", causal, window)
 
         for (b, h, kv, w, hd) in ((2, 4, 4, 512, 64), (3, 8, 2, 1024, 64),
                                   (1, 4, 1, 256, 128), (8, 32, 8, 1024, 64),
@@ -371,10 +472,26 @@ def reset_model_counts() -> None:
         m.reset_count()
 
 
+def tc_counts() -> dict:
+    """The tensor-core launches of the two kernels that have that route."""
+    from repro_torch.kernels import flash_attention, moe_gemm
+    return {m.KERNEL: m.tc_launch_count for m in (flash_attention,
+                                                 moe_gemm)}
+
+
 def check_launches(what: str, got: dict, want: dict) -> None:
     if got != want:
         fail(f"{what}: kernel launches {json.dumps(got)}, want "
              f"{json.dumps(want)}")
+
+
+def check_tc(what: str, launches: dict, tc: dict, bf16: bool) -> None:
+    """On a bf16 path every flash and moe launch took the tensor-core
+    route; on an f32 one none did (the f32 goldens need the CUDA cores)."""
+    want = {k: launches[k] if bf16 else 0 for k in tc}
+    if tc != want:
+        fail(f"{what}: tensor-core launches {json.dumps(tc)}, want "
+             f"{json.dumps(want)} of {json.dumps(launches)}")
 
 
 def phase_golden(dev, path: str, phase: int) -> None:
@@ -446,13 +563,16 @@ def phase_golden(dev, path: str, phase: int) -> None:
     launches = model_counts()
     check_launches(f"golden {gold['arch']}", launches, path_launches(
         cfg, forwards=1, prefills=1, steps=len(gold["decode"])))
+    check_tc(f"golden {gold['arch']} (f32)", launches, tc_counts(),
+             bf16=False)
     say(f"phase{phase} golden {gold['arch']} full width × "
         f"{gold['n_layers']} layers f32: forward (B {gold['batch']}, S "
         f"{gold['seq']}), prefill {prompt} + {len(gold['decode'])} "
         f"teacher-forced decode steps == JAX golden; max |Δ top logit| "
         f"{worst['value']:.3e} (tol {GOLD_TOL}), max |Δ checksum| "
         f"{worst['checksum']:.3e} (tol {GOLD_SUM_TOL}); kernel launches "
-        f"{json.dumps(launches)} (= the path's); "
+        f"{json.dumps(launches)} (= the path's, none on the tensor "
+        f"cores); "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -496,6 +616,7 @@ def phase_serve(dev) -> dict:
                        for n in models) for k in launches}
     check_launches(f"serve (forwards {json.dumps(calls)})", launches,
                    expected)
+    check_tc("serve", launches, tc_counts(), bf16=True)
     if launches["flash_attention"] <= 0 or not all(
             calls[n] for n in models if cfgs[n].family != "ssm"):
         fail(f"serve: an attention role never ran: forwards {calls}")
@@ -509,7 +630,8 @@ def phase_serve(dev) -> dict:
         f"{res.completion_rate:.4f}, QoS utility {res.qos_utility}, QoE "
         f"utility {res.qoe_utility}, stolen {res.stolen}, migrated "
         f"{res.migrated}; forwards {json.dumps(calls)}; kernel launches "
-        f"{json.dumps(launches)} (= Σ forwards × the role's layers)")
+        f"{json.dumps(launches)} (= Σ forwards × the role's layers; every "
+        f"flash launch on the tensor cores)")
     say(f"phase6 {res.summary()}")
     for name, m in models.items():
         n_k, busy, wall = profile_call(m.run)
@@ -551,7 +673,7 @@ def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
         tok = logits[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = model_counts()
+    launches, tc = model_counts(), tc_counts()
     n_k, busy, step_wall = profile_call(
         lambda: mk.decode_step(params, cache_k, tok, p + steps))
     f32 = dict(dtype="float32", param_dtype="float32")
@@ -587,7 +709,7 @@ def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
              f"{DECODE_F32_TOL}")
     del pf, cache_f, cache_ff, mf, mff
     return dict(prefill_s=prefill_s, wall=wall, rms=rms, max_diff=mx,
-                launches=launches, profile=(n_k, busy, step_wall),
+                launches=launches, tc=tc, profile=(n_k, busy, step_wall),
                 peak=torch.cuda.max_memory_allocated())
 
 
@@ -625,6 +747,7 @@ def phase_decode(dev) -> dict:
                              DECODE["max_seq"])
     check_launches("decode granite-3-2b", r["launches"],
                    path_launches(cfg, prefills=1, steps=steps))
+    check_tc("decode granite-3-2b", r["launches"], r["tc"], bf16=True)
     say(f"phase7 decode granite-3-2b bf16 {decode_line(r, b, p, steps)}")
     return r["launches"]
 
@@ -705,7 +828,7 @@ def phase_hybrid(dev) -> dict:
     torch.cuda.synchronize()
     reset_model_counts()
     forwards = serve_one_role(dev, cfg, z, "ZAMBA2", 13)
-    serve_counts = model_counts()
+    serve_counts, serve_tc = model_counts(), tc_counts()
     gen = torch.Generator(device=dev).manual_seed(z["seed"])
     params = Model(cfg, dev).init(gen)
     prompt = torch.randint(0, cfg.vocab, (1, z["prompt"]), generator=gen,
@@ -716,11 +839,13 @@ def phase_hybrid(dev) -> dict:
     check_launches("hybrid zamba2-7b serve + decode", launches,
                    path_launches(cfg, forwards=forwards, prefills=1,
                                  steps=z["steps"]))
+    check_tc("hybrid zamba2-7b serve + decode", launches,
+             {k: serve_tc[k] + r["tc"][k] for k in serve_tc}, bf16=True)
     say(f"phase13 decode zamba2-7b bf16 "
         f"{decode_line(r, 1, z['prompt'], z['steps'])}")
     say(f"phase13 launches over the phase: {json.dumps(launches)} = "
         f"{forwards} forwards, 1 prefill, {z['steps']} steps × the "
-        f"path's per-call counts")
+        f"path's per-call counts; every flash launch on the tensor cores")
     return launches
 
 
@@ -758,8 +883,10 @@ def phase_times(dev) -> dict:
     kernel at the serve and decode shapes, beside its plain version's,
     ``scaled_dot_product_attention``'s (timed only; the port never calls
     it) and the bound; plus each kernel's mean time in a profiler trace.
-    Phase 14 adds the zamba2 shapes (hd 112) and the RMSNorm and
-    selective-scan kernels through :func:`kernel_times`."""
+    Flash attention's rows add ``previous``: the earlier CUDA-core bf16
+    body (``_route=CORE``), timed in the same call.  Phase 14 adds the
+    zamba2 shapes (hd 112) and the RMSNorm and selective-scan kernels
+    through :func:`kernel_times`."""
     import torch
     import torch.nn.functional as F
 
@@ -779,6 +906,8 @@ def phase_times(dev) -> dict:
         iters = 20 if s > 128 else 200
         row = {name: graph_ms(fn, iters=iters) for name, fn in (
             ("kernel", lambda: FA.cuda_flash_attention(q, k, v)),
+            ("previous", lambda: FA.cuda_flash_attention(
+                q, k, v, _route=FA.CORE)),
             ("plain", lambda: ref.ref_attention(q, k, v)),
             ("library", lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)))}
@@ -786,7 +915,7 @@ def phase_times(dev) -> dict:
         flops = 4 * hd * b * h * s * (s + 1) // 2     # causal pairs only
         row["bound"], row["bound_by"] = _bound(nbytes, flops, BF16_OPS_PER_S)
         row["profile_us"] = _prof_us(
-            lambda: FA.cuda_flash_attention(q, k, v), "flash_kernel")
+            lambda: FA.cuda_flash_attention(q, k, v), "flash_tc_kernel")
         out[key] = row
 
     b, w, kv, h, hd, n = 8, 1024, 8, 32, 64, 576
@@ -812,9 +941,11 @@ def phase_times(dev) -> dict:
 
 def say_times(phase: int, rows: dict) -> None:
     for key, row in rows.items():
+        prev = (f"previous (CUDA cores) {row['previous']:.6f}, "
+                if "previous" in row else "")
         say(f"phase{phase} {key} (bf16): device ms per call (graph replay) "
-            f"kernel {row['kernel']:.6f}, plain {row['plain']:.6f}, library "
-            f"{row['library']}; bound "
+            f"kernel {row['kernel']:.6f}, {prev}plain {row['plain']:.6f}, "
+            f"library {row['library']}; bound "
             f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
             f"launch {row['profile_us']}")
 
@@ -825,8 +956,9 @@ def kernel_times(dev) -> dict:
     ``torch.nn.functional.rms_norm`` (timed only; the port never calls
     it), ``ssm_scan`` on the model's views at (B 1, S 64, H 112, P = N =
     64) (no one PyTorch call computes it), flash attention at (1, 32, 64,
-    112) and flash decode at (1, 32, W 160, 112) with 144 valid rows
-    beside ``scaled_dot_product_attention``."""
+    112) beside its previous CUDA-core body, and flash decode at (1, 32,
+    W 160, 112) with 144 valid rows, both beside
+    ``scaled_dot_product_attention``."""
     import torch
     import torch.nn.functional as F
 
@@ -872,13 +1004,15 @@ def kernel_times(dev) -> dict:
                for _ in range(3))
     row = {name: graph_ms(fn) for name, fn in (
         ("kernel", lambda: FA.cuda_flash_attention(q, k, v)),
+        ("previous", lambda: FA.cuda_flash_attention(q, k, v,
+                                                     _route=FA.CORE)),
         ("plain", lambda: ref.ref_attention(q, k, v)),
         ("library", lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)))}
     row["bound"], row["bound_by"] = _bound(
         2 * 4 * q.numel(), 4 * hd * b * h * s * (s + 1) // 2, BF16_OPS_PER_S)
     row["profile_us"] = _prof_us(lambda: FA.cuda_flash_attention(q, k, v),
-                                 "flash_kernel")
+                                 "flash_tc_kernel")
     out["flash serve zamba2 (1, 32, 64, 112)"] = row
 
     b, w, kv, h, hd, nv = 1, 160, 32, 32, 112, 144
@@ -1013,14 +1147,24 @@ def check_moe_gemm(dev) -> tuple[dict, int]:
     of the same values): ``tests/test_kernels.py``'s sweep ((256,64,128,
     4), (512,128,64,8), (128,32,32,3) with random ragged offsets), its
     empty-experts and bf16 cases, ragged T that is not a multiple of 64
-    and D, F off the 16-byte vector width, and the qwen3-moe path's shapes
+    and D, F off the 16-byte vector width, the qwen3-moe path's shapes
     with E 128 on uniform offsets: (768, 2048→768), (768, 768→2048) and
-    (128, 2048→768).  Rows that no expert owns must be exactly zero.
-    Returns ({dtype: max |err|}, case count)."""
+    (128, 2048→768), and for the tensor-core route's row tiles, uniform
+    offsets with 1, 6, 16, 17, 81 and 130 rows an expert and ragged ones
+    mixing 0 to 130, at the path's D/F and at a D and F off the 64 × 128
+    tile (200 → 136).  Every bf16 case also runs the previous CUDA-core
+    route (``_route=CORE``, key "bfloat16 previous").  Rows that no expert
+    owns must be exactly zero.  Returns ({dtype: max |err|}, case
+    count)."""
     import torch
+    from repro_torch.kernels import moe_gemm as MG
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(20241233)
     errs, cases = {}, 0
+
+    def counts_offsets(counts):
+        c = torch.tensor([0] + counts, device=dev)
+        return c.cumsum(0).int()
 
     def ragged(t, e):
         cuts = torch.randint(0, t + 1, (e - 1,), generator=gen,
@@ -1041,34 +1185,56 @@ def check_moe_gemm(dev) -> tuple[dict, int]:
                  ((768, 768, 2048, 128), uniform),
                  ((128, 2048, 768, 128), uniform),
                  ((768, 2048, 768, 128), ragged)]
+    # the row tiles: E experts with n rows each, and a ragged mix (the
+    # plain version gathers a (T, D, F) f32 weight copy, so E stays small
+    # where D·F is 1.5 M)
+    mix = [0, 1, 6, 16, 17, 81, 130, 0]
+    for (d, f, e) in ((2048, 768, 4), (768, 2048, 4), (200, 136, 16)):
+        for n in (1, 6, 16, 17, 81, 130):
+            cases_def.append(((n * e, d, f, e),
+                              lambda t, e_, n=n: counts_offsets([n] * e_)))
+        counts = mix * max(1, e // len(mix))
+        cases_def.append(((sum(counts), d, f, len(counts)),
+                          lambda t, e_, c=counts: counts_offsets(c)))
+
+    def check(dname, what, got, want, rows=slice(None)):
+        tol = MOE_TOL[dname.split()[0]]
+        torch.cuda.synchronize()
+        err, excess = allclose_err(got[rows], want[rows], tol)
+        if not excess <= 0.0:
+            fail(f"moe_gemm {what} {dname}: kernel differs from the plain "
+                 f"version (max |err| {err}, tolerance {tol})")
+        errs[dname] = max(errs.get(dname, 0.0), err)
+
     for dname, td in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
-        tol = MOE_TOL[dname]
         for (t, d, f, e), offs in cases_def:
             x = torch.randn(t, d, generator=gen, device=dev).to(td)
             w = (torch.randn(e, d, f, generator=gen, device=dev)
                  / d ** 0.5).to(td)
             off = offs(t, e)
-            got = ops.moe_gemm(x, w, off)
             want = ref.ref_moe_gemm(x.float(), w.float(), off)
-            torch.cuda.synchronize()
-            err, excess = allclose_err(got, want, tol)
-            if not excess <= 0.0:
-                fail(f"moe_gemm {(t, d, f, e)} {dname}: kernel differs from "
-                     f"the plain version (max |err| {err}, tolerance {tol})")
-            errs[dname] = max(errs.get(dname, 0.0), err)
+            check(dname, (t, d, f, e), ops.moe_gemm(x, w, off), want)
+            if dname == "bfloat16":
+                check("bfloat16 previous", (t, d, f, e),
+                      MG.cuda_moe_gemm(x, w, off, _route=MG.CORE), want)
             cases += 1
-        # rows before offsets[0] and from offsets[E] on: exactly zero
+        # rows before offsets[0] and from offsets[E] on: exactly zero, on
+        # a shape each route takes (72 → 40 on the tensor cores in bf16)
         x = torch.randn(203, 72, generator=gen, device=dev).to(td)
         w = torch.randn(3, 72, 40, generator=gen, device=dev).to(td)
         off = torch.tensor([16, 40, 40, 150], dtype=torch.int32, device=dev)
-        got = ops.moe_gemm(x, w, off)
         want = ref.ref_moe_gemm(x.float(), w.float(), off)
-        torch.cuda.synchronize()
-        err, excess = allclose_err(got[16:150], want[16:150], tol)
-        if got[:16].any() or got[150:].any() or not excess <= 0.0:
-            fail(f"moe_gemm uncovered rows {dname}: want zeros outside "
-                 f"[16, 150) and the plain version inside (max |err| {err})")
+        routes = [(dname, ops.moe_gemm(x, w, off))]
+        if dname == "bfloat16":
+            routes.append(("bfloat16 previous",
+                           MG.cuda_moe_gemm(x, w, off, _route=MG.CORE)))
+        for key, got in routes:
+            torch.cuda.synchronize()
+            if got[:16].any() or got[150:].any():
+                fail(f"moe_gemm uncovered rows {key}: want zeros outside "
+                     f"[16, 150)")
+            check(key, "uncovered rows", got, want, slice(16, 150))
         cases += 1
     return errs, cases
 
@@ -1205,6 +1371,9 @@ def phase_moe(dev) -> dict:
         f" busy {busy:.3f} ms of {pre_wall:.3f} ms wall")
     del params, mk
     torch.cuda.empty_cache()
+    bf16_launches, bf16_tc = model_counts(), tc_counts()
+    check_tc("moe qwen3-moe bf16 serve + decode", bf16_launches, bf16_tc,
+             bf16=True)
 
     cfg8 = dataclasses.replace(cfg, n_layers=z["f32_layers"],
                                dtype="float32", param_dtype="float32")
@@ -1228,10 +1397,15 @@ def phase_moe(dev) -> dict:
     want8 = path_launches(cfg8, prefills=1, steps=z["steps"])
     check_launches("moe qwen3-moe serve + decode", launches,
                    {k: want[k] + want8[k] for k in want})
+    check_tc("moe qwen3-moe f32 copy", launches8,
+             {k: v - bf16_tc[k] for k, v in tc_counts().items()},
+             bf16=False)
     say(f"phase16 launches over the phase: {json.dumps(launches)} = "
         f"{forwards} forwards, 2 prefills and {z['steps']} steps at 48 "
         f"layers, 1 prefill and {z['steps']} steps at {cfg8.n_layers}, × "
-        f"the path's per-call counts")
+        f"the path's per-call counts; tensor-core launches "
+        f"{json.dumps(bf16_tc)}: every bf16 flash and moe launch, and "
+        f"none of the f32 copy's")
     return launches
 
 
@@ -1241,10 +1415,11 @@ def moe_times(dev) -> dict:
     ``we_g`` (2048→768) and ``we_d`` (768→2048), decode (B 8: C 1, 128
     rows) and prefill (B 8 × 128: C 81, 10,368 rows) on uniform offsets,
     and the serve's 512 routed pairs compacted over 128 experts (ragged
-    offsets, no padding) — beside the plain version, ``torch.bmm`` over
-    the (E, C, D) view (the uniform shapes) and ``torch._grouped_mm`` (the
-    ragged one, where the card's torch has it); both timed only, the port
-    never calls them."""
+    offsets, no padding) — beside the previous CUDA-core bf16 body
+    (``_route=CORE``, timed in the same call), the plain version,
+    ``torch.bmm`` over the (E, C, D) view (the uniform shapes) and
+    ``torch._grouped_mm`` (the ragged one, where the card's torch has
+    it); both timed only, the port never calls them."""
     import torch
 
     from repro_torch.kernels import moe_gemm as MG
@@ -1266,6 +1441,8 @@ def moe_times(dev) -> dict:
         xe = x.view(e, c, d)
         row = {"kernel": graph_ms(lambda: MG.cuda_moe_gemm(x, w, off),
                                   iters=20),
+               "previous": graph_ms(lambda: MG.cuda_moe_gemm(
+                   x, w, off, _route=MG.CORE), iters=20),
                "plain": graph_ms(lambda: ref.ref_moe_gemm(x, w, off),
                                  iters=2, replays=3)
                if c <= 6 else None,
@@ -1274,7 +1451,7 @@ def moe_times(dev) -> dict:
         row["bound"], row["bound_by"] = _bound(nbytes, 2 * t * d * f,
                                                BF16_OPS_PER_S)
         row["profile_us"] = _prof_us(lambda: MG.cuda_moe_gemm(x, w, off),
-                                     "moe_gemm_kernel")
+                                     "moe_gemm_tc_kernel")
         out[key] = row
         del x, w, xe
     # ragged: 512 (token, k) pairs of the serve shape, compacted
@@ -1286,6 +1463,8 @@ def moe_times(dev) -> dict:
     x = torch.randn(t, d, generator=gen, device=dev).to(bf)
     w = (torch.randn(e, d, f, generator=gen, device=dev) / d ** 0.5).to(bf)
     row = {"kernel": graph_ms(lambda: MG.cuda_moe_gemm(x, w, off), iters=20),
+           "previous": graph_ms(lambda: MG.cuda_moe_gemm(
+               x, w, off, _route=MG.CORE), iters=20),
            "plain": graph_ms(lambda: ref.ref_moe_gemm(x, w, off), iters=2,
                              replays=3)}
     used = int((counts > 0).sum())
@@ -1305,11 +1484,12 @@ def moe_times(dev) -> dict:
     row["bound"], row["bound_by"] = _bound(nbytes, 2 * t * d * f,
                                            BF16_OPS_PER_S)
     row["profile_us"] = _prof_us(lambda: MG.cuda_moe_gemm(x, w, off),
-                                 "moe_gemm_kernel")
+                                 "moe_gemm_tc_kernel")
     out[f"ragged 512 pairs over {used} experts (512, 2048→768)"] = row
     for key, row in out.items():
         say(f"phase17 moe_gemm {key} (bf16): device ms per call (graph "
-            f"replay) kernel {row['kernel']:.6f}, plain {row['plain']}, "
+            f"replay) kernel {row['kernel']:.6f}, previous (CUDA cores) "
+            f"{row['previous']:.6f}, plain {row['plain']}, "
             f"library {row['library']} "
             f"({row.get('library_note', 'torch.bmm over (E, C, D)')}); bound "
             f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
@@ -1396,10 +1576,9 @@ def main() -> int:
     say(f"phase1 build: {time.perf_counter() - t0:.3f} s for "
         f"{len(kernel_names)} sources built at once")
     for kname in kernel_names:
-        regs = [ln.split("info    : ")[-1] for ln in
-                builds[kname]["ptxas"].splitlines() if "Used" in ln]
         say(f"phase1 build {kname}: nvcc {builds[kname]['seconds']:.3f} s; "
-            f"ptxas per instantiation: {' | '.join(regs)}")
+            f"ptxas per instantiation: "
+            f"{' | '.join(ptxas_rows(builds[kname]['ptxas']))}")
 
     # ---- phase 2: kernel vs plain on the card ---------------------------
     rng = np.random.default_rng(20241230)
@@ -1672,7 +1851,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": serve_launches,
         "max_abs_err": max(att_err["flash_attention"].values()),
-        "ms": flash_t["kernel"], "plain_ms": flash_t["plain"],
+        "ms": flash_t["kernel"], "previous_ms": flash_t["previous"],
+        "plain_ms": flash_t["plain"],
         "bound_ms": flash_t["bound"], "bound_by": flash_t["bound_by"],
         "library_ms": flash_t["library"]}, {
         "name": "decode_attention", "route": "cuda",
@@ -1703,8 +1883,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
         "replaces": "src/repro/kernels/moe_gemm.py:24",
         "launches": moe["moe_gemm"],
-        "max_abs_err": max(moe_err.values()),
-        "ms": moe_t["kernel"], "plain_ms": moe_t["plain"],
+        "max_abs_err": max(moe_err["float32"], moe_err["bfloat16"]),
+        "ms": moe_t["kernel"], "previous_ms": moe_t["previous"],
+        "plain_ms": moe_t["plain"],
         "bound_ms": moe_t["bound"], "bound_by": moe_t["bound_by"],
         "library_ms": moe_t["library"]}]}))
     print(json.dumps({"ok": True, "device": {

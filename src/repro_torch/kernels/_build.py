@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` has a plain C launcher, so it compiles with
 ``nvcc -shared`` in seconds without PyTorch's headers.  The library lands
-in ``_build/`` next to this file, keyed by a hash of the source and the
-flags, and is built at first use; a changed source builds anew.  Nothing
+in ``_build/`` next to this file, keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, and is built at first
+use; a changed source or header builds anew.  Nothing
 here runs at import time.
 """
 from __future__ import annotations
@@ -45,10 +46,15 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
+    """The source of ``name`` and its library's path, keyed by the source,
+    every header beside it (``csrc/*.cuh``, which a source may include)
+    and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / f"{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

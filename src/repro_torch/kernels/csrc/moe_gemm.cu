@@ -15,32 +15,50 @@
 //
 // Bound: bytes, on the model's path.  Each call reads every expert's
 // (D, F) matrix once: qwen3-moe's (128, 2048, 768) bf16 tensor is
-// 402.7 MB, about 120 us at 3.35 TB/s, against a few us of tensor-core
-// FLOPs at serve and decode shapes (a handful of rows an expert).
+// 402.7 MB, about 120 us at 3.35 TB/s.  At serve and decode (1 to 6 rows
+// an expert) the tensor-core FLOPs are a few us; at prefill (81 rows an
+// expert, 32.6 GFLOP) about 33 us at the bf16 peak, still below the
+// bytes' 138 us, but f32 FMAs on the CUDA cores take 1.9 ms there.
 //
-// Design: the TPU walks a (row tile, expert) grid in order and skips the
-// experts that miss the tile.  Here the grid is expert-major instead:
-// one block per (64-column tile of F, expert e, row-tile slot z), and the
-// block walks expert e's own rows in 64-row tiles z, z+Z, ...  Every
-// tile holds rows of one expert only, so no row mask is needed, and each
-// weight tile is read once per 64 rows of its expert (a row-tile grid
-// would read it again for every tile that its rows straddle, and at
-// decode, one row an expert, would give 2 row tiles and a loop over 64
-// experts each).  At the decode shape the grid is 12 x 129 blocks, and
-// every SM streams weights.  Z is the mean number of row tiles an expert
-// has, so uniform offsets (the model's) give one tile a block.  For each
-// tile the block loops over D in 64-deep slices: x's rows (transposed)
-// and w[e]'s (64, 64) tile are staged in shared memory as f32, with
-// 16-byte loads where the rows are aligned; 256 threads each own a 4 x 4
-// set of outputs (rows ty + 16i, columns tx + 16j), and threads whose
-// rows lie past the tile's last row skip the FMAs, so a 1-row tile costs
-// the weight reads, not 64 rows of arithmetic.  FMAs in f32 on the CUDA
-// cores; the block row E (one extra grid row) writes the zeros of the
-// rows that no expert owns.  Tensor cores (wgmma), TMA and compacted
-// dispatch are later work.
+// Grid (both bodies): the TPU walks a (row tile, expert) grid in order
+// and skips the experts that miss the tile.  Here the grid is
+// expert-major instead: one block per (column tile of F, expert e,
+// row-tile slot z), and the block walks expert e's own rows in tiles z,
+// z+Z, ...  Every tile holds rows of one expert only, so each weight
+// tile is read once per row tile of its expert, and at decode (one row
+// an expert) every SM streams weights.  Z is the mean number of row
+// tiles an expert has, so uniform offsets (the model's) give one tile a
+// block.  The block row E (one extra grid row) writes the zeros of the
+// rows that no expert owns.  Two bodies, chosen by the launcher's
+// `route`:
+//
+// route 0, moe_gemm_kernel (f32; bf16 with D or F off the 16-byte
+// vector width, or when asked for): 64 x 64 output tiles, x's rows
+// (transposed) and w[e]'s (64, 64) tile staged in shared memory as f32,
+// 256 threads each owning a 4 x 4 set of outputs with f32 FMAs on the
+// CUDA cores; threads whose rows lie past the tile's last row skip the
+// FMAs.  The f32 goldens need this body.
+//
+// route 1, moe_gemm_tc_kernel<MT> (bf16, D and F multiples of 8,
+// 16-byte aligned x and w): mma.sync.m16n8k16 on the tensor cores over
+// a deep cp.async ring.  The load-barrier-FMA rhythm of route 0 kept one
+// 8 KB weight tile in flight a block (0.9-1.3 TB/s); here a block owns
+// MT m16 row tiles (the wrapper picks MT from the mean rows an expert:
+// 1 at serve, decode and the compacted pairs, 8 at prefill, so each
+// weight tile is read once) by 128 columns, and 64-deep slices of w[e]
+// (64 x 128 bf16, 16 KB) and x run through a 3-stage cp.async.cg ring in
+// dynamic shared memory, two slices in flight while one computes, with
+// rows padded by 16 B so ldmatrix is conflict-free.  A fragments come
+// from ldmatrix on x, B fragments from ldmatrix.trans on w (F is
+// contiguous), f32 accumulators, one rounding at the store.  x rows past
+// the expert's last row are zero-filled (cp.async src-size 0), their m16
+// tiles skip the products, and they are never stored.  wgmma, TMA and
+// compacted dispatch are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc_bf16.cuh"
 
 namespace {
 
@@ -95,6 +113,23 @@ struct Vec<__nv_bfloat16> {
 
 __device__ __forceinline__ int clip(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// The extra grid row E: zeros into columns [n0, n0 + BN) of the rows
+// that no expert owns, [0, offsets[0]) and [offsets[E], T).
+template <typename T, int BN, int kBlock>
+__device__ __forceinline__ void zero_uncovered(
+    const int* __restrict__ offsets, T* __restrict__ y, int T_, int F, int E,
+    int n0) {
+  if (blockIdx.z != 0) return;
+  const int a = clip(offsets[0], 0, T_);
+  const int b = clip(offsets[E], a, T_);
+  const int n = a + (T_ - b);
+  for (int v = threadIdx.x; v < n * BN; v += kBlock) {
+    const int i = v / BN, c = n0 + v % BN;
+    const int r = i < a ? i : b + (i - a);
+    if (c < F) y[static_cast<int64_t>(r) * F + c] = from_f<T>(0.f);
+  }
 }
 
 // Stage x[r0 : r0 + rows, k0 : k0 + kBK) transposed into xs (rows past
@@ -165,15 +200,7 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int e = blockIdx.y;
 
   if (e == E) {                           // rows that no expert owns
-    if (blockIdx.z != 0) return;
-    const int a = clip(offsets[0], 0, T_);
-    const int b = clip(offsets[E], a, T_);
-    const int n = a + (T_ - b);           // rows [0, a) and [b, T)
-    for (int v = tid; v < n * kBN; v += kThreads) {
-      const int i = v / kBN, c = n0 + v % kBN;
-      const int r = i < a ? i : b + (i - a);
-      if (c < F) y[static_cast<int64_t>(r) * F + c] = from_f<T>(0.f);
-    }
+    zero_uncovered<T, kBN, kThreads>(offsets, y, T_, F, E, n0);
     return;
   }
   const int lo = clip(offsets[e], 0, T_);
@@ -225,6 +252,178 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---- route 1: bf16 on the tensor cores -------------------------------
+
+constexpr int kTcBN = 128;              // columns of a tile
+constexpr int kTcBK = 64;               // depth of a D slice
+constexpr int kTcStages = 3;            // slices in the cp.async ring
+constexpr int kPad = 8;                 // bf16 padding of a shared row
+constexpr int kXLd = kTcBK + kPad;      // x slice pitch: 9 16-byte chunks
+constexpr int kWLd = kTcBN + kPad;      // w slice pitch: 17 16-byte chunks
+
+template <int MT>
+struct Tc {                             // the shape of one instantiation
+  static constexpr int kBM = 16 * MT;   // rows of a tile
+  static constexpr int kWarpsM = MT >= 2 ? 2 : 1;
+  static constexpr int kWarpsN = 4;     // 32 columns a warp
+  static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+  // m16 tiles a warp, interleaved (warp row wm owns tiles wm, wm +
+  // kWarpsM, ...) so a part-filled tile's live m16 tiles spread evenly
+  static constexpr int kWM = MT / kWarpsM;
+  static constexpr int kStage = kBM * kXLd + kTcBK * kWLd;  // elements
+  static constexpr int kSmem =
+      kTcStages * kStage * static_cast<int>(sizeof(__nv_bfloat16));
+};
+
+// two 256-thread blocks an SM (the ring's shared memory allows it) need
+// at most 128 registers a thread; MT 1 fits three 128-thread blocks
+template <int MT>
+__global__ void __launch_bounds__(Tc<MT>::kThreads, MT >= 2 ? 2 : 3)
+moe_gemm_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ w,
+                   const int* __restrict__ offsets,
+                   __nv_bfloat16* __restrict__ y, int T_, int D, int F,
+                   int E) {
+  using bf16 = __nv_bfloat16;
+  using Sh = Tc<MT>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int wm = warp / Sh::kWarpsN, wn = warp % Sh::kWarpsN;
+  const int g = lane / 4, t4 = lane % 4;
+  const int n0 = blockIdx.x * kTcBN;
+  const int e = blockIdx.y;
+
+  if (e == E) {                           // rows that no expert owns
+    zero_uncovered<bf16, kTcBN, Sh::kThreads>(offsets, y, T_, F, E, n0);
+    return;
+  }
+  const int lo = clip(offsets[e], 0, T_);
+  const int hi = clip(offsets[e + 1], lo, T_);
+  const bf16* we = w + static_cast<int64_t>(e) * D * F;
+  const int nk = (D + kTcBK - 1) / kTcBK;
+
+  for (int64_t r0 = lo + static_cast<int64_t>(blockIdx.z) * Sh::kBM;
+       r0 < hi; r0 += static_cast<int64_t>(gridDim.z) * Sh::kBM) {
+    const int rows =
+        static_cast<int>(hi - r0 < Sh::kBM ? hi - r0 : Sh::kBM);
+
+    // slice kt of x's rows and of w[e]'s columns into ring stage st; x
+    // rows past `rows` and anything past D or F arrive as zeros
+    auto load = [&](int kt, int st) {
+      bf16* xs = smem + st * Sh::kStage;
+      bf16* ws = xs + Sh::kBM * kXLd;
+      const int k0 = kt * kTcBK;
+      for (int c = tid; c < Sh::kBM * (kTcBK / 8); c += Sh::kThreads) {
+        const int r = c / (kTcBK / 8), col = (c % (kTcBK / 8)) * 8;
+        const bool in = r < rows && k0 + col < D;
+        tc::cp_async16(xs + r * kXLd + col,
+                       in ? x + (r0 + r) * D + k0 + col : x, in);
+      }
+      for (int c = tid; c < kTcBK * (kTcBN / 8); c += Sh::kThreads) {
+        const int kk = c / (kTcBN / 8), col = (c % (kTcBN / 8)) * 8;
+        const bool in = k0 + kk < D && n0 + col < F;
+        tc::cp_async16(
+            ws + kk * kWLd + col,
+            in ? we + static_cast<int64_t>(k0 + kk) * F + n0 + col : we, in);
+      }
+    };
+
+    float acc[Sh::kWM][4][4];
+#pragma unroll
+    for (int i = 0; i < Sh::kWM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+#pragma unroll
+    for (int st = 0; st < kTcStages - 1; ++st) {
+      if (st < nk) load(st, st);
+      tc::cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      tc::cp_async_wait<kTcStages - 2>();  // slice kt has landed
+      __syncthreads();                     // and slice kt-1 is consumed
+      const int nxt = kt + kTcStages - 1;
+      if (nxt < nk) load(nxt, nxt % kTcStages);
+      tc::cp_async_commit();
+      const bf16* xs = smem + (kt % kTcStages) * Sh::kStage;
+      const bf16* ws = xs + Sh::kBM * kXLd;
+#pragma unroll
+      for (int kk = 0; kk < kTcBK / 16; ++kk) {
+        uint32_t bfr[4][2];                // the warp's four n8 tiles
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          uint32_t r[4];
+          tc::ldmatrix_x4_trans(
+              r, ws + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kWLd +
+                     wn * 32 + p * 16 + (lane >> 4) * 8);
+          bfr[2 * p][0] = r[0];
+          bfr[2 * p][1] = r[1];
+          bfr[2 * p + 1][0] = r[2];
+          bfr[2 * p + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < Sh::kWM; ++i) {
+          const int mt = i * Sh::kWarpsM + wm;
+          if (mt * 16 >= rows) continue;   // no live row in this m16 tile
+          uint32_t a[4];
+          tc::ldmatrix_x4(a, xs + (mt * 16 + (lane & 15)) * kXLd + kk * 16 +
+                                 (lane >> 4) * 8);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tc::mma_bf16(acc[i][j], a, bfr[j][0], bfr[j][1]);
+        }
+      }
+    }
+    tc::cp_async_wait<0>();
+
+#pragma unroll
+    for (int i = 0; i < Sh::kWM; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = (i * Sh::kWarpsM + wm) * 16 + g + 8 * half;
+        if (r >= rows) continue;
+        bf16* yr = y + (r0 + r) * F;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = n0 + wn * 32 + 8 * j + 2 * t4;
+          if (c < F)                       // F is even: c + 1 < F too
+            *reinterpret_cast<uint32_t*>(yr + c) = tc::pack_bf16(
+                acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+        }
+      }
+    }
+    __syncthreads();                       // the next tile refills the ring
+  }
+}
+
+template <int MT>
+int launch_tc(const void* x, const void* w, const int* offsets, void* y,
+              int T_, int D, int F, int E, cudaStream_t stream) {
+  using Sh = Tc<MT>;
+  // above 48 KB a block's shared memory must be opted into, once per
+  // instantiation, at its first launch (before any graph capture)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      moe_gemm_tc_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Sh::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int64_t tiles = (static_cast<int64_t>(T_) + Sh::kBM - 1) / Sh::kBM;
+  int64_t z = (tiles + E - 1) / E;
+  if (z < 1) z = 1;
+  if (z > 65535) z = 65535;
+  const dim3 grid((F + kTcBN - 1) / kTcBN, E + 1, static_cast<unsigned>(z));
+  using bf16 = __nv_bfloat16;
+  moe_gemm_tc_kernel<MT><<<grid, Sh::kThreads, Sh::kSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), offsets,
+      static_cast<bf16*>(y), T_, D, F, E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- route 0 -------------------------------------------------------------
+
 template <typename T>
 int launch(const void* x, const void* w, const int* offsets, void* y, int T_,
            int D, int F, int E, cudaStream_t stream) {
@@ -255,16 +454,33 @@ int launch(const void* x, const void* w, const int* offsets, void* y, int T_,
 
 // x (T, D), w (E, D, F), y (T, F) contiguous; offsets (E+1,) int32, on
 // the device.  dtype: 0 = float32, 1 = bfloat16 (all three tensors).
-// Launches on `stream`; returns cudaGetLastError() (0 on success) or
-// cudaErrorInvalidValue for a shape or type the kernel does not take.
+// route: 0 = the CUDA-core body (either dtype), 1 = the tensor-core body
+// (bfloat16, D and F multiples of 8, 16-byte aligned x, w and y) with
+// row tiles of mt m16 tiles, mt 1, 2, 4 or 8.  Launches on `stream`;
+// returns cudaGetLastError() (0 on success) or an error for a shape,
+// type or alignment the body does not take.
 extern "C" int moe_gemm_launch(const void* x, const void* w,
                                const void* offsets, void* y, int T_, int D,
-                               int F, int E, int dtype, void* stream) {
+                               int F, int E, int dtype, int route, int mt,
+                               void* stream) {
   if (T_ == 0 || F == 0) return 0;
   if (T_ < 0 || D < 0 || F < 0 || E <= 0 || E >= 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
+  if (route == 1) {
+    if (dtype != 1 || D % 8 != 0 || F % 8 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+         reinterpret_cast<uintptr_t>(y)) % 16 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    if (mt == 1) return launch_tc<1>(x, w, off, y, T_, D, F, E, s);
+    if (mt == 2) return launch_tc<2>(x, w, off, y, T_, D, F, E, s);
+    if (mt == 4) return launch_tc<4>(x, w, off, y, T_, D, F, E, s);
+    if (mt == 8) return launch_tc<8>(x, w, off, y, T_, D, F, E, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch<float>(x, w, off, y, T_, D, F, E, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, off, y, T_, D, F, E, s);

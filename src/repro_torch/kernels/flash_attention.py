@@ -8,6 +8,10 @@ ref_attention`.  :func:`cuda_flash_attention` launches the hand-written
 CUDA tensors and raises on anything it does not take; the dispatch
 between it and the plain version is :func:`repro_torch.kernels.ops.
 flash_attention`.
+
+The source has two bodies: f32 runs on the CUDA cores (``CORE``), bf16
+on the tensor cores (``TC``: ``mma.sync`` fed by a ``cp.async`` ring),
+which needs 16-byte aligned rows; :func:`tc_route` makes the choice.
 """
 from __future__ import annotations
 
@@ -21,24 +25,49 @@ from repro_torch.kernels import _build
 KERNEL = "flash_attention"
 HEAD_DIMS = (64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CORE, TC = 0, 1          # the launcher's routes: CUDA cores, tensor cores
 
-# launches of the hand kernel (one per wrapper call on CUDA tensors); the
-# serve engine launches from several threads, so the count takes a lock.
-# chip_smoke.py zeroes it before driving the serve path.
+# launches of the hand kernel (one per wrapper call on CUDA tensors), and
+# those of them that took the tensor-core route; the serve engine
+# launches from several threads, so the counts take a lock.
+# chip_smoke.py zeroes them before driving the serve path.
 launch_count = 0
+tc_launch_count = 0
 _COUNT_LOCK = threading.Lock()
 
 
 def reset_count() -> None:
-    global launch_count
+    global launch_count, tc_launch_count
     with _COUNT_LOCK:
-        launch_count = 0
+        launch_count = tc_launch_count = 0
 
 
-def _counted() -> None:
-    global launch_count
+def _counted(route: int) -> None:
+    global launch_count, tc_launch_count
     with _COUNT_LOCK:
         launch_count += 1
+        tc_launch_count += route == TC
+
+
+def tc_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The body that q, k and v (B,H,S,hd) / (B,KV,S,hd) take: ``CORE``
+    for float32, ``TC`` for bfloat16.  The tensor-core body copies rows
+    in 16-byte chunks, so for bfloat16 each storage offset and each
+    (b, h, s) stride of an axis longer than one must be a multiple of 8
+    elements; a view that is not raises ``ValueError`` (there is no
+    quiet route elsewhere).  Reads dtype, shape, strides and storage
+    offsets only."""
+    if q.dtype != torch.bfloat16:
+        return CORE
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        bad = [i for i in range(3) if t.shape[i] > 1 and t.stride(i) % 8]
+        if t.storage_offset() % 8 or bad:
+            raise ValueError(
+                f"cuda_flash_attention: bf16 {name} is not 16-byte aligned "
+                f"(storage offset {t.storage_offset()}, strides "
+                f"{tuple(t.stride())}): the tensor-core body needs the "
+                f"offset and every (b, h, s) stride a multiple of 8")
+    return TC
 
 
 def _lib() -> ctypes.CDLL:
@@ -46,17 +75,20 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def cuda_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         _route: int | None = None) -> torch.Tensor:
     """The hand kernel: q (B,H,S,hd), k/v (B,KV,S,hd) CUDA tensors of one
     dtype (f32 or bf16), hd 64, 112 or 128, any (b, h, s) strides with a
-    contiguous hd axis → (B,H,S,hd) in ``q``'s layout."""
+    contiguous hd axis (16-byte aligned rows in bf16, see
+    :func:`tc_route`) → (B,H,S,hd) in ``q``'s layout.  ``_route`` forces
+    a body (``CORE`` runs bf16 on the CUDA cores); only ``chip_smoke.py``
+    passes it, to time and check the earlier bf16 body."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError("cuda_flash_attention: q, k and v must lie on the "
@@ -81,19 +113,31 @@ def cuda_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("cuda_flash_attention: the hd axis must be "
                          "contiguous")
+    route = tc_route(q, k, v)
+    if _route is not None:
+        if _route not in (CORE, TC) or (_route == TC and route != TC):
+            raise ValueError(f"cuda_flash_attention: route {_route} does not "
+                             f"take {q.dtype} input")
+        route = _route
     out = torch.empty_like(q)
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, out)
+    if route == TC and any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("cuda_flash_attention: a bf16 base address is not "
+                         "16-byte aligned")
+    # an axis of length one is only ever read at index 0: its stride is
+    # passed as 0
+    strides = (ctypes.c_int64 * 12)(*(t.stride(i) if t.shape[i] > 1 else 0
+                                      for t in (q, k, v, out)
                                       for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         b, h, s, hd, h // kv, int(causal), int(window), hd ** -0.5,
-        _DTYPES[q.dtype], stream)
+        _DTYPES[q.dtype], route, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    _counted()
+    _counted(route)
     return out

@@ -15,6 +15,11 @@ E−1 instead, so the two are compared where ``offsets[0] == 0`` and
 ``offsets[E] == T`` (always so on the model's path).  ``offsets`` are
 read on the device, so the caller keeps them nondecreasing; values
 outside [0, T] are clipped there.
+
+The source has two bodies: f32 runs on the CUDA cores (``CORE``), bf16
+with D and F multiples of 8 on the tensor cores (``TC``: ``mma.sync``
+over a ``cp.async`` weight ring); :func:`tc_route` makes the choice and
+:func:`row_tiles` sizes the tensor-core body's row tile.
 """
 from __future__ import annotations
 
@@ -27,40 +32,72 @@ from repro_torch.kernels import _build
 
 KERNEL = "moe_gemm"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+CORE, TC = 0, 1          # the launcher's routes: CUDA cores, tensor cores
+ROW_TILES = (1, 2, 4, 8)  # m16 tiles a tensor-core row tile may hold
 
-# launches of the hand kernel (one per wrapper call on CUDA tensors),
-# counted under a lock; chip_smoke.py zeroes it before driving a path
+# launches of the hand kernel (one per wrapper call on CUDA tensors), and
+# those of them that took the tensor-core route, counted under a lock;
+# chip_smoke.py zeroes them before driving a path
 launch_count = 0
+tc_launch_count = 0
 _COUNT_LOCK = threading.Lock()
 
 
 def reset_count() -> None:
-    global launch_count
+    global launch_count, tc_launch_count
     with _COUNT_LOCK:
-        launch_count = 0
+        launch_count = tc_launch_count = 0
 
 
-def _counted() -> None:
-    global launch_count
+def _counted(route: int) -> None:
+    global launch_count, tc_launch_count
     with _COUNT_LOCK:
         launch_count += 1
+        tc_launch_count += route == TC
+
+
+def tc_route(x_sorted: torch.Tensor, w: torch.Tensor) -> int:
+    """The body that x (T, D) and w (E, D, F) take: ``TC`` for bfloat16
+    with D and F multiples of 8 and both storage offsets multiples of 8
+    elements (16-byte rows for ``cp.async``), else ``CORE`` (float32, or
+    the bf16 shapes off the vector width).  Reads dtype, shape and
+    storage offsets only; the wrapper makes both contiguous first."""
+    if x_sorted.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return CORE
+    if w.shape[1] % 8 or w.shape[2] % 8:
+        return CORE
+    if x_sorted.storage_offset() % 8 or w.storage_offset() % 8:
+        return CORE
+    return TC
+
+
+def row_tiles(t: int, e: int) -> int:
+    """The tensor-core body's row tile in m16 tiles: the mean rows an
+    expert, ⌈T/E/16⌉, rounded up to 1, 2, 4 or 8 (1 at serve and decode,
+    8 at qwen3-moe's prefill, whose 81 rows an expert then take one
+    pass).  An expert with more rows loops over tiles."""
+    need = -(-t // (16 * e))
+    return next((mt for mt in ROW_TILES if need <= mt), ROW_TILES[-1])
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
     fn = lib.moe_gemm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def cuda_moe_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
-                  offsets: torch.Tensor) -> torch.Tensor:
+                  offsets: torch.Tensor, *,
+                  _route: int | None = None) -> torch.Tensor:
     """The hand kernel: x_sorted (T, D) and w (E, D, F) CUDA tensors of one
     type (float32 or bfloat16), offsets (E+1,) int32 on the same card →
-    (T, F) in x's type."""
+    (T, F) in x's type.  ``_route`` forces a body (``CORE`` runs bf16 on
+    the CUDA cores); only ``chip_smoke.py`` passes it, to time and check
+    the earlier bf16 body."""
     if x_sorted.device.type != "cuda" or w.device != x_sorted.device \
             or offsets.device != x_sorted.device:
         raise ValueError("cuda_moe_gemm: x_sorted, w and offsets must lie on "
@@ -86,11 +123,21 @@ def cuda_moe_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
         return out
     x_sorted, w = x_sorted.contiguous(), w.contiguous()
     offsets = offsets.contiguous()
+    route = tc_route(x_sorted, w)
+    if _route is not None:
+        if _route not in (CORE, TC) or (_route == TC and route != TC):
+            raise ValueError(f"cuda_moe_gemm: route {_route} does not take "
+                             f"{x_sorted.dtype} x, w {tuple(w.shape)}")
+        route = _route
+    if route == TC and any(p.data_ptr() % 16 for p in (x_sorted, w, out)):
+        raise ValueError("cuda_moe_gemm: a bf16 base address is not "
+                         "16-byte aligned")
     stream = torch.cuda.current_stream(x_sorted.device).cuda_stream
     err = _lib().moe_gemm_launch(
         x_sorted.data_ptr(), w.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), t, d, f, e, _DTYPES[x_sorted.dtype], stream)
+        out.data_ptr(), t, d, f, e, _DTYPES[x_sorted.dtype], route,
+        row_tiles(t, e), stream)
     if err != 0:
         raise RuntimeError(f"moe_gemm launch failed: cudaError {err}")
-    _counted()
+    _counted(route)
     return out

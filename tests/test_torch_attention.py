@@ -198,6 +198,98 @@ def test_launch_counters_reset():
 
 
 # ---------------------------------------------------------------------------
+# the route a launch takes (CUDA cores for f32, tensor cores for bf16)
+# ---------------------------------------------------------------------------
+
+def _qkv(dtype, b=2, h=8, kv=2, s=24, hd=64, layout="bshd"):
+    """q, k, v as the model hands them over: (B,S,H,hd) activations seen
+    through transposed views, or contiguous (B,H,S,hd) tensors."""
+    if layout == "bshd":
+        return tuple(torch.zeros(b, s, n, hd, dtype=dtype).transpose(1, 2)
+                     for n in (h, kv, kv))
+    return tuple(torch.zeros(b, n, s, hd, dtype=dtype) for n in (h, kv, kv))
+
+
+@pytest.mark.parametrize("hd", tflash.HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_flash_route_bf16_takes_tensor_cores(hd, layout):
+    q, k, v = _qkv(torch.bfloat16, hd=hd, layout=layout)
+    assert tflash.tc_route(q, k, v) == tflash.TC
+
+
+@pytest.mark.parametrize("hd", tflash.HEAD_DIMS)
+def test_flash_route_f32_takes_cuda_cores(hd):
+    q, k, v = _qkv(torch.float32, hd=hd)
+    assert tflash.tc_route(q, k, v) == tflash.CORE
+    # f32 never needs the 16-byte rows, so an odd view is taken as it is
+    odd = torch.zeros(1, 2, 4, 68)[..., 1:65]
+    assert tflash.tc_route(odd, odd, odd) == tflash.CORE
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("view", ["offset", "s_stride", "h_stride"])
+def test_flash_route_misaligned_bf16_view_raises(which, view):
+    """A bf16 view whose rows are not 16-byte aligned (a storage offset
+    or a (b, h, s) stride off a multiple of 8 elements) is refused."""
+    bad = {"offset": torch.zeros(2, 8, 24, 72, dtype=torch.bfloat16)
+           [..., 4:68],
+           "s_stride": torch.zeros(2, 8, 24, 68, dtype=torch.bfloat16)
+           [..., :64],
+           "h_stride": torch.zeros(2 * 8 * 1540, dtype=torch.bfloat16)
+           .as_strided((2, 8, 24, 64), (8 * 1540, 1540, 64, 1))}[view]
+    q, k, v = _qkv(torch.bfloat16, h=8, kv=8)
+    args = dict(q=q, k=k, v=v)
+    args[which] = bad
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.tc_route(args["q"], args["k"], args["v"])
+
+
+def test_flash_route_ignores_strides_of_unit_axes():
+    """An axis of length one is only read at index 0, so its stride does
+    not decide the route (B 1 and MQA's single KV head)."""
+    q = torch.zeros(1, 4, 24, 64, dtype=torch.bfloat16).as_strided(
+        (1, 4, 24, 64), (3, 24 * 64, 64, 1))
+    k = torch.zeros(1, 1, 24, 64, dtype=torch.bfloat16).as_strided(
+        (1, 1, 24, 64), (5, 7, 64, 1))
+    assert tflash.tc_route(q, k, k) == tflash.TC
+
+
+@pytest.mark.parametrize("arch,d_model,hd", [
+    ("granite-3-2b", 256, 64),
+    ("starcoder2-3b", 512, 128),
+    ("zamba2-7b", 448, 112),
+])
+def test_flash_route_of_the_model_views(monkeypatch, arch, d_model, hd):
+    """The views a bf16 forward under ``"kernel"`` hands
+    ``ops.flash_attention`` (reduced depth, published head dim) take the
+    tensor-core route; the same model in f32 takes the CUDA cores."""
+    import dataclasses
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import Model
+    routes = []
+    real = tops.flash_attention
+
+    def spy(q, k, v, **kw):
+        routes.append((q.dtype, tflash.tc_route(q, k, v)))
+        return real(q, k, v, **kw)
+    monkeypatch.setattr(tops, "flash_attention", spy)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 24))).long()
+    for dtype, want in (("bfloat16", tflash.TC), ("float32", tflash.CORE)):
+        cfg = dataclasses.replace(reduced(ARCHS[arch], d_model=d_model),
+                                  attn_impl="kernel", dtype=dtype,
+                                  param_dtype=dtype)
+        assert cfg.head_dim == hd
+        model = Model(cfg, "cpu")
+        routes.clear()
+        model.forward(model.init(torch.Generator().manual_seed(0)),
+                      {"tokens": tokens})
+        assert routes and routes == [(getattr(torch, dtype), want)] * len(
+            routes)
+
+
+# ---------------------------------------------------------------------------
 # the hand kernels on the card
 # ---------------------------------------------------------------------------
 
@@ -216,16 +308,30 @@ def test_cuda_flash_matches_plain(cuda_device, dtype):
     for b, h, kv, s, hd in ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
                             (1, 4, 1, 128, 128), (1, 32, 8, 17, 64),
                             (1, 24, 2, 64, 128), (1, 32, 32, 64, 112),
-                            (2, 8, 2, 100, 112)):
-        q, k, v = (torch.randn(shape, generator=gen, device=cuda_device,
-                               dtype=td)
-                   for shape in ((b, h, s, hd), (b, kv, s, hd),
-                                 (b, kv, s, hd)))
-        for causal, window in ((True, 0), (True, 64), (False, 0)):
-            got = tops.flash_attention(q, k, v, causal=causal, window=window)
-            want = tref.ref_attention(q, k, v, causal=causal, window=window)
-            torch.testing.assert_close(got.float(), want.float(),
-                                       **_tol(dtype))
+                            (2, 8, 2, 100, 112), (1, 32, 8, 64, 64),
+                            (8, 32, 8, 512, 64), (2, 8, 1, 203, 128)):
+        # contiguous (B,H,S,hd), and the model's (B,S,H,hd) views
+        dense = tuple(torch.randn(shape, generator=gen, device=cuda_device,
+                                  dtype=td)
+                      for shape in ((b, h, s, hd), (b, kv, s, hd),
+                                    (b, kv, s, hd)))
+        views = tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                      for t in dense)
+        for q, k, v in (dense, views):
+            for causal, window in ((True, 0), (True, 64), (False, 0)):
+                _check_cuda_flash(q, k, v, causal, window, dtype)
+
+
+def _check_cuda_flash(q, k, v, causal, window, dtype):
+    want = tref.ref_attention(q, k, v, causal=causal, window=window)
+    before = tflash.tc_launch_count
+    got = tops.flash_attention(q, k, v, causal=causal, window=window)
+    assert tflash.tc_launch_count - before == (dtype == "bfloat16")
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    if dtype == "bfloat16":             # the previous CUDA-core body
+        got = tflash.cuda_flash_attention(q, k, v, causal=causal,
+                                          window=window, _route=tflash.CORE)
+        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
 
 
 @pytest.mark.cuda

@@ -386,6 +386,95 @@ def test_moe_gemm_wrapper_takes_plain_path_only_on_cpu():
     assert tmoe.launch_count == 0
 
 
+@pytest.mark.parametrize("t,d,f,e,want", [
+    (768, 2048, 768, 128, "TC"),        # qwen3-moe serve, we_g
+    (768, 768, 2048, 128, "TC"),        # we_d
+    (10369, 2048, 768, 128, "TC"),      # prefill (with the trash row)
+    (256, 64, 128, 4, "TC"),
+    (77, 33, 17, 3, "CORE"),            # D and F off the vector width
+    (64, 72, 36, 4, "CORE"),            # F off it
+    (64, 36, 72, 4, "CORE"),            # D off it
+])
+def test_moe_route_bf16(t, d, f, e, want):
+    # the route reads metadata only: meta tensors, nothing allocated
+    x = torch.empty(t, d, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(e, d, f, dtype=torch.bfloat16, device="meta")
+    assert tmoe.tc_route(x, w) == getattr(tmoe, want)
+
+
+@pytest.mark.parametrize("t,d,f,e", [(768, 2048, 768, 128), (256, 64, 128, 4),
+                                     (77, 33, 17, 3)])
+def test_moe_route_f32_takes_cuda_cores(t, d, f, e):
+    x = torch.empty(t, d, device="meta")
+    w = torch.empty(e, d, f, device="meta")
+    assert tmoe.tc_route(x, w) == tmoe.CORE
+
+
+def test_moe_route_unaligned_start_takes_cuda_cores():
+    """A contiguous bf16 x or w that starts off a 16-byte boundary (a
+    storage offset off a multiple of 8) goes to the CUDA-core body, which
+    reads it element by element."""
+    x = torch.zeros(65 * 64 + 4, dtype=torch.bfloat16)[4:].view(65, 64)
+    w = torch.zeros(4, 64, 128, dtype=torch.bfloat16)
+    assert x.is_contiguous() and tmoe.tc_route(x, w) == tmoe.CORE
+    w2 = torch.zeros(4 * 64 * 128 + 2, dtype=torch.bfloat16)[2:].view(
+        4, 64, 128)
+    assert tmoe.tc_route(x[1:], w2) == tmoe.CORE
+    assert tmoe.tc_route(torch.zeros(64, 64, dtype=torch.bfloat16)[8:],
+                         w) == tmoe.TC
+
+
+@pytest.mark.parametrize("t,e,want", [
+    (0, 128, 1), (1, 128, 1), (129, 128, 1),      # decode: 1 row an expert
+    (769, 128, 1),                                # serve: 6
+    (128 * 16 + 1, 128, 2), (128 * 32, 128, 2),
+    (128 * 48, 128, 4), (128 * 64, 128, 4),
+    (10369, 128, 8),                              # prefill: 81
+    (128 * 200, 128, 8),                          # more loops over tiles
+    (251, 8, 2), (2080, 16, 8),
+])
+def test_moe_row_tiles(t, e, want):
+    """The tensor-core body's row tile: ⌈T/E/16⌉ m16 tiles rounded up to
+    1, 2, 4 or 8."""
+    assert tmoe.row_tiles(t, e) == want
+
+
+def test_moe_and_flash_route_of_the_model_views(monkeypatch):
+    """The tensors a bf16 qwen3-moe forward under ``"kernel"`` (reduced
+    depth, published head dim 128) hands ``ops.flash_attention`` and
+    ``ops.moe_gemm`` take the tensor-core routes, 3 GEMMs a layer; the
+    same model in f32 takes the CUDA cores."""
+    from repro_torch.kernels import flash_attention as tflash
+    seen = []
+    real_f, real_m = tops.flash_attention, tops.moe_gemm
+
+    def spy_f(q, k, v, **kw):
+        seen.append(("flash", q.dtype, tflash.tc_route(q, k, v)))
+        return real_f(q, k, v, **kw)
+
+    def spy_m(x, w, off):
+        seen.append(("moe", x.dtype, tmoe.tc_route(x.contiguous(),
+                                                   w.contiguous())))
+        return real_m(x, w, off)
+    monkeypatch.setattr(tops, "flash_attention", spy_f)
+    monkeypatch.setattr(tops, "moe_gemm", spy_m)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 512, (2, 16))).long()
+    for dtype, want in (("bfloat16", tmoe.TC), ("float32", tmoe.CORE)):
+        cfg = dataclasses.replace(
+            reduced(ARCHS["qwen3-moe-30b-a3b"], d_model=512),
+            attn_impl="kernel", dtype=dtype, param_dtype=dtype)
+        assert cfg.head_dim == 128 and cfg.d_ff_expert % 8 == 0
+        model = Model(cfg, "cpu")
+        seen.clear()
+        model.forward(model.init(torch.Generator().manual_seed(0)),
+                      {"tokens": tokens})
+        td = getattr(torch, dtype)
+        assert sorted(seen) == sorted(
+            [("flash", td, want)] * cfg.n_layers
+            + [("moe", td, want)] * (3 * cfg.n_layers))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -402,13 +491,22 @@ def test_cuda_moe_gemm_matches_plain(cuda_device, dtype):
     td = getattr(torch, dtype)
     tol = GEMM_TOL if dtype == "float32" else BF16_TOL
     cases = [(256, 64, 128, 4), (512, 128, 64, 8), (128, 32, 32, 3),
-             (203, 72, 40, 5), (128, 2048, 768, 128)]
+             (203, 72, 40, 5), (77, 33, 17, 3), (128, 2048, 768, 128),
+             (768, 2048, 768, 128), (768, 768, 2048, 128),
+             (648, 2048, 768, 8), (1040, 200, 136, 8)]
     for t, d, f, e in cases:
         x, w, off = (torch.from_numpy(a).to(cuda_device)
                      for a in _gemm_inputs(t, d, f, e, seed=t + e))
-        got = tops.moe_gemm(x.to(td), w.to(td), off)
-        want = tref.ref_moe_gemm(x.to(td).float(), w.to(td).float(), off)
+        x, w = x.to(td), w.to(td)
+        want = tref.ref_moe_gemm(x.float(), w.float(), off)
+        before = tmoe.tc_launch_count
+        got = tops.moe_gemm(x, w, off)
+        assert tmoe.tc_launch_count - before == (
+            tmoe.tc_route(x, w) == tmoe.TC)
         torch.testing.assert_close(got.float(), want, **tol)
+        if dtype == "bfloat16":         # the previous CUDA-core body
+            got = tmoe.cuda_moe_gemm(x, w, off, _route=tmoe.CORE)
+            torch.testing.assert_close(got.float(), want, **tol)
     x, w, _ = (torch.from_numpy(a).to(cuda_device)
                for a in _gemm_inputs(128, 32, 16, 3, seed=2))
     off = torch.tensor([16, 40, 40, 100], dtype=torch.int32,
