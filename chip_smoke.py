@@ -10,29 +10,36 @@ and at a 1024-edge metropolis fleet — live DNN serving — the
 ``ServeEngine`` over the three launcher roles at their published sizes,
 and greedy decoding — the hybrid family: zamba2-7b (Mamba2 blocks and
 a shared attention block) served and decoded at its published width and
-depth — and the moe family: qwen3-moe-30b-a3b (128 experts, top-8)
-served and decoded at its published width and depth.  Its six
+depth — the moe family: qwen3-moe-30b-a3b (128 experts, top-8)
+served and decoded at its published width and depth — and head dim 192:
+nemotron-4-340b at its published width.  A served forward on the card
+is a CUDA graph, captured once and replayed.  Its six
 hand-written ``sm_90a`` kernels (masked arg-extremum, flash attention,
 flash decode, RMSNorm, selective scan, MoE grouped GEMM) are built from
 ``src/repro_torch/kernels/csrc`` at first use, one ``nvcc`` each, all
 started together.  Flash attention and the grouped GEMM have two bodies:
 f32 on the CUDA cores, bf16 on the tensor cores (``mma.sync`` fed by
 ``cp.async``); the earlier CUDA-core bf16 body is checked and timed
-beside it as ``previous``.  Phases, each printed on
+beside it as ``previous``.  Flash decode is a split-KV kernel (bf16 on
+the tensor cores); its earlier one-block-per-(b, h) body is checked and
+timed beside it as ``previous``.  Phases, each printed on
 its own line and each failing the script (non-zero exit) on error:
 
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 flags,
    the six kernels built at once, registers per instantiation;
 2. kernels vs their plain PyTorch versions on the card: masked_argext
    exact; flash attention and flash decode on the kernel tests' sweep
-   and the serve/decode shapes, hd 64, 112 and 128 (f32 1e-5, bf16
-   2e-2), bf16 flash also over every hd × S 1-512 × band × MHA/GQA/MQA;
+   and the serve/decode shapes, hd 64, 112, 128 and 192 (f32 1e-5, bf16
+   2e-2), views off the 16-byte width, decode lengths 0 (exactly zero),
+   1, W and off the slices, bf16 flash also over every hd × S 1-512 ×
+   band × MHA/GQA/MQA;
    RMSNorm (f32 1e-5, bf16 2e-2) and the selective scan (f32 2e-4, bf16
    2e-2) on the kernel tests' shapes and the zamba2 path's views; the
    grouped GEMM (f32 1e-4, bf16 3e-2 against f32) on the kernel tests'
    sweep, ragged T, the qwen3-moe path's shapes and 0-130 rows an
    expert, with the rows that no expert owns exactly zero; every bf16
-   flash and GEMM case on both bodies (tensor cores and previous);
+   flash and GEMM case on both bodies (tensor cores and previous), every
+   aligned decode case on both bodies;
 3. small parity: the 2-edge golden runs (DEMS-A, GEMS, DEMS-COOP,
    SOTA2) on the card and on the host, every final-state leaf equal,
    summaries equal to the golden JAX ones;
@@ -43,14 +50,18 @@ its own line and each failing the script (non-zero exit) on error:
    prefill and teacher-forced decode against the JAX reference's numbers;
 6. serve (flash_attention's main path): HV starcoder2-3b, DEV
    granite-3-2b and BP xlstm-1.3b, published widths and depths, bf16,
-   ``attn_impl="kernel"``, p95-calibrated, under GEMS for 15 s (here and
-   in phases 7, 13 and 16 every bf16 flash and GEMM launch must have
-   taken the tensor cores; in the f32 goldens 5, 12 and 15 none);
+   ``attn_impl="kernel"``, each forward a CUDA graph (warm forward under
+   ``set_sync_debug_mode("error")``, capture, replays), p95-calibrated,
+   under GEMS for 15 s; launches = (warm forward + capture) × the path,
+   replays = the forwards run, one replay == an eager forward bitwise
+   (here and in phases 7, 13, 16 and 18 every bf16 flash and GEMM launch
+   must have taken the tensor cores; in the f32 goldens 5, 12 and 15
+   none);
 7. decode (decode_attention's main path): granite-3-2b, bf16, batch 8,
    a 512-token prompt, 64 greedy steps, against ``attn_impl="ref"``;
-8. attention kernel times at the serve and decode shapes, beside the
-   previous body's (flash), the plain versions',
-   ``scaled_dot_product_attention``'s and the bounds;
+8. attention kernel times at the serve and decode shapes (granite,
+   starcoder2, nemotron), beside the previous bodies', the plain
+   versions', ``scaled_dot_product_attention``'s and the bounds;
 9. metropolis fleet: DEMS-COOP on 1024 edges, two runs bitwise equal
    (its horizon shrinks to fit the time budget);
 10. sync check: ticks under ``torch.cuda.set_sync_debug_mode("error")``;
@@ -62,12 +73,12 @@ its own line and each failing the script (non-zero exit) on error:
 13. hybrid serve and decode (rmsnorm's and ssm_scan's main path; every
     model kernel's launches are read over this phase and must equal the
     path's exactly): zamba2-7b at 81 layers, bf16, ``"kernel"`` —
-    ``ServableModel.from_arch`` with ``probe_p95``, a 10 s GEMS stream,
-    then a 128-token prompt and 32 greedy steps against ``"ref"`` and
-    f32;
+    ``ServableModel.from_arch`` (a CUDA graph) with ``probe_p95``, a 10 s
+    GEMS stream, then a 128-token prompt and 32 greedy steps against
+    ``"ref"`` and f32;
 14. the zamba2 path's kernel times: RMSNorm beside
     ``torch.nn.functional.rms_norm``, the selective scan, and the two
-    attention kernels at hd 112 (flash beside its previous body);
+    attention kernels at hd 112 (each beside its previous body);
 15. moe golden: qwen3-moe-30b-a3b at full width, 2 layers, f32 — forward
     on (B 2, S 128) (capacity 21: pairs drop), prefill and teacher-forced
     decode against the JAX reference's numbers;
@@ -75,13 +86,18 @@ its own line and each failing the script (non-zero exit) on error:
     launches are read over this phase and must equal the path's
     exactly: 144 ``moe_gemm`` a forward, prefill or step): qwen3-moe at
     48 layers, bf16 (61 GB of the card), ``"kernel"`` —
-    ``ServableModel.from_arch`` with ``probe_p95``, a 10 s GEMS stream,
-    one forward under ``set_sync_debug_mode("error")``, B 8 greedy
+    ``ServableModel.from_arch`` (a CUDA graph) with ``probe_p95``, a 10 s
+    GEMS stream, one forward under ``set_sync_debug_mode("error")``, B 8
+    greedy
     decoding against ``"ref"`` (relative RMS and routing agreement per
     layer), then an f32 copy at 8 layers on both routes;
 17. ``moe_gemm``'s times at the serve, decode and prefill shapes and a
     compacted ragged one, beside its previous CUDA-core bf16 body, its
-    plain version, ``torch.bmm`` and ``torch._grouped_mm``.
+    plain version, ``torch.bmm`` and ``torch._grouped_mm``;
+18. hd 192 on the path: nemotron-4-340b at its published width, 2 layers,
+    bf16, ``"kernel"`` — a (B 1, S 64) forward, a prefill and 8 greedy
+    steps against ``"ref"`` on the same weights; flash and decode
+    launches exactly the path's.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``,
 ``tests/golden/torch_port_model.json``,
@@ -112,14 +128,17 @@ METRO_EDGES = 1024
 METRO_MS = 60_000.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
-# phases 10-17, would pass this budget
+# phases 10-18, would pass this budget; the host-bound fleet phases 3-4
+# alone spread 313-465 s between hosts, and the floor keeps the script
+# inside about 770 s on the slowest
 BUDGET_S = 850.0
 RESERVE_S = 400.0
-MIN_METRO_MS = 10_000.0
+MIN_METRO_MS = 5_000.0
 SYNC_TICKS = 50
 # the profiler's post-processing takes seconds per traced tick (thousands
-# of kernels each), so the profile covers a short steady window
-PROFILE_TICKS = 20
+# of kernels each, about 1.7 s a tick on the H100 host), so the profile
+# covers a short steady window
+PROFILE_TICKS = 10
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores, same sheet
 BF16_OPS_PER_S = 989e12          # bf16 dense tensor cores, same sheet
@@ -138,6 +157,16 @@ MOE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # two layers, and a row checksum of 49,155 logits gets 5e-2
 GOLD_TOL = 1e-3
 GOLD_SUM_TOL = 5e-2
+# phase 2's decode shapes (B, H, KV, W, hd): the kernel tests' sweep,
+# the path's (granite, starcoder2, zamba2, nemotron-4-340b) and GQA
+# groups of 12 over MQA, MHA and 20 heads (two head tiles) at hd 192 and
+# 64; each at lengths 0, 1, W and values off the 64-row slices, on the
+# model's aligned cache views and on two views off the 16-byte width
+DECODE_SWEEP = ((2, 4, 4, 512, 64), (3, 8, 2, 1024, 64), (1, 4, 1, 256, 128),
+                (8, 32, 8, 1024, 64), (1, 24, 2, 128, 128),
+                (1, 32, 32, 160, 112), (2, 8, 2, 512, 112),
+                (2, 96, 8, 300, 192), (1, 12, 1, 200, 192),
+                (2, 16, 16, 64, 192), (1, 40, 2, 100, 64))
 SERVE_MS = 15_000.0
 DECODE = dict(batch=8, prompt=512, max_seq=1024, steps=64, seed=11)
 # decode under "kernel" vs "ref" in bf16: the kernel keeps probabilities
@@ -169,6 +198,15 @@ ZAMBA2 = dict(seq=64, share=0.7, deadline_p95=3.0, beta=125, cost_edge=1,
 # on both routes, held to DECODE_F32_TOL
 QWEN3MOE = dict(ZAMBA2, batch=8, prompt=128, max_seq=160, steps=32,
                 seed=14, f32_layers=8)
+# phase 18: nemotron-4-340b (hd 192) at published width, 2 layers (about
+# 33 GB of bf16 weights; 96 would be 680 GB), a 64-token prompt and 8
+# greedy steps.  Held to its "ref" route on the same weights: at 2
+# layers the two differ by the kernels' rounding alone (f32
+# probabilities where the plain path rounds them to bf16, the fused
+# RMSNorm's one rounding), so the attention kernels' bf16 tolerance,
+# 2e-2, bounds the relative RMS of the logit difference.
+NEMOTRON = dict(layers=2, seq=64, steps=8, seed=18)
+NEMOTRON_TOL = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -338,22 +376,26 @@ def profile_call(fn) -> tuple[int, float, float]:
 def check_attention_kernels(dev) -> tuple[dict, dict]:
     """Phase 2's attention cases, each kernel against its plain version
     on the same card tensors: the ``tests/test_kernels.py`` sweep (MHA,
-    GQA, MQA, window 0/64, non-causal; decode lengths 1..W), the path's
-    shapes (granite H32/KV8/hd64, starcoder2 H24/KV2/hd128 and zamba2
-    H32/KV32/hd112 at S 1-512 through (B,S,H,hd) views; decode on
-    strided (B,W,KV,hd) cache views, zamba2's at hd 112) and, for the
-    bf16 flash routes, every hd (64, 112, 128) × S (1, 17, 64, 100, 203,
-    512) × (causal, window 64, non-causal) × (MHA, GQA, MQA) through
-    (B,S,H,hd) views.  Every bf16 flash case runs on the tensor-core
-    route (``ops``) and on the previous CUDA-core route (``_route=CORE``,
-    key "flash_attention previous").  Returns ({kernel: {dtype: max
-    |err|}}, case counts)."""
+    GQA, MQA, window 0/64, non-causal), the path's shapes (granite
+    H32/KV8/hd64, starcoder2 H24/KV2/hd128, zamba2 H32/KV32/hd112 and
+    nemotron-4-340b H96/KV8/hd192 at S 1-512 through (B,S,H,hd) views),
+    views whose rows are off the 16-byte width (they take the CUDA-core
+    body: no tensor-core launch) and, for the bf16 flash routes, every
+    hd (64, 112, 128, 192) × S (1, 17, 64, 100, 203, 512) × (causal,
+    window 64, non-causal) × (MHA, GQA, MQA) through (B,S,H,hd) views;
+    decode over ``DECODE_SWEEP`` (rows of length 0 exactly zero).  Every
+    bf16 flash case runs on the tensor-core route (``ops``) and on the
+    previous CUDA-core route (``_route=CORE``, key "flash_attention
+    previous"), every decode case on an aligned view on the split-KV
+    route and on the previous body (``_route=PREVIOUS``).  Returns
+    ({kernel: {dtype: max |err|}}, case counts)."""
     import torch
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(20241231)
     errs = {"flash_attention": {}, "flash_attention previous": {},
-            "decode_attention": {}}
+            "decode_attention": {}, "decode_attention previous": {}}
     cases = dict.fromkeys(errs, 0)
 
     def flash(dname, q, k, v, what, causal=True, window=0):
@@ -367,8 +409,21 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
                                            window=window, _route=FA.CORE),
                    want, what)
 
+    def decode(dname, got, want, lengths, kernel, what):
+        """A row with no valid key is exactly zero (the kernel's, and the
+        Pallas kernel's, semantics; the plain version averages V there);
+        the others are held to the plain version."""
+        torch.cuda.synchronize()
+        empty = lengths == 0
+        if bool((got[empty] != 0).any()):
+            fail(f"{kernel} {what} {dname}: a row with length 0 is not 0")
+        record(kernel, dname, got[~empty], want[~empty], what)
+
     def record(kernel, dname, got, want, what):
         torch.cuda.synchronize()
+        if got.numel() == 0:               # every row had length 0
+            cases[kernel] += 1
+            return
         err, excess = allclose_err(got, want, ATT_TOL[dname])
         if not excess <= 0.0:
             fail(f"{kernel} {what} {dname}: kernel differs from the plain "
@@ -388,15 +443,29 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
                 flash(dname, q, k, v,
                       f"{(b, h, kv, s, hd)} causal={causal} w={window}",
                       causal, window)
-        for (h, kv, hd) in ((32, 8, 64), (24, 2, 128), (32, 32, 112)):
+        for (h, kv, hd) in ((32, 8, 64), (24, 2, 128), (32, 32, 112),
+                            (96, 8, 192)):
             for (b, s) in ((1, 1), (1, 17), (1, 64), (2, 128), (1, 512),
                            (8, 512), (2, 256)):
-                if (hd == 128 and b == 8) or (hd != 112 and s == 256):
+                if (hd in (128, 192) and b == 8) or (hd != 112 and s == 256) \
+                        or (hd == 192 and s == 512):
                     continue
                 q = rnd(b, s, h, hd).transpose(1, 2)
                 k = rnd(b, s, kv, hd).transpose(1, 2)
                 v = rnd(b, s, kv, hd).transpose(1, 2)
                 flash(dname, q, k, v, f"path {(b, h, kv, s, hd)}")
+        for hd in FA.HEAD_DIMS:     # rows off the 16-byte width
+            for (h, kv, s) in ((8, 2, 64), (8, 8, 100)):
+                wide = rnd(2, s, h + 2 * kv, hd + 1)
+                q = wide[:, :, :h, 1:].transpose(1, 2)
+                k = wide[:, :, h:h + kv, :hd].transpose(1, 2)
+                v = wide[:, :, h + kv:, 1:].transpose(1, 2)
+                want_tc = FA.tc_route(q, k, v)
+                before = FA.tc_launch_count
+                flash(dname, q, k, v, f"stride hd+1 {(2, h, kv, s, hd)}")
+                if want_tc != FA.CORE or FA.tc_launch_count != before:
+                    fail(f"flash_attention {dname} stride hd+1: a view off "
+                         f"the 16-byte width did not take the CUDA cores")
         if dname == "bfloat16":     # the tensor-core route's sweep
             for hd in FA.HEAD_DIMS:
                 for (h, kv) in ((8, 8), (8, 2), (8, 1)):
@@ -410,24 +479,32 @@ def check_attention_kernels(dev) -> tuple[dict, dict]:
                                   f"{(2, h, kv, s, hd)} causal={causal} "
                                   f"w={window}", causal, window)
 
-        for (b, h, kv, w, hd) in ((2, 4, 4, 512, 64), (3, 8, 2, 1024, 64),
-                                  (1, 4, 1, 256, 128), (8, 32, 8, 1024, 64),
-                                  (1, 24, 2, 128, 128), (1, 32, 32, 160, 112),
-                                  (2, 8, 2, 512, 112)):
+        for (b, h, kv, w, hd) in DECODE_SWEEP:
             ck, cv, q = rnd(b, w, kv, hd), rnd(b, w, kv, hd), rnd(b, h, hd)
-            lens = [1, 2, 31, 32, 33, w // 2, w - 1, w]
-            if w == 1024:
-                lens.append(576)
-            for n in lens:
-                lengths = torch.randint(1, n + 1, (b,), generator=gen,
-                                        device=dev, dtype=torch.int32)
-                lengths[0] = n
-                record("decode_attention", dname,
-                       ops.decode_attention(q, ck.transpose(1, 2),
-                                            cv.transpose(1, 2), lengths),
-                       ref.ref_decode_attention(q, ck.transpose(1, 2),
-                                                cv.transpose(1, 2), lengths),
-                       f"{(b, h, kv, w, hd)} lengths ≤ {n}")
+            # the model's transposed cache views, and two whose rows are
+            # off the 16-byte width (a stride of hd + 1, an offset of 1)
+            wide = rnd(b, w, kv, hd + 1)
+            flat = rnd(2 * b * w * kv * hd + 1)
+            views = {"aligned": (ck, cv),
+                     "stride hd+1": (wide[..., :hd], wide[..., 1:]),
+                     "offset 1": (flat[1:1 + ck.numel()].view(ck.shape),
+                                  flat[1 + ck.numel():].view(ck.shape))}
+            lens = sorted({0, 1, 2, 31, 32, 33, 65, w // 2, w - 1, w}
+                          | ({576} if w == 1024 else set()))
+            for vname, (kc, vc) in views.items():
+                kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+                for n in (lens if vname == "aligned" else (0, 33, w)):
+                    lengths = torch.randint(0, n + 1, (b,), generator=gen,
+                                            device=dev, dtype=torch.int32)
+                    lengths[0] = n
+                    what = f"{(b, h, kv, w, hd)} {vname} lengths ≤ {n}"
+                    want = ref.ref_decode_attention(q, kt, vt, lengths)
+                    decode(dname, ops.decode_attention(q, kt, vt, lengths),
+                           want, lengths, "decode_attention", what)
+                    if vname == "aligned":
+                        decode(dname, DA.cuda_decode_attention(
+                            q, kt, vt, lengths, _route=DA.PREVIOUS), want,
+                            lengths, "decode_attention previous", what)
     return errs, cases
 
 
@@ -576,22 +653,47 @@ def phase_golden(dev, path: str, phase: int) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def graph_forwards(m) -> int:
+    """The forwards of a served model that launched the kernel wrappers:
+    on the card the sync-checked warm forward and the capture
+    (``GraphForward``); a replay launches through the graph and counts
+    nothing."""
+    return m.graph.eager_forwards + m.graph.captures
+
+
+def check_graph_logits(what: str, m) -> None:
+    """One replay of ``m``'s captured forward against an eager forward of
+    the same model and tokens: equal bitwise (the path's kernels are
+    deterministic)."""
+    import torch
+    got = m.run()
+    want = m.graph.fwd()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        fail(f"{what}: the CUDA graph's logits differ from the eager "
+             f"forward's (max |Δ| {err})")
+
+
 def phase_serve(dev) -> dict:
     """Phase 6, the serve path: the launcher's three roles at published
-    size under GEMS; returns the stream's kernel launches (flash
-    attention's main path)."""
+    size under GEMS, each forward a CUDA-graph replay; returns the kernel
+    launches of building (warm forward and capture) and serving them
+    (flash attention's main path)."""
     import torch
     from repro_torch.core.schedulers import make_policy
     from repro_torch.launch import serve as launch
     from repro_torch.serve.engine import ServeEngine, run_stream
     t0 = time.perf_counter()
+    reset_model_counts()
     models, fps = launch.build_roles(device=dev, full_size=True,
                                      attn_impl="kernel")
     cfgs = {name: launch.role_config(launch.ROLES[name][0], full_size=True,
                                      attn_impl="kernel")
             for name in models}
-    say(f"phase6 roles built and calibrated in {time.perf_counter() - t0:.1f}"
-        f" s; p95 ms {json.dumps({n: m.profile.t_edge for n, m in models.items()})}; "
+    say(f"phase6 roles built, captured and calibrated in "
+        f"{time.perf_counter() - t0:.1f} s; p95 ms of one replay "
+        f"{json.dumps({n: m.profile.t_edge for n, m in models.items()})}; "
         f"FPS {json.dumps(fps)}; peak memory "
         f"{torch.cuda.max_memory_allocated()} B")
     calls = dict.fromkeys(models, 0)
@@ -607,16 +709,20 @@ def phase_serve(dev) -> dict:
 
     models = {n: dataclasses.replace(m, run=counted(n, m.run))
               for n, m in models.items()}
-    reset_model_counts()
+    replays0 = {n: m.graph.replays for n, m in models.items()}
     engine = ServeEngine(make_policy("GEMS"), models, cloud_concurrency=4,
                          seed=0)
     res = run_stream(engine, fps, SERVE_MS)
     launches = model_counts()
-    expected = {k: sum(path_launches(cfgs[n], forwards=calls[n])[k]
-                       for n in models) for k in launches}
-    check_launches(f"serve (forwards {json.dumps(calls)})", launches,
-                   expected)
+    replays = {n: m.graph.replays - replays0[n] for n, m in models.items()}
+    expected = {k: sum(path_launches(cfgs[n], forwards=graph_forwards(m))[k]
+                       for n, m in models.items()) for k in launches}
+    check_launches("serve (warm forwards and captures "
+                   f"{json.dumps({n: graph_forwards(m) for n, m in models.items()})})",
+                   launches, expected)
     check_tc("serve", launches, tc_counts(), bf16=True)
+    if replays != calls:
+        fail(f"serve: graph replays {replays} != forwards run {calls}")
     if launches["flash_attention"] <= 0 or not all(
             calls[n] for n in models if cfgs[n].family != "ssm"):
         fail(f"serve: an attention role never ran: forwards {calls}")
@@ -629,14 +735,20 @@ def phase_serve(dev) -> dict:
         f"{res.generated}, completed {res.completed}, completion rate "
         f"{res.completion_rate:.4f}, QoS utility {res.qos_utility}, QoE "
         f"utility {res.qoe_utility}, stolen {res.stolen}, migrated "
-        f"{res.migrated}; forwards {json.dumps(calls)}; kernel launches "
-        f"{json.dumps(launches)} (= Σ forwards × the role's layers; every "
-        f"flash launch on the tensor cores)")
+        f"{res.migrated}; forwards (graph replays) {json.dumps(calls)}; "
+        f"kernel launches {json.dumps(launches)} (= Σ (warm forward + "
+        f"capture) × the role's layers; every flash launch on the tensor "
+        f"cores)")
     say(f"phase6 {res.summary()}")
     for name, m in models.items():
         n_k, busy, wall = profile_call(m.run)
-        say(f"phase6 profile of one {name} forward alone: {n_k} device "
-            f"kernels, device busy {busy:.3f} ms of {wall:.3f} ms wall")
+        say(f"phase6 profile of one {name} replay alone: {n_k} device "
+            f"kernels, device busy {busy:.3f} ms of {wall:.3f} ms wall "
+            f"({busy / wall:.3f})")
+        check_graph_logits(f"serve {name} ({cfgs[name].name}, "
+                           f"{cfgs[name].family})", m)
+    say(f"phase6 graph logits: one replay of each role == an eager forward "
+        f"bitwise ({', '.join(f'{n} {c.family}' for n, c in cfgs.items())})")
     return launches
 
 
@@ -755,10 +867,13 @@ def phase_decode(dev) -> dict:
 def serve_one_role(dev, cfg, z: dict, role: str, phase: int) -> int:
     """``cfg`` served as the one role ``role`` (the launcher's HV share,
     deadline multiple, β and costs, from ``z``): ``ServableModel.from_arch``
-    at (B 1, S ``z["seq"]``) calibrated by the launcher's ``probe_p95``,
-    a GEMS stream of ``z["serve_ms"]`` and one forward under the
-    profiler.  The model is freed before returning; returns the forwards
-    run."""
+    at (B 1, S ``z["seq"]``) — a CUDA graph of the forward — calibrated
+    by the launcher's ``probe_p95`` (replays), a GEMS stream of
+    ``z["serve_ms"]``, one replay under the profiler and one held to an
+    eager forward bitwise.  The replays the engine ran must equal the
+    forwards it asked for.  The model is freed before returning; returns
+    the forwards that launched the kernel wrappers (the warm forward,
+    the capture and the eager check)."""
     import torch
     from repro_torch.core.schedulers import make_policy
     from repro_torch.core.task import ModelProfile
@@ -774,7 +889,6 @@ def serve_one_role(dev, cfg, z: dict, role: str, phase: int) -> int:
                         qoe_alpha=0.9, qoe_window=5_000.0)
     sm = ServableModel.from_arch(prof, cfg, batch=1, seq=z["seq"],
                                  device=dev)
-    calls["forward"] += 1                          # from_arch's warm call
     run = sm.run
 
     def counted():
@@ -791,7 +905,12 @@ def serve_one_role(dev, cfg, z: dict, role: str, phase: int) -> int:
     build_s = time.perf_counter() - t0
     engine = ServeEngine(make_policy("GEMS"), {role: sm},
                          cloud_concurrency=4, seed=0)
+    replays0, calls0 = sm.graph.replays, calls["forward"]
     res = run_stream(engine, {role: fps}, z["serve_ms"])
+    if sm.graph.replays - replays0 != calls["forward"] - calls0:
+        fail(f"{cfg.name} serve: graph replays "
+             f"{sm.graph.replays - replays0} != forwards run "
+             f"{calls['forward'] - calls0}")
     st = res.per_model[role]
     done = (st.edge_success + st.edge_miss + st.cloud_success
             + st.cloud_miss + st.dropped)
@@ -799,19 +918,23 @@ def serve_one_role(dev, cfg, z: dict, role: str, phase: int) -> int:
         fail(f"{cfg.name} serve: {res.completed} completed, {done} outcomes "
              f"of {st.generated} generated")
     n_k, busy, fwd_wall = profile_call(sm.run)
+    check_graph_logits(f"{cfg.name} ({cfg.family})", sm)
     say(f"phase{phase} {cfg.name} bf16 {cfg.n_layers} layers "
-        f"({cfg.param_count()} parameters): from_arch + probe_p95 in "
-        f"{build_s:.1f} s, p95 {t95:.3f} ms, {fps:.2f} FPS, deadline "
+        f"({cfg.param_count()} parameters): from_arch (warm forward, "
+        f"CUDA-graph capture) + probe_p95 in {build_s:.1f} s, p95 of one "
+        f"replay {t95:.3f} ms, {fps:.2f} FPS, deadline "
         f"{prof.deadline:.0f} ms; GEMS {z['serve_ms'] / 1e3:.0f} s: "
         f"generated {res.generated}, completed {res.completed}, completion "
         f"rate {res.completion_rate:.4f}, QoS utility {res.qos_utility}, "
-        f"QoE utility {res.qoe_utility}; forwards {calls['forward']}; "
-        f"profile of one forward: {n_k} device kernels, busy {busy:.3f} ms "
-        f"of {fwd_wall:.3f} ms wall; peak memory "
-        f"{torch.cuda.max_memory_allocated()} B")
+        f"QoE utility {res.qoe_utility}; forwards (graph replays) "
+        f"{calls['forward']}; profile of one replay: {n_k} device kernels, "
+        f"busy {busy:.3f} ms of {fwd_wall:.3f} ms wall "
+        f"({busy / fwd_wall:.3f}); one replay == an eager forward bitwise; "
+        f"peak memory {torch.cuda.max_memory_allocated()} B")
+    forwards = graph_forwards(sm) + 1              # + the eager check
     del sm, engine, run, counted
     torch.cuda.empty_cache()
-    return calls["forward"]
+    return forwards
 
 
 def phase_hybrid(dev) -> dict:
@@ -844,8 +967,10 @@ def phase_hybrid(dev) -> dict:
     say(f"phase13 decode zamba2-7b bf16 "
         f"{decode_line(r, 1, z['prompt'], z['steps'])}")
     say(f"phase13 launches over the phase: {json.dumps(launches)} = "
-        f"{forwards} forwards, 1 prefill, {z['steps']} steps × the "
-        f"path's per-call counts; every flash launch on the tensor cores")
+        f"{forwards} eager forwards and captures (the graph's replays "
+        f"launch nothing through the wrappers), 1 prefill, {z['steps']} "
+        f"steps × the path's per-call counts; every flash launch on the "
+        f"tensor cores")
     return launches
 
 
@@ -878,19 +1003,56 @@ def _prof_us(fn, name: str, n: int = 20, windows: int = 3):
     return None
 
 
-def phase_times(dev) -> dict:
-    """Phase 8: device ms per call (CUDA-graph replay) of each attention
-    kernel at the serve and decode shapes, beside its plain version's,
-    ``scaled_dot_product_attention``'s (timed only; the port never calls
-    it) and the bound; plus each kernel's mean time in a profiler trace.
-    Flash attention's rows add ``previous``: the earlier CUDA-core bf16
-    body (``_route=CORE``), timed in the same call.  Phase 14 adds the
-    zamba2 shapes (hd 112) and the RMSNorm and selective-scan kernels
-    through :func:`kernel_times`."""
+def decode_row(dev, b, h, kv, w, hd, n) -> dict:
+    """Flash decode in bf16 at (B, H, KV, W, hd) with ``n`` valid rows a
+    batch row, on the model's transposed (B,W,KV,hd) cache views: device
+    ms per call of the split-KV kernel, of the previous one-block-per-(b,
+    h) body (``_route=PREVIOUS``), of the plain version and of
+    ``scaled_dot_product_attention`` on the valid prefix (timed only),
+    beside the bound: each valid K and V row read once, q read and out
+    written once, the lengths read."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    ck = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
+    cv = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
+    q = torch.randn(b, h, hd, device=dev, dtype=bf)
+    lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
+    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+    row = {name: graph_ms(fn) for name, fn in (
+        ("kernel", lambda: DA.cuda_decode_attention(q, kt, vt, lengths)),
+        ("previous", lambda: DA.cuda_decode_attention(
+            q, kt, vt, lengths, _route=DA.PREVIOUS)),
+        ("plain", lambda: ref.ref_decode_attention(q, kt, vt, lengths)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt[:, :, :n], vt[:, :, :n],
+            enable_gqa=kv != h)))}
+    nbytes = 2 * (2 * b * kv * n * hd + 2 * q.numel()) + 4 * b
+    row["bound"], row["bound_by"] = _bound(nbytes, 4 * b * h * n * hd,
+                                           BF16_OPS_PER_S)
+    row["profile_us"] = _prof_us(
+        lambda: DA.cuda_decode_attention(q, kt, vt, lengths), "decode_split")
+    row["splits, chunk"] = DA.plan_splits(w, b, kv)
+    return row
+
+
+def phase_times(dev) -> dict:
+    """Phase 8: device ms per call (CUDA-graph replay) of each attention
+    kernel at the serve and decode shapes (granite, starcoder2,
+    nemotron-4-340b; flash also at B 8 × S 512), beside its plain
+    version's, ``scaled_dot_product_attention``'s (timed only; the port
+    never calls it) and the bound; plus each kernel's mean time in a
+    profiler trace.  Every row adds ``previous``, timed in the same
+    call: flash attention's earlier CUDA-core bf16 body (``_route=
+    CORE``), flash decode's earlier one-block-per-(b, h) body
+    (``_route=PREVIOUS``).  Phase 14 adds the zamba2 shapes (hd 112) and
+    the RMSNorm and selective-scan kernels through :func:`kernel_times`."""
+    import torch
+    import torch.nn.functional as F
+
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     bf = torch.bfloat16
@@ -899,7 +1061,9 @@ def phase_times(dev) -> dict:
     for key, (b, h, kv, s, hd) in (("flash serve granite", (1, 32, 8, 64, 64)),
                                    ("flash serve starcoder2",
                                     (1, 24, 2, 64, 128)),
-                                   ("flash B8 S512", (8, 32, 8, 512, 64))):
+                                   ("flash B8 S512", (8, 32, 8, 512, 64)),
+                                   ("flash serve nemotron",
+                                    (1, 96, 8, 64, 192))):
         q = torch.randn(b, s, h, hd, device=dev, dtype=bf).transpose(1, 2)
         k = torch.randn(b, s, kv, hd, device=dev, dtype=bf).transpose(1, 2)
         v = torch.randn(b, s, kv, hd, device=dev, dtype=bf).transpose(1, 2)
@@ -918,23 +1082,12 @@ def phase_times(dev) -> dict:
             lambda: FA.cuda_flash_attention(q, k, v), "flash_tc_kernel")
         out[key] = row
 
-    b, w, kv, h, hd, n = 8, 1024, 8, 32, 64, 576
-    ck = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
-    cv = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
-    q = torch.randn(b, h, hd, device=dev, dtype=bf)
-    lengths = torch.full((b,), n, dtype=torch.int32, device=dev)
-    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
-    row = {name: graph_ms(fn) for name, fn in (
-        ("kernel", lambda: DA.cuda_decode_attention(q, kt, vt, lengths)),
-        ("plain", lambda: ref.ref_decode_attention(q, kt, vt, lengths)),
-        ("library", lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt[:, :, :n], vt[:, :, :n], enable_gqa=True)))}
-    nbytes = 2 * (2 * b * kv * n * hd + 2 * q.numel()) + 4 * b
-    row["bound"], row["bound_by"] = _bound(nbytes, 4 * b * h * n * hd,
-                                           BF16_OPS_PER_S)
-    row["profile_us"] = _prof_us(
-        lambda: DA.cuda_decode_attention(q, kt, vt, lengths), "decode_kernel")
-    out["decode B8 W1024 L576"] = row
+    for key, shape in (("decode B8 W1024 L576", (8, 32, 8, 1024, 64, 576)),
+                       ("decode starcoder2 B8 W1024 L576",
+                        (8, 24, 2, 1024, 128, 576)),
+                       ("decode nemotron B8 W1024 L576",
+                        (8, 96, 8, 1024, 192, 576))):
+        out[key] = decode_row(dev, *shape)
     say_times(8, out)
     return out
 
@@ -943,11 +1096,13 @@ def say_times(phase: int, rows: dict) -> None:
     for key, row in rows.items():
         prev = (f"previous (CUDA cores) {row['previous']:.6f}, "
                 if "previous" in row else "")
+        plan = (f"; (splits, chunk) {row['splits, chunk']}"
+                if "splits, chunk" in row else "")
         say(f"phase{phase} {key} (bf16): device ms per call (graph replay) "
             f"kernel {row['kernel']:.6f}, {prev}plain {row['plain']:.6f}, "
             f"library {row['library']}; bound "
             f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
-            f"launch {row['profile_us']}")
+            f"launch {row['profile_us']}{plan}")
 
 
 def kernel_times(dev) -> dict:
@@ -962,7 +1117,6 @@ def kernel_times(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
@@ -1015,23 +1169,8 @@ def kernel_times(dev) -> dict:
                                  "flash_tc_kernel")
     out["flash serve zamba2 (1, 32, 64, 112)"] = row
 
-    b, w, kv, h, hd, nv = 1, 160, 32, 32, 112, 144
-    ck = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
-    cv = torch.randn(b, w, kv, hd, device=dev, dtype=bf)
-    q = torch.randn(b, h, hd, device=dev, dtype=bf)
-    lengths = torch.full((b,), nv, dtype=torch.int32, device=dev)
-    kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
-    row = {name: graph_ms(fn) for name, fn in (
-        ("kernel", lambda: DA.cuda_decode_attention(q, kt, vt, lengths)),
-        ("plain", lambda: ref.ref_decode_attention(q, kt, vt, lengths)),
-        ("library", lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt[:, :, :nv], vt[:, :, :nv])))}
-    row["bound"], row["bound_by"] = _bound(
-        2 * (2 * b * kv * nv * hd + 2 * q.numel()) + 4 * b,
-        4 * b * h * nv * hd, BF16_OPS_PER_S)
-    row["profile_us"] = _prof_us(
-        lambda: DA.cuda_decode_attention(q, kt, vt, lengths), "decode_kernel")
-    out["decode zamba2 B1 W160 L144"] = row
+    out["decode zamba2 B1 W160 L144"] = decode_row(dev, 1, 32, 32, 160, 112,
+                                                   144)
     say_times(14, out)
     return out
 
@@ -1401,11 +1540,93 @@ def phase_moe(dev) -> dict:
              {k: v - bf16_tc[k] for k, v in tc_counts().items()},
              bf16=False)
     say(f"phase16 launches over the phase: {json.dumps(launches)} = "
-        f"{forwards} forwards, 2 prefills and {z['steps']} steps at 48 "
+        f"{forwards} eager forwards and captures, 2 prefills and "
+        f"{z['steps']} steps at 48 "
         f"layers, 1 prefill and {z['steps']} steps at {cfg8.n_layers}, × "
         f"the path's per-call counts; tensor-core launches "
         f"{json.dumps(bf16_tc)}: every bf16 flash and moe launch, and "
         f"none of the f32 copy's")
+    return launches
+
+
+def phase_nemotron(dev) -> dict:
+    """Phase 18, hd 192 on the path: nemotron-4-340b at its published
+    width (d 18432, 96 heads, 8 KV heads, hd 192, d_ff 73728, vocab
+    256000, squared ReLU) cut to ``NEMOTRON["layers"]`` layers, bf16,
+    ``attn_impl="kernel"``: one (B 1, S 64) forward, then a 64-token
+    prefill and greedy decode steps, held against ``attn_impl="ref"`` on
+    the same weights (the forward's logits, and the steps teacher-forced
+    on the kernel route's tokens) by the relative RMS of the logit
+    difference.  The kernel launches must be exactly the path's, every
+    flash launch on the tensor cores; returns them."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import Model
+    z = NEMOTRON
+    cfg = dataclasses.replace(ARCHS["nemotron-4-340b"], n_layers=z["layers"],
+                              attn_impl="kernel")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(z["seed"])
+    mk = Model(cfg, dev)
+    params = mk.init(gen)
+    mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
+    tokens = torch.randint(0, cfg.vocab, (1, z["seq"]), generator=gen,
+                           device=dev)
+    max_seq = z["seq"] + z["steps"]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_model_counts()
+    t0 = time.perf_counter()
+    fk = mk.forward(params, {"tokens": tokens})[0]
+    last, cache = mk.prefill(params, {"tokens": tokens}, max_seq)
+    tok = last[:, -1].argmax(-1, keepdim=True)
+    fed, outs = [], []
+    for t in range(z["steps"]):
+        fed.append(tok)
+        logits, _ = mk.decode_step(params, cache, tok, z["seq"] + t)
+        outs.append(logits[:, -1])
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, tc = model_counts(), tc_counts()
+    check_launches("nemotron-4-340b", launches, path_launches(
+        cfg, forwards=1, prefills=1, steps=z["steps"]))
+    check_tc("nemotron-4-340b", launches, tc, bf16=True)
+
+    def rel(a, b):
+        a, b = a[..., :cfg.vocab].float(), b[..., :cfg.vocab].float()
+        return float((a - b).square().sum() / b.square().sum()) ** 0.5
+
+    fr = mr.forward(params, {"tokens": tokens})[0]
+    fwd_rms = rel(fk, fr)
+    _, cache_r = mr.prefill(params, {"tokens": tokens}, max_seq)
+    num = den = 0.0
+    agree = 0
+    for t in range(z["steps"]):
+        lr = mr.decode_step(params, cache_r, fed[t], z["seq"] + t)[0][:, -1]
+        num += float((outs[t][..., :cfg.vocab].float()
+                      - lr[..., :cfg.vocab].float()).square().sum())
+        den += float(lr[..., :cfg.vocab].float().square().sum())
+        agree += int(torch.equal(outs[t].argmax(-1), lr.argmax(-1)))
+    dec_rms = (num / den) ** 0.5
+    finite = bool(torch.isfinite(fk).all()) and all(
+        bool(torch.isfinite(o).all()) for o in outs)
+    if not (finite and fwd_rms <= NEMOTRON_TOL and dec_rms <= NEMOTRON_TOL):
+        fail(f"nemotron-4-340b 'kernel' vs 'ref': finite {finite}, relative "
+             f"RMS forward {fwd_rms}, decode {dec_rms} (tol {NEMOTRON_TOL})")
+    say(f"phase18 nemotron-4-340b bf16 published width, {cfg.n_layers} "
+        f"layers ({cfg.param_count()} parameters, init {init_s:.1f} s, peak "
+        f"memory {torch.cuda.max_memory_allocated()} B): forward (B 1, S "
+        f"{z['seq']}), prefill and {z['steps']} greedy steps on 'kernel' in "
+        f"{wall:.3f} s; against 'ref' on the same weights, relative RMS of "
+        f"the logit difference: forward {fwd_rms:.4e}, teacher-forced "
+        f"decode {dec_rms:.4e} (tol {NEMOTRON_TOL}); greedy tokens equal "
+        f"at {agree} of {z['steps']} steps; kernel launches "
+        f"{json.dumps(launches)} (= the path's; every flash launch on the "
+        f"tensor cores)")
+    del params, cache, cache_r, fk, fr, outs, mk, mr
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1834,6 +2055,11 @@ def main() -> int:
     mtimes = moe_times(dev)
     say(f"phases 1-17 done in {time.perf_counter() - T_START:.1f} s")
 
+    # ---- phase 18: hd 192 on the path (nemotron-4-340b) ----------------
+    torch.cuda.empty_cache()
+    phase_nemotron(dev)
+    say(f"phases 1-18 done in {time.perf_counter() - T_START:.1f} s")
+
     flash_t = times["flash serve granite"]
     decode_t = times["decode B8 W1024 L576"]
     rms_t = ktimes["rmsnorm (64, 3584)"]
@@ -1860,7 +2086,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/decode_attention.py:24",
         "launches": decode_launches,
         "max_abs_err": max(att_err["decode_attention"].values()),
-        "ms": decode_t["kernel"], "plain_ms": decode_t["plain"],
+        "ms": decode_t["kernel"], "previous_ms": decode_t["previous"],
+        "plain_ms": decode_t["plain"],
         "bound_ms": decode_t["bound"], "bound_by": decode_t["bound_by"],
         "library_ms": decode_t["library"]}, {
         "name": "rmsnorm", "route": "cuda",

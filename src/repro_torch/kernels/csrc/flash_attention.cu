@@ -12,11 +12,12 @@
 // its element strides over (b, h, s) with a contiguous hd axis, so the
 // model's (B,S,H,hd) activations are read and written in place through
 // transposed views.  Query head h reads KV head h / (H/KV) directly: no
-// repeated K/V is materialised.  hd is 64, 112 or 128; f32 or bf16.
+// repeated K/V is materialised.  hd is 64, 112, 128 or 192; f32 or bf16.
 //
 // Two bodies, chosen by the launcher's `route`:
 //
-// route 0, flash_kernel (f32, and bf16 when asked for): the CUDA cores
+// route 0, flash_kernel (f32, bf16 views whose rows are not 16-byte
+// aligned, and bf16 when asked for): the CUDA cores
 // in f32.  One block of 8 warps owns 64 query rows of one (b, h) and
 // loops over K tiles of 64 rows, so m, l and acc live in registers for
 // the whole sweep (the TPU carries them in VMEM scratch between grid
@@ -34,11 +35,13 @@
 // bytes and the launch bound it.  Design: 4 warps a block, each owning
 // 16 query rows.
 // The Q tile arrives by cp.async and goes by ldmatrix into A fragments
-// that stay in registers for the whole sweep.  K and V tiles of 64 rows
-// run through a two-stage cp.async.cg ring (tile j+1 loads while tile j
-// computes); shared rows are padded by 8 bf16 (16 B) so a row is an odd
-// number of 16-byte chunks and ldmatrix is conflict-free at hd 64, 112
-// and 128.  S = Q.K^T is mma.sync.m16n8k16 (bf16 in, f32 out) with K
+// that stay in registers for the whole sweep (at hd 192 they are read
+// from shared memory at each k-step instead: its 16 x 192 f32 O
+// accumulator already takes 96 registers a thread).  K and V tiles of
+// 64 rows run through a two-stage cp.async.cg ring (tile j+1 loads while
+// tile j computes); shared rows are padded by 8 bf16 (16 B) so a row is an odd
+// number of 16-byte chunks and ldmatrix is conflict-free at hd 64, 112,
+// 128 and 192.  S = Q.K^T is mma.sync.m16n8k16 (bf16 in, f32 out) with K
 // fragments from ldmatrix; the scale (folded with log2 e) and the band
 // mask act on the fragments; the row max and sum are f32, reduced over
 // each row's 4-lane quad.  P is rounded to bf16 in registers and used
@@ -46,7 +49,7 @@
 // accumulates in f32 registers, and the epilogue rounds once.  hd 112 is
 // 7 k-steps of 16 for Q.K^T and 14 n8 tiles for P.V.  cp.async needs
 // 16-byte rows: the wrapper checks every base pointer and (b, h, s)
-// stride and raises on bf16 input that fails.
+// stride and sends bf16 input that fails to route 0.
 //
 // Both bodies skip whole K tiles outside the causal/window band (the
 // loop ends at the diagonal), mask the fringe element by element, and
@@ -262,10 +265,12 @@ constexpr int tc_smem_bytes() {          // Q, and two stages of K and V
          static_cast<int>(sizeof(__nv_bfloat16));
 }
 
-// at least two blocks an SM: ptxas then gives the hd 112 and 128 bodies
-// more registers, which paid at every serve shape and at hd 128 S 512
+// at least two blocks an SM up to hd 128: ptxas then gives the hd 112
+// and 128 bodies more registers, which paid at every serve shape and at
+// hd 128 S 512.  At hd 192 the 128,000 B of shared memory allow one block
+// an SM, and the bound lets ptxas take what it needs.
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTcThreads, HD <= 128 ? 2 : 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
@@ -325,11 +330,18 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   tc::cp_async_wait<1>();                // Q has landed
   __syncthreads();
 
-  uint32_t qf[kKSteps][4];               // this warp's 16 rows of Q
+  // this warp's 16 rows of Q as A fragments: held in registers up to
+  // hd 128; at hd 192 the O accumulator alone takes 96 registers a
+  // thread, so the fragments are read from shared memory at each k-step
+  constexpr bool kQRegs = HD <= 128;
+  const bf16* q_frag = q_s + (warp * kTcRows + (lane & 15)) * kLd +
+                       (lane >> 4) * 8;
+  uint32_t qf[kQRegs ? kKSteps : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk)
-    tc::ldmatrix_x4(qf[kk], q_s + (warp * kTcRows + (lane & 15)) * kLd +
-                                kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < kKSteps; ++kk)
+      tc::ldmatrix_x4(qf[kk], q_frag + kk * 16);
+  }
 
   float acc[kNT][4];
 #pragma unroll
@@ -360,14 +372,21 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        tc::ldmatrix_x4(qa, q_frag + kk * 16);
+      }
 #pragma unroll
       for (int jj = 0; jj < kBK / 16; ++jj) {
         uint32_t r[4];
         tc::ldmatrix_x4(
             r, kst + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
                    kk * 16 + ((lane >> 3) & 1) * 8);
-        tc::mma_bf16(s[2 * jj], qf[kk], r[0], r[1]);
-        tc::mma_bf16(s[2 * jj + 1], qf[kk], r[2], r[3]);
+        tc::mma_bf16(s[2 * jj], qa, r[0], r[1]);
+        tc::mma_bf16(s[2 * jj + 1], qa, r[2], r[3]);
       }
     }
 
@@ -530,6 +549,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (hd == 128)
       return launch_tc<128>(q, k, v, o, strides, B, H, S, groups, scale,
                             causal, window, s);
+    if (hd == 192)
+      return launch_tc<192>(q, k, v, o, strides, B, H, S, groups, scale,
+                            causal, window, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #define FLASH_CASE(DT, T, HD)                                               \
@@ -539,9 +561,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   FLASH_CASE(0, float, 64)
   FLASH_CASE(0, float, 112)
   FLASH_CASE(0, float, 128)
+  FLASH_CASE(0, float, 192)
   FLASH_CASE(1, __nv_bfloat16, 64)
   FLASH_CASE(1, __nv_bfloat16, 112)
   FLASH_CASE(1, __nv_bfloat16, 128)
+  FLASH_CASE(1, __nv_bfloat16, 192)
 #undef FLASH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

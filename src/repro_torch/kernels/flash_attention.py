@@ -11,7 +11,9 @@ flash_attention`.
 
 The source has two bodies: f32 runs on the CUDA cores (``CORE``), bf16
 on the tensor cores (``TC``: ``mma.sync`` fed by a ``cp.async`` ring),
-which needs 16-byte aligned rows; :func:`tc_route` makes the choice.
+which needs 16-byte aligned rows; a bf16 view whose rows are not
+16-byte aligned takes the CUDA-core body, which reads elements.
+:func:`tc_route` makes the choice.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 KERNEL = "flash_attention"
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 128, 192)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CORE, TC = 0, 1          # the launcher's routes: CUDA cores, tensor cores
 
@@ -52,21 +54,18 @@ def _counted(route: int) -> None:
 def tc_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     """The body that q, k and v (B,H,S,hd) / (B,KV,S,hd) take: ``CORE``
     for float32, ``TC`` for bfloat16.  The tensor-core body copies rows
-    in 16-byte chunks, so for bfloat16 each storage offset and each
-    (b, h, s) stride of an axis longer than one must be a multiple of 8
-    elements; a view that is not raises ``ValueError`` (there is no
-    quiet route elsewhere).  Reads dtype, shape, strides and storage
-    offsets only."""
+    in 16-byte chunks, so a bfloat16 view takes it only where each base
+    address is a multiple of 16 bytes and each (b, h, s) stride of an
+    axis longer than one a multiple of 8 elements; any other bfloat16
+    view takes ``CORE``, the CUDA-core body, which reads elements (as
+    ``moe_gemm`` does off its 16-byte width).  Reads dtype, shape,
+    strides and addresses only."""
     if q.dtype != torch.bfloat16:
         return CORE
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        bad = [i for i in range(3) if t.shape[i] > 1 and t.stride(i) % 8]
-        if t.storage_offset() % 8 or bad:
-            raise ValueError(
-                f"cuda_flash_attention: bf16 {name} is not 16-byte aligned "
-                f"(storage offset {t.storage_offset()}, strides "
-                f"{tuple(t.stride())}): the tensor-core body needs the "
-                f"offset and every (b, h, s) stride a multiple of 8")
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(
+                t.shape[i] > 1 and t.stride(i) % 8 for i in range(3)):
+            return CORE
     return TC
 
 
@@ -84,11 +83,11 @@ def cuda_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          _route: int | None = None) -> torch.Tensor:
     """The hand kernel: q (B,H,S,hd), k/v (B,KV,S,hd) CUDA tensors of one
-    dtype (f32 or bf16), hd 64, 112 or 128, any (b, h, s) strides with a
-    contiguous hd axis (16-byte aligned rows in bf16, see
-    :func:`tc_route`) → (B,H,S,hd) in ``q``'s layout.  ``_route`` forces
-    a body (``CORE`` runs bf16 on the CUDA cores); only ``chip_smoke.py``
-    passes it, to time and check the earlier bf16 body."""
+    dtype (f32 or bf16), hd 64, 112, 128 or 192, any (b, h, s) strides
+    with a contiguous hd axis (the body by :func:`tc_route`) → (B,H,S,hd)
+    in ``q``'s layout.  ``_route`` forces a body (``CORE`` runs bf16 on
+    the CUDA cores); only ``chip_smoke.py`` passes it, to time and check
+    the earlier bf16 body."""
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError("cuda_flash_attention: q, k and v must lie on the "
@@ -117,16 +116,14 @@ def cuda_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _route is not None:
         if _route not in (CORE, TC) or (_route == TC and route != TC):
             raise ValueError(f"cuda_flash_attention: route {_route} does not "
-                             f"take {q.dtype} input")
+                             f"take this {q.dtype} input (dtype or "
+                             f"alignment)")
         route = _route
     out = torch.empty_like(q)
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    if route == TC and any(t.data_ptr() % 16 for t in (q, k, v, out)):
-        raise ValueError("cuda_flash_attention: a bf16 base address is not "
-                         "16-byte aligned")
     # an axis of length one is only ever read at index 0: its stride is
     # passed as 0
     strides = (ctypes.c_int64 * 12)(*(t.stride(i) if t.shape[i] > 1 else 0

@@ -15,10 +15,13 @@ architecture (§3.3):
   (E+C / DEM / DEMS / DEMS-A / GEMS) — admission, migration scoring, work
   stealing via trigger times, adaptation, window rescheduling.
 
-All threads launch onto the card's current stream (PyTorch's default
-stream, shared by every host thread), as the JAX package's threads share
-one device queue: a ``run()`` ends in a stream synchronize, so it waits
-for the work the other threads queued before it as well as its own.
+On the card a payload is one CUDA-graph replay of the model's captured
+forward (:class:`GraphForward`), as the reference's is one jitted
+dispatch.  All threads replay onto the card's current stream (PyTorch's
+default stream, shared by every host thread), as the JAX package's
+threads share one device queue: a ``run()`` ends in a stream
+synchronize, so it waits for the work the other threads queued before it
+as well as its own.
 
 Timestamps are wall-clock milliseconds; results aggregate into the same
 per-model stats as the simulator.
@@ -46,12 +49,65 @@ def _now_ms() -> float:
     return time.monotonic() * 1e3
 
 
+class GraphForward:
+    """A model's forward on the card, captured once as a CUDA graph: the
+    port's counterpart of the reference's one jitted dispatch.
+
+    Built from ``fwd`` (a zero-arg eager forward returning logits): one
+    eager forward on a side stream under
+    ``torch.cuda.set_sync_debug_mode("error")`` (it warms the kernels and
+    fails on any host sync in the path), then the capture, on a side
+    stream into its own graph memory pool.  A capture that fails raises:
+    there is no eager path on the card.
+
+    ``__call__`` replays the graph on the current stream, copies the
+    logits out of the graph's static buffer and synchronizes, all under a
+    lock: the serve engine calls one model from its edge thread and its
+    cloud threads at once, and the lock keeps one replay from overwriting
+    the logits another caller is copying.  ``replays`` counts the calls;
+    the kernel wrappers' launch counters saw the warm forward and the
+    capture (each counts its Python calls), never a replay.
+    """
+
+    eager_forwards = 1          # the sync-checked warm forward
+    captures = 1
+
+    def __init__(self, fwd: Callable[[], torch.Tensor], device):
+        self.fwd = fwd
+        self.device = device
+        self.replays = 0
+        self._lock = threading.Lock()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fwd()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph,
+                              pool=torch.cuda.graph_pool_handle()):
+            self._logits = fwd()
+
+    def __call__(self) -> torch.Tensor:
+        with self._lock:
+            self.graph.replay()
+            logits = self._logits.clone()
+            self.replays += 1
+            torch.cuda.current_stream(self.device).synchronize()
+        return logits
+
+
 @dataclasses.dataclass
 class ServableModel:
     """A registered DNN: profile + a zero-arg blocking invocation."""
 
     profile: ModelProfile
     run: Callable[[], object]          # blocking inference call
+    graph: Optional[GraphForward] = None   # the captured forward (card)
 
     @classmethod
     def from_arch(cls, profile: ModelProfile, cfg, batch: int = 1,
@@ -60,9 +116,12 @@ class ServableModel:
         """Wrap a zoo model's forward pass as the task payload.
 
         Parameters and tokens come from one ``torch.Generator`` seeded with
-        ``seed`` on ``device``; one warm call runs before returning.  On
-        the card, ``run()`` ends in a synchronize of the current stream,
-        the counterpart of ``block_until_ready``.
+        ``seed`` on ``device``.  On the card the forward is captured as a
+        :class:`GraphForward` (the payload's tokens are fixed, so its
+        inputs are static) and ``run()`` replays it and ends in a
+        synchronize of the current stream, the counterpart of ``jax.jit``
+        plus ``block_until_ready``.  On the CPU, which the caller asked
+        for, ``run()`` is the eager forward, warmed by one call.
         """
         from repro_torch.models.model import Model
         dev = resolve_device(device)
@@ -76,14 +135,14 @@ class ServableModel:
             b["patches"] = torch.zeros((batch, cfg.n_image_tokens,
                                         cfg.d_model), device=dev)
 
-        def run():
-            logits = model.forward(params, b)[0]
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
-            return logits
+        def fwd():
+            return model.forward(params, b)[0]
 
-        run()                                     # warm call
-        return cls(profile=profile, run=run)
+        if dev.type == "cuda":
+            graph = GraphForward(fwd, dev)
+            return cls(profile=profile, run=graph, graph=graph)
+        fwd()                                     # warm call
+        return cls(profile=profile, run=fwd)
 
 
 class ServeEngine:

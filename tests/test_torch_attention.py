@@ -54,6 +54,7 @@ def _np(x):
     (2, 8, 2, 256, 64),      # GQA 4:1
     (1, 4, 1, 128, 128),     # MQA
     (1, 4, 4, 128, 112),     # zamba2's head dim
+    (1, 12, 1, 128, 192),    # nemotron-4-340b's head dim, a group of 12
 ])
 @pytest.mark.parametrize("window", [0, 64])
 def test_plain_flash_matches_jax(b, h, kv, s, hd, dtype, window):
@@ -127,6 +128,7 @@ def test_plain_flash_takes_transposed_views():
     (3, 8, 2, 1024, 64),
     (1, 4, 1, 256, 128),
     (2, 4, 4, 256, 112),
+    (2, 12, 1, 256, 192),    # nemotron-4-340b's head dim, a group of 12
 ])
 def test_plain_decode_matches_jax(b, h, kv, w, hd, dtype):
     rng = np.random.default_rng(hash((b, h, w)) % 2**31)
@@ -164,6 +166,65 @@ def test_plain_decode_on_strided_cache_view(length):
         jnp.asarray(cache_v.transpose(0, 2, 1, 3)), jnp.asarray(lengths),
         block_s=128)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_decode_hd192_semantics(dtype):
+    """nemotron-4-340b's decode shape at reduced width (hd 192, a group
+    of 12 query heads a KV head) on the model's transposed cache views:
+    the plain version equals the JAX Pallas kernel (interpret mode) and
+    oracle at lengths 1, off the 128-row block and W, and rows at or
+    past a batch row's length never reach its output."""
+    rng = np.random.default_rng(192)
+    b, w, kv, h, hd = 3, 256, 2, 24, 192
+    ck = rng.standard_normal((b, w, kv, hd), np.float32)
+    cv = rng.standard_normal((b, w, kv, hd), np.float32)
+    q = rng.standard_normal((b, h, hd), np.float32)
+    lengths = np.asarray([1, 131, w], np.int32)
+    qj, qt = _pair(q, dtype)
+    kj, kt = _pair(np.ascontiguousarray(ck.transpose(0, 2, 1, 3)), dtype)
+    vj, vt = _pair(np.ascontiguousarray(cv.transpose(0, 2, 1, 3)), dtype)
+    views = tuple(torch.from_numpy(c).to(DTYPES[dtype][1]).transpose(1, 2)
+                  for c in (ck, cv))
+    got = tops.decode_attention(qt, *views, torch.from_numpy(lengths))
+    kernel = jops.decode_attention(qj, kj, vj, jnp.asarray(lengths),
+                                   block_s=128)
+    oracle = jref.ref_decode_attention(qj, kj, vj, jnp.asarray(lengths))
+    np.testing.assert_allclose(_np(got), _np(kernel), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(dtype))
+    ck2, cv2 = ck.copy(), cv.copy()
+    for i, n in enumerate(lengths):
+        ck2[i, n:] = 1e4
+        cv2[i, n:] = -1e4
+    views2 = tuple(torch.from_numpy(c).to(DTYPES[dtype][1]).transpose(1, 2)
+                   for c in (ck2, cv2))
+    torch.testing.assert_close(
+        tops.decode_attention(qt, *views2, torch.from_numpy(lengths)), got,
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("w", [1, 63, 64, 65, 160, 576, 1024, 4096, 500_000])
+@pytest.mark.parametrize("b,kv", [(1, 1), (1, 8), (8, 2), (8, 8), (64, 8),
+                                  (1, 32)])
+def test_decode_split_plan(w, b, kv):
+    """The split kernel's plan: slices of whole 64-row units that cover
+    W, at most ``MAX_SPLITS`` of them and as small as the target of two
+    (batch row, KV head, slice) blocks an SM asks for.  It is a function
+    of W, B and KV (and the card's SM count) alone, so it never waits on
+    the values in ``lengths``."""
+    import inspect
+    assert list(inspect.signature(tdecode.plan_splits).parameters) == [
+        "w", "b", "kv", "sms"]
+    splits, chunk = tdecode.plan_splits(w, b, kv)
+    assert chunk % tdecode.BLOCK_ROWS == 0 and chunk > 0
+    assert 1 <= splits <= tdecode.MAX_SPLITS
+    assert splits * chunk >= w > (splits - 1) * chunk
+    units = -(-w // tdecode.BLOCK_ROWS)
+    want = min(units, tdecode.MAX_SPLITS,
+               -(-2 * tdecode.H100_SMS // (b * kv)))
+    assert splits <= want and chunk // tdecode.BLOCK_ROWS == -(-units // want)
+    assert tdecode.plan_splits(w, b, kv) == (splits, chunk)
+    assert tdecode.plan_splits(w, b, kv, sms=66)[0] <= splits
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +291,8 @@ def test_flash_route_f32_takes_cuda_cores(hd):
 @pytest.mark.parametrize("view", ["offset", "s_stride", "h_stride"])
 def test_flash_route_misaligned_bf16_view_raises(which, view):
     """A bf16 view whose rows are not 16-byte aligned (a storage offset
-    or a (b, h, s) stride off a multiple of 8 elements) is refused."""
+    or a (b, h, s) stride off a multiple of 8 elements) no longer
+    raises: it takes the CUDA-core body, which reads elements."""
     bad = {"offset": torch.zeros(2, 8, 24, 72, dtype=torch.bfloat16)
            [..., 4:68],
            "s_stride": torch.zeros(2, 8, 24, 68, dtype=torch.bfloat16)
@@ -240,8 +302,7 @@ def test_flash_route_misaligned_bf16_view_raises(which, view):
     q, k, v = _qkv(torch.bfloat16, h=8, kv=8)
     args = dict(q=q, k=k, v=v)
     args[which] = bad
-    with pytest.raises(ValueError, match="16-byte"):
-        tflash.tc_route(args["q"], args["k"], args["v"])
+    assert tflash.tc_route(args["q"], args["k"], args["v"]) == tflash.CORE
 
 
 def test_flash_route_ignores_strides_of_unit_axes():
@@ -309,7 +370,8 @@ def test_cuda_flash_matches_plain(cuda_device, dtype):
                             (1, 4, 1, 128, 128), (1, 32, 8, 17, 64),
                             (1, 24, 2, 64, 128), (1, 32, 32, 64, 112),
                             (2, 8, 2, 100, 112), (1, 32, 8, 64, 64),
-                            (8, 32, 8, 512, 64), (2, 8, 1, 203, 128)):
+                            (8, 32, 8, 512, 64), (2, 8, 1, 203, 128),
+                            (1, 96, 8, 64, 192), (2, 8, 2, 100, 192)):
         # contiguous (B,H,S,hd), and the model's (B,S,H,hd) views
         dense = tuple(torch.randn(shape, generator=gen, device=cuda_device,
                                   dtype=td)
@@ -317,7 +379,13 @@ def test_cuda_flash_matches_plain(cuda_device, dtype):
                                     (b, kv, s, hd)))
         views = tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
                       for t in dense)
-        for q, k, v in (dense, views):
+        # rows off the 16-byte width: the CUDA-core body in either dtype
+        wide = torch.randn((b, s, h + 2 * kv, hd + 1), generator=gen,
+                           device=cuda_device, dtype=td)
+        odd = (wide[:, :, :h, 1:].transpose(1, 2),
+               wide[:, :, h:h + kv, :hd].transpose(1, 2),
+               wide[:, :, h + kv:, 1:].transpose(1, 2))
+        for q, k, v in (dense, views, odd):
             for causal, window in ((True, 0), (True, 64), (False, 0)):
                 _check_cuda_flash(q, k, v, causal, window, dtype)
 
@@ -326,7 +394,8 @@ def _check_cuda_flash(q, k, v, causal, window, dtype):
     want = tref.ref_attention(q, k, v, causal=causal, window=window)
     before = tflash.tc_launch_count
     got = tops.flash_attention(q, k, v, causal=causal, window=window)
-    assert tflash.tc_launch_count - before == (dtype == "bfloat16")
+    assert tflash.tc_launch_count - before == (
+        tflash.tc_route(q, k, v) == tflash.TC)
     torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
     if dtype == "bfloat16":             # the previous CUDA-core body
         got = tflash.cuda_flash_attention(q, k, v, causal=causal,
@@ -339,21 +408,38 @@ def _check_cuda_flash(q, k, v, causal, window, dtype):
 def test_cuda_decode_matches_plain(cuda_device, dtype):
     td = DTYPES[dtype][1]
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    for b, w, kv, h, hd in ((3, 1024, 2, 8, 128), (2, 512, 32, 32, 112)):
+    for b, w, kv, h, hd in ((3, 1024, 2, 8, 128), (2, 512, 32, 32, 112),
+                            (2, 300, 8, 96, 192), (1, 200, 1, 40, 64)):
         _check_cuda_decode(cuda_device, gen, td, dtype, b, w, kv, h, hd)
 
 
 def _check_cuda_decode(cuda_device, gen, td, dtype, b, w, kv, h, hd):
+    """The split kernel on the model's cache views and on views off the
+    16-byte width, the previous body on the aligned ones; a batch row of
+    length 0 gives zeros (the plain version averages V there)."""
     cache_k = torch.randn((b, w, kv, hd), generator=gen, device=cuda_device,
                           dtype=td)
     cache_v = torch.randn((b, w, kv, hd), generator=gen, device=cuda_device,
                           dtype=td)
+    wide = torch.randn((b, w, kv, hd + 1), generator=gen, device=cuda_device,
+                       dtype=td)
     q = torch.randn((b, h, hd), generator=gen, device=cuda_device, dtype=td)
-    for length in (1, 31, 32, 33, w // 2 - 12, w):
-        lengths = torch.full((b,), length, dtype=torch.int32,
-                             device=cuda_device)
-        got = tops.decode_attention(q, cache_k.transpose(1, 2),
-                                    cache_v.transpose(1, 2), lengths)
-        want = tref.ref_decode_attention(q, cache_k.transpose(1, 2),
-                                         cache_v.transpose(1, 2), lengths)
-        torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    for aligned, kc, vc in ((True, cache_k, cache_v),
+                            (False, wide[..., :hd], wide[..., 1:])):
+        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        for length in (0, 1, 31, 32, 33, 65, w // 2 - 12, w):
+            lengths = torch.full((b,), length, dtype=torch.int32,
+                                 device=cuda_device)
+            lengths[-1] = min(length + 7, w)
+            want = tref.ref_decode_attention(q, kt, vt, lengths)
+            got = tops.decode_attention(q, kt, vt, lengths)
+            runs = [got]
+            if aligned:
+                runs.append(tdecode.cuda_decode_attention(
+                    q, kt, vt, lengths, _route=tdecode.PREVIOUS))
+            for got in runs:
+                empty = lengths == 0
+                assert not bool(got[empty].any())
+                torch.testing.assert_close(got[~empty].float(),
+                                           want[~empty].float(),
+                                           **_tol(dtype))

@@ -9,10 +9,17 @@ JAX ``run_fleet`` on the same signals.
   windows, under GEMS-A;
 * ``partition`` — its windows moved inside a short horizon, so a link
   partition (``link_up``) and an edge crash (``edge_up``) both fire, with
-  peer offload on.
+  peer offload on;
+* ``hetero-edges`` (edge speed factors, so ``load_mult`` ≠ 1),
+  ``duration-jitter`` and ``heavy-tail`` (stochastic per-(tick, model)
+  execution durations, so ``exec_jit`` ≠ 1), each for 20 s under DEMS,
+  GEMS-A and DEMS-COOP: products of a duration and a factor that is not
+  1 are where XLA's fused multiply-add and the port's separate rounding
+  can part, so a counter flipped by an ulp shows here.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -39,21 +46,32 @@ def _brownout_short():
                  ramp_ms=3_000.0),)))
 
 
+# name → (spec maker, policy, the signal that must differ from 1.0
+# somewhere in the horizon, or None)
 CASES = {
     "cloud-crunch": (lambda: get("cloud-crunch", duration_ms=12_000.0),
-                     "DEMS"),
-    "brownout": (_brownout_short, "GEMS-A"),
-    "partition": (_partition_short, "DEMS-COOP"),
+                     "DEMS", None),
+    "brownout": (_brownout_short, "GEMS-A", None),
+    "partition": (_partition_short, "DEMS-COOP", None),
 }
+for _scenario, _factor in (("hetero-edges", "load_mult"),
+                           ("duration-jitter", "exec_jit"),
+                           ("heavy-tail", "exec_jit")):
+    for _policy in ("DEMS", "GEMS-A", "DEMS-COOP"):
+        CASES[f"{_scenario}-{_policy}"] = (
+            lambda s=_scenario: get(s, duration_ms=20_000.0), _policy,
+            _factor)
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_scenario_matches_jax(name):
-    make, policy = CASES[name]
+    make, policy, factor = CASES[name]
     spec = make()
     sig = compile_fleet(spec, 25.0)
     got, want = run_pair(spec.models, policy, sig,
                          cloud_slots=spec.cloud_concurrency)
+    if factor is not None:
+        assert (np.asarray(getattr(sig, factor)) != 1.0).any(), factor
     assert_states_match(got, want)
     if name == "partition":
         assert not bool(sig.link_up.all()) and not bool(sig.edge_up.all())

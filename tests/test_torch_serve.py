@@ -61,6 +61,32 @@ def test_serve_engine_gems_windows():
     assert snap["per_model"]["HV"]["generated"] == st.generated
 
 
+@pytest.mark.parametrize("arch", ["granite-3-2b", "xlstm-1.3b",
+                                  "zamba2-7b", "qwen3-moe-30b-a3b"])
+def test_servable_model_on_cpu_is_the_eager_forward(arch):
+    """On the CPU, which the caller asked for, ``run()`` is the eager
+    forward (no CUDA graph): its logits equal a forward of the same model,
+    weights and tokens built from the same seed, for each served family
+    (dense, ssm, hybrid, moe)."""
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(
+        reduced(ARCHS[arch], n_layers=2, d_model=128, vocab=512),
+        attn_impl="kernel")
+    prof = TT.ModelProfile(name="M", beta=100, deadline=400.0, t_edge=20.0,
+                           t_cloud=60.0, cost_edge=1, cost_cloud=25,
+                           qoe_beta=50.0, qoe_alpha=0.8, qoe_window=2_000.0)
+    sm = ServableModel.from_arch(prof, cfg, batch=1, seq=16, seed=3,
+                                 device="cpu")
+    assert sm.graph is None
+    model = Model(cfg, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    params = model.init(gen)
+    tokens = torch.randint(0, cfg.vocab, (1, 16), generator=gen)
+    want = model.forward(params, {"tokens": tokens})[0]
+    first, second = sm.run(), sm.run()
+    assert torch.equal(first, want) and torch.equal(second, want)
+
+
 def test_launcher_builds_roles_and_serves_on_cpu(capsys):
     """The launcher's three roles (HV starcoder2, DEV granite, BP xLSTM) at
     the JAX launcher's reduced size, through the kernel path's dispatch."""
