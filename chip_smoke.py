@@ -20,7 +20,9 @@ flash decode, RMSNorm, selective scan, MoE grouped GEMM) are built from
 started together.  Flash attention and the grouped GEMM have two bodies:
 f32 on the CUDA cores, bf16 on the tensor cores (``mma.sync`` fed by
 ``cp.async``); the earlier CUDA-core bf16 body is checked and timed
-beside it as ``previous``.  Flash decode is a split-KV kernel (bf16 on
+beside it as ``previous``.  So has the selective scan: f32 sequential
+on the CUDA cores, bf16 chunked (SSD) on the tensor cores; its earlier
+sequential bf16 body is checked and timed beside it as ``previous``.  Flash decode is a split-KV kernel (bf16 on
 the tensor cores); its earlier one-block-per-(b, h) body is checked and
 timed beside it as ``previous``.  Phases, each printed on
 its own line and each failing the script (non-zero exit) on error:
@@ -34,7 +36,11 @@ its own line and each failing the script (non-zero exit) on error:
    1, W and off the slices, bf16 flash also over every hd × S 1-512 ×
    band × MHA/GQA/MQA;
    RMSNorm (f32 1e-5, bf16 2e-2) and the selective scan (f32 2e-4, bf16
-   2e-2) on the kernel tests' shapes and the zamba2 path's views; the
+   2e-2) on the kernel tests' shapes and the zamba2 path's views (the
+   scan also on ragged chunks, S up to 512, N and P 128, B/C per head,
+   x at a zero head stride and views off the 16-byte width, which take
+   the sequential body; every other bf16 case on both bodies, and the
+   chunked one held to the emulation of its arithmetic); the
    grouped GEMM (f32 1e-4, bf16 3e-2 against f32) on the kernel tests'
    sweep, ragged T, the qwen3-moe path's shapes and 0-130 rows an
    expert, with the rows that no expert owns exactly zero; every bf16
@@ -54,9 +60,9 @@ its own line and each failing the script (non-zero exit) on error:
    ``set_sync_debug_mode("error")``, capture, replays), p95-calibrated,
    under GEMS for 15 s; launches = (warm forward + capture) × the path,
    replays = the forwards run, one replay == an eager forward bitwise
-   (here and in phases 7, 13, 16 and 18 every bf16 flash and GEMM launch
-   must have taken the tensor cores; in the f32 goldens 5, 12 and 15
-   none);
+   (here and in phases 7, 13, 16 and 18 every bf16 flash, GEMM and scan
+   launch must have taken the tensor cores; in the f32 goldens 5, 12 and
+   15 none);
 7. decode (decode_attention's main path): granite-3-2b, bf16, batch 8,
    a 512-token prompt, 64 greedy steps, against ``attn_impl="ref"``;
 8. attention kernel times at the serve and decode shapes (granite,
@@ -75,9 +81,11 @@ its own line and each failing the script (non-zero exit) on error:
     path's exactly): zamba2-7b at 81 layers, bf16, ``"kernel"`` —
     ``ServableModel.from_arch`` (a CUDA graph) with ``probe_p95``, a 10 s
     GEMS stream, then a 128-token prompt and 32 greedy steps against
-    ``"ref"`` and f32;
+    ``"ref"`` and f32; after the counts are read, the served forward
+    captured once with each bf16 scan body (chunked, previous) and both
+    timed in this call (p95 and the busy ms of one replay);
 14. the zamba2 path's kernel times: RMSNorm beside
-    ``torch.nn.functional.rms_norm``, the selective scan, and the two
+    ``torch.nn.functional.rms_norm``, the selective scan and the two
     attention kernels at hd 112 (each beside its previous body);
 15. moe golden: qwen3-moe-30b-a3b at full width, 2 layers, f32 — forward
     on (B 2, S 128) (capacity 21: pairs drop), prefill and teacher-forced
@@ -115,6 +123,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -550,10 +559,11 @@ def reset_model_counts() -> None:
 
 
 def tc_counts() -> dict:
-    """The tensor-core launches of the two kernels that have that route."""
-    from repro_torch.kernels import flash_attention, moe_gemm
+    """The tensor-core launches of the three kernels that have that route
+    (the scan's is its chunked body)."""
+    from repro_torch.kernels import flash_attention, moe_gemm, ssm_scan
     return {m.KERNEL: m.tc_launch_count for m in (flash_attention,
-                                                 moe_gemm)}
+                                                 moe_gemm, ssm_scan)}
 
 
 def check_launches(what: str, got: dict, want: dict) -> None:
@@ -563,8 +573,9 @@ def check_launches(what: str, got: dict, want: dict) -> None:
 
 
 def check_tc(what: str, launches: dict, tc: dict, bf16: bool) -> None:
-    """On a bf16 path every flash and moe launch took the tensor-core
-    route; on an f32 one none did (the f32 goldens need the CUDA cores)."""
+    """On a bf16 path every flash, moe and scan launch took the
+    tensor-core route (the scan's chunked body); on an f32 one none did
+    (the f32 goldens need the CUDA cores)."""
     want = {k: launches[k] if bf16 else 0 for k in tc}
     if tc != want:
         fail(f"{what}: tensor-core launches {json.dumps(tc)}, want "
@@ -942,7 +953,9 @@ def phase_hybrid(dev) -> dict:
     81 layers, bf16, ``attn_impl="kernel"``): served as one role by
     :func:`serve_one_role`, then greedy decoding held against the plain
     and f32 paths.  Every model kernel's launches over the phase must
-    equal the path's exactly; returns them."""
+    equal the path's exactly; returns them.  Then, after those counts are
+    read, :func:`scan_bodies_on_path` times the served forward with each
+    bf16 scan body."""
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models.model import Model
@@ -970,8 +983,70 @@ def phase_hybrid(dev) -> dict:
         f"{forwards} eager forwards and captures (the graph's replays "
         f"launch nothing through the wrappers), 1 prefill, {z['steps']} "
         f"steps × the path's per-call counts; every flash launch on the "
-        f"tensor cores")
+        f"tensor cores, every ssm_scan launch ({serve_tc['ssm_scan']} + "
+        f"{r['tc']['ssm_scan']}) on the chunked tensor-core body")
+    del params, prompt
+    torch.cuda.empty_cache()
+    scan_bodies_on_path(dev, cfg, z)
     return launches
+
+
+def scan_bodies_on_path(dev, cfg, z: dict) -> None:
+    """The served zamba2-7b forward of phase 13 (``from_arch``'s weights
+    and tokens: seed 0, (B 1, S ``z["seq"]``)) captured twice as a
+    :class:`GraphForward` on one set of weights: with the route rule as it
+    stands (every bf16 scan on the chunked body) and with
+    ``SS.scan_route`` patched, for that capture only, to send every scan
+    to the previous sequential body.  Then, in the order chunked,
+    previous, previous, chunked, each graph's ``probe_p95`` and the device
+    busy ms of one profiled replay: the two bodies end to end in one
+    call.  Launches made here are not the path's (phase 13's counts are
+    read before); each capture must have taken the body it names."""
+    import torch
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import GraphForward
+    model = Model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    b = {"tokens": torch.randint(0, cfg.vocab, (1, z["seq"]), generator=gen,
+                                 device=dev)}
+
+    def fwd():
+        return model.forward(params, b)[0]
+
+    graphs = {}
+    for name in ("chunked", "previous"):
+        n0, tc0 = SS.launch_count, SS.tc_launch_count
+        rule = SS.scan_route
+        if name == "previous":
+            SS.scan_route = lambda x, bmat, cmat: SS.SEQ
+        try:
+            graphs[name] = GraphForward(fwd, dev)
+        finally:
+            SS.scan_route = rule
+        n, tc = SS.launch_count - n0, SS.tc_launch_count - tc0
+        if n == 0 or tc != (n if name == "chunked" else 0):
+            fail(f"phase13 {name} capture: {n} scan launches, {tc} on the "
+                 f"chunked body")
+    rows = []
+    for name in ("chunked", "previous", "previous", "chunked"):
+        g = graphs[name]
+        t95 = launch.probe_p95(types.SimpleNamespace(run=g))
+        n_k, busy, wall = profile_call(g)
+        rows.append(f"{name} p95 {t95:.3f} ms, busy {busy:.3f} ms of "
+                    f"{wall:.3f} ms wall ({n_k} kernels)")
+    lc, lp = graphs["chunked"]().float(), graphs["previous"]().float()
+    if not bool(torch.isfinite(lc).all() and torch.isfinite(lp).all()):
+        fail("phase13: a scan body's logits are not finite")
+    rel = float((lc - lp).pow(2).mean().sqrt() / lc.pow(2).mean().sqrt())
+    say(f"phase13 zamba2-7b served forward by scan body, in this call "
+        f"(CUDA-graph replays, order chunked, previous, previous, "
+        f"chunked): {'; '.join(rows)}; logits relative RMS chunked vs "
+        f"previous {rel:.4g}")
+    del graphs, params, model
+    torch.cuda.empty_cache()
 
 
 def _bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
@@ -1110,7 +1185,8 @@ def kernel_times(dev) -> dict:
     bf16, as phase 8 times the others: ``rmsnorm`` on (64, 3584) beside
     ``torch.nn.functional.rms_norm`` (timed only; the port never calls
     it), ``ssm_scan`` on the model's views at (B 1, S 64, H 112, P = N =
-    64) (no one PyTorch call computes it), flash attention at (1, 32, 64,
+    64) beside its previous sequential body (no one PyTorch call computes
+    it), flash attention at (1, 32, 64,
     112) beside its previous CUDA-core body, and flash decode at (1, 32,
     W 160, 112) with 144 valid rows, both beside
     ``scaled_dot_product_attention``."""
@@ -1140,17 +1216,21 @@ def kernel_times(dev) -> dict:
     b, s, h, p, n = 1, 64, 112, 64, 64
     views = scan_views(dev, bf, b, s, h, p, n, seed=5)
     row = {"kernel": graph_ms(lambda: SS.cuda_ssm_scan(*views)),
+           "previous": graph_ms(lambda: SS.cuda_ssm_scan(
+               *views, _route=SS.SEQ)),
            "plain": graph_ms(lambda: ref.ref_selective_scan(*views),
                              iters=5),
            "library": None}
     # x, dt, B, C (shared by the heads: read once), a, y and the final
-    # state, each once; 5 f32 operations per state entry per step
+    # state, each once; the chunked body's operations, its f32 ones
+    # counted in tensor-core time at the ratio of the two rates
     nbytes = 2 * (2 * b * h * s * p + b * h * s + 2 * b * s * n
                   + b * h * p * n) + 4 * h
-    row["bound"], row["bound_by"] = _bound(nbytes, 5 * b * h * s * p * n,
-                                           F32_OPS_PER_S)
+    mma, f32 = scan_chunked_ops(b, h, s, p, n)
+    row["bound"], row["bound_by"] = _bound(
+        nbytes, mma + f32 * BF16_OPS_PER_S / F32_OPS_PER_S, BF16_OPS_PER_S)
     row["profile_us"] = _prof_us(lambda: SS.cuda_ssm_scan(*views),
-                                 "ssm_scan_kernel")
+                                 "ssm_chunk_kernel")
     out["ssm_scan (B1, S64, H112, P64, N64)"] = row
 
     b, h, s, hd = 1, 32, 64, 112
@@ -1173,6 +1253,25 @@ def kernel_times(dev) -> dict:
                                                    144)
     say_times(14, out)
     return out
+
+
+def scan_chunked_ops(b, h, s, p, n, q: int = 64) -> tuple[int, int]:
+    """(tensor-core FLOPs, f32 operations) of the chunked scan body at
+    (B, S, H, P, N) with B and C shared by the heads, chunk by chunk of
+    ``q`` steps (the last one ragged): G = C·Bᵀ on the causal pairs once a
+    batch row; a head's M·x on the causal pairs and its (x∘w)ᵀ·B twice
+    each (the f32 operand's bf16 hi and lo), its carried-state term
+    (C∘exp(cum))·Sᵀ three times, after the first chunk; M's exponent,
+    difference and two products in f32 on the causal pairs."""
+    mma = f32 = 0
+    for t0 in range(0, s, q):
+        ln = min(q, s - t0)
+        pairs = ln * (ln + 1) // 2
+        mma += b * 2 * pairs * n
+        mma += b * h * (2 * 2 * pairs * p + 2 * 2 * ln * p * n
+                        + (2 * 3 * ln * n * p if t0 else 0))
+        f32 += b * h * 4 * pairs
+    return mma, f32
 
 
 def scan_views(dev, dtype, b, s, h, p, n, seed):
@@ -1201,11 +1300,21 @@ def check_norm_scan_kernels(dev) -> tuple[dict, dict]:
     (4,256,64,64), (2,128,32,16), (8,512,64,64) and the carry case), a D
     that is not a multiple of 8, strided and unaligned rows, and the
     zamba2 path's shapes through the model's views (RMSNorm on
-    (1|64|128|512, 3584); the scan at S 64, 128 and 256 with B/C at a zero
-    head stride).  RMSNorm is also held to the model's plain ``rms_norm``
-    in f32.  Returns ({kernel: {dtype: max |err|}}, case counts)."""
+    (1|64|128|512, 3584); the scan at S 64, 100, 128, 256 and 512 with B/C
+    at a zero head stride).  The scan also runs ragged chunks (S 37, 70,
+    100, 130), N 128, P 128, B/C per head, x at a zero head stride, views
+    off the 16-byte width and P, N off multiples of 8; every bf16 case on
+    the 16-byte width must take the chunked tensor-core body and also runs
+    the previous sequential body (key "bfloat16 previous"), the two off it
+    must take the sequential body, and at the zamba2 views of S ≤ 128 the
+    chunked
+    body is also held to :func:`ref.ref_chunked_scan`, the emulation of
+    its arithmetic.  RMSNorm is also held to the model's plain
+    ``rms_norm`` in f32.  Returns ({kernel: {key: max |err|}}, case
+    counts)."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssm_scan as SS
     from repro_torch.models import layers as L
     gen = torch.Generator(device=dev).manual_seed(20241232)
     errs = {"rmsnorm": {}, "ssm_scan": {}}
@@ -1247,36 +1356,93 @@ def check_norm_scan_kernels(dev) -> tuple[dict, dict]:
                ref.ref_rmsnorm(x, scale), tol, "unaligned rows")
 
         tol = SCAN_TOL[dname]
+
+        def pad8(t):
+            """``t`` copied into a fresh buffer whose last axis is padded
+            with zeros to a multiple of 8: on the 16-byte width."""
+            n = t.shape[-1]
+            out = t.new_zeros(*t.shape[:-1], -(-n // 8) * 8)
+            out[..., :n] = t
+            return out
+
+        def scan(what, args, chunked=True):
+            """The kernel against the plain version on ``args``; a bf16
+            launch must take the chunked tensor-core body where
+            ``chunked``, the sequential one elsewhere.  bf16 also runs the
+            other body: the previous (sequential) one, key "bfloat16
+            previous", beside the chunked one; the chunked one on a copy
+            padded onto the 16-byte width (zero columns of x, B and C add
+            nothing to y or the state) beside the sequential one."""
+            want = ref.ref_selective_scan(*args)
+            tc0 = SS.tc_launch_count
+            bodies = [(dname, ops.ssm_scan(*args))]
+            if td == torch.bfloat16:
+                if SS.tc_launch_count != tc0 + chunked:
+                    fail(f"ssm_scan {what}: a bf16 launch took the "
+                         f"{'sequential' if chunked else 'chunked'} body")
+            if td == torch.bfloat16 and chunked:
+                bodies.append((f"{dname} previous",
+                               SS.cuda_ssm_scan(*args, _route=SS.SEQ)))
+            elif td == torch.bfloat16:
+                x_, dt_, a_, bm_, cm_ = args
+                p_, n_ = x_.shape[-1], bm_.shape[-1]
+                tc0 = SS.tc_launch_count
+                y_, fin_ = SS.cuda_ssm_scan(pad8(x_), dt_, a_, pad8(bm_),
+                                            pad8(cm_))
+                if SS.tc_launch_count != tc0 + 1:
+                    fail(f"ssm_scan {what}: the padded copy missed the "
+                         f"chunked body")
+                bodies.append((dname, (y_[..., :p_], fin_[..., :p_, :n_])))
+            for key, got in bodies:
+                for g_, w_, part in zip(got, want, ("y", "final")):
+                    record("ssm_scan", key, g_, w_, tol, f"{what} {part}")
+            return bodies[0][1]
+
         for (g, s, p, n) in ((4, 256, 64, 64), (2, 128, 32, 16),
                              (8, 512, 64, 64), (3, 37, 64, 64),
-                             (2, 70, 48, 20)):
+                             (2, 70, 48, 20), (2, 100, 64, 64),
+                             (2, 200, 64, 128), (2, 130, 128, 64),
+                             (1, 96, 128, 128)):
             x = rnd(g, s, p)
             dt = torch.nn.functional.softplus(rnd(g, s))
             a = -torch.exp(torch.randn(g, generator=gen, device=dev) * 0.3)
             bm, cm = rnd(g, s, n, scale=0.3), rnd(g, s, n, scale=0.3)
-            want = ref.ref_selective_scan(x, dt, a, bm, cm)
-            for got, w_, part in zip(ops.ssm_scan(x, dt, a, bm, cm), want,
-                                     ("y", "final")):
-                record("ssm_scan", dname, got, w_, tol,
-                       f"{(g, s, p, n)} {part}")
+            scan(f"{(g, s, p, n)}", (x, dt, a, bm, cm),
+                 chunked=p % 8 == n % 8 == 0)
         g, s, p, n = 1, 256, 8, 4                    # the carry case
         ones = dict(device=dev, dtype=td)
         args = (torch.ones(g, s, p, **ones),
                 torch.full((g, s), 1e-3, **ones),
                 torch.full((g,), -0.01, device=dev),
                 torch.ones(g, s, n, **ones), torch.ones(g, s, n, **ones))
-        y, _ = ops.ssm_scan(*args)
-        record("ssm_scan", dname, y, ref.ref_selective_scan(*args)[0], tol,
-               "carry")
+        y, _ = scan("carry", args, chunked=False)      # N 4
         if not float(y[0, -1, 0]) > 0.9 * s * 1e-3 * n:
             fail(f"ssm_scan carry {dname}: y[-1] {float(y[0, -1, 0])}")
-        for (b, s) in ((1, 64), (1, 128), (2, 256)):
+        for (b, s) in ((1, 64), (1, 128), (2, 256), (1, 512), (1, 100)):
             views = scan_views(dev, td, b, s, 112, 64, 64, seed=s)
-            want = ref.ref_selective_scan(*views)
-            for got, w_, part in zip(ops.ssm_scan(*views), want,
-                                     ("y", "final")):
-                record("ssm_scan", dname, got, w_, tol,
-                       f"zamba2 views (B {b}, S {s}) {part}")
+            got = scan(f"zamba2 views (B {b}, S {s})", views)
+            if td == torch.bfloat16 and s <= 128:
+                # the kernel against the emulation of its own arithmetic
+                for g_, w_, part in zip(got, ref.ref_chunked_scan(*views),
+                                        ("y", "final")):
+                    record("ssm_scan", "bfloat16 vs emulation", g_, w_, tol,
+                           f"zamba2 views (B {b}, S {s}) {part}")
+        # B/C per head (a non-zero head stride: G per head), x at a zero
+        # head stride (y keeps P innermost), and views off the 16-byte
+        # width, which take the sequential body: x one element into its
+        # buffer, B/C at an odd row stride, P and N off multiples of 8
+        b, s, h, p, n = 2, 100, 8, 64, 64
+        x, dt, a, bm, cm = scan_views(dev, td, b, s, h, p, n, seed=3)
+        bh, ch = rnd(b, h, s, n), rnd(b, h, s, n)
+        scan("per-head B/C", (x, dt, a, bh, ch))
+        scan("x at a zero head stride",
+             (x[:, :1].expand(x.shape), dt, a, bm, cm))
+        xo = rnd(b, h, s, p + 1)[..., 1:]
+        bo, co = rnd(b, h, s, n + 3)[..., :n], rnd(b, h, s, n + 3)[..., :n]
+        scan("views off the 16-byte width", (xo, dt, a, bo, co),
+             chunked=False)
+        scan("P 60, N 20", (rnd(b, h, s, 60), dt, a, rnd(b, h, s, 20),
+                            rnd(b, h, s, 20)), chunked=False)
     return errs, cases
 
 
@@ -2102,8 +2268,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:23",
         "launches": hybrid["ssm_scan"],
-        "max_abs_err": max(ns_err["ssm_scan"].values()),
-        "ms": scan_t["kernel"], "plain_ms": scan_t["plain"],
+        "max_abs_err": max(ns_err["ssm_scan"][k]
+                           for k in ("float32", "bfloat16")),
+        "ms": scan_t["kernel"], "previous_ms": scan_t["previous"],
+        "plain_ms": scan_t["plain"],
         "bound_ms": scan_t["bound"], "bound_by": scan_t["bound_by"],
         "library_ms": None}, {
         "name": "moe_gemm", "route": "cuda",

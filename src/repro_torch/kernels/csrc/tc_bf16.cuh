@@ -1,6 +1,6 @@
 // Warp-level tensor-core helpers for the bf16 kernels (sm_80 and later,
-// built here for sm_90a): 16-byte cp.async copies into shared memory and
-// their wait groups, ldmatrix (plain and transposed), and
+// built here for sm_90a): 16-byte cp.async copies into shared memory
+// (past L1, or through it) and their wait groups, ldmatrix (plain and transposed), and
 // mma.sync.m16n8k16 with bf16 inputs and f32 accumulators.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
@@ -26,6 +26,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+// The same through L1 (cp.async.ca): for tiles that every block reads,
+// so that blocks resident on one SM fetch them from L2 once.
+__device__ __forceinline__ void cp_async16_ca(void* dst, const void* src,
+                                              bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(full ? 16 : 0));
 }

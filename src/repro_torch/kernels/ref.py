@@ -5,7 +5,10 @@ bit for bit for the selection kernel, and up to the order of its f32
 sums for the attention, RMSNorm, selective-scan and grouped-GEMM kernels
 (the last on rows that some expert owns: see :func:`ref_moe_gemm`).  The CPU
 path runs these; on the card they are the yardstick the kernels are
-compared with.
+compared with.  :func:`ref_chunked_scan` is of another kind: it repeats
+the arithmetic of the scan kernel's chunked bf16 body, rounding points
+included, so that the CPU tests can hold that arithmetic to the scan's
+tolerance; no path runs it.
 """
 from __future__ import annotations
 
@@ -117,6 +120,81 @@ def ref_selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             xf[:, t, :, None] * bf[:, t, None, :])
         ys.append(torch.einsum("gpn,gn->gp", state, cf[:, t]))
     y = torch.stack(ys, 1) if ys else xf.new_zeros((xf.shape[0], 0, p))
+    return (y.reshape(*lead, s, p).to(x.dtype),
+            state.reshape(*lead, p, n).to(x.dtype))
+
+
+SCAN_CHUNK = 64          # the chunked scan body's chunk length (kQ)
+
+
+def _bf16_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``v`` (f32) as the bf16 pair hi = bf16(v), lo = bf16(v − hi), both
+    returned in f32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both f32 operands split into bf16 hi + lo and the three
+    leading products summed in f32: hi·hi + lo·hi + hi·lo."""
+    ah, al = _bf16_split(a)
+    bh, bl = _bf16_split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _split_lhs_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with the f32 ``a`` split into bf16 hi + lo and ``b`` taken as
+    given (exact in bf16 on the kernel's path): hi·b + lo·b."""
+    ah, al = _bf16_split(a)
+    return al @ b + ah @ b
+
+
+def ref_chunked_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                     bmat: torch.Tensor, cmat: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked (SSD) body of the scan kernel (``csrc/ssm_scan.cu``,
+    routes 1 and 2) in plain PyTorch: :func:`ref_selective_scan`'s
+    arguments and results, computed as the kernel computes them — chunks
+    of ``SCAN_CHUNK`` steps; in each, cum_t = Σ_{s≤t} a·dt_s (f32),
+    G = C·Bᵀ on the inputs as given, M = G ∘ exp(cum_t − cum_s) ∘ dt_s
+    for s ≤ t, y = M·x + (C ∘ exp(cum_t))·S_prevᵀ, and the state
+    S = exp(cum_last)·S_prev + (x ∘ w)ᵀ·B with w_s = exp(cum_last −
+    cum_s)·dt_s, carried in f32.  Every f32 operand of a product is split
+    into bf16 hi + lo (M, x ∘ w, C ∘ exp(cum_t), S_prev); x and B are
+    taken as given (exact in bf16 on the kernel's path).  y and the final
+    state are rounded once to ``x.dtype``.  Only the tests and
+    ``chip_smoke.py`` call it: it shows the rounding points keep the
+    kernel's arithmetic within the scan's tolerance."""
+    lead, (s, p) = x.shape[:-2], x.shape[-2:]
+    n = bmat.shape[-1]
+    xf = x.reshape(-1, s, p).float()
+    dtf = dt.reshape(-1, s).float()
+    af = a.reshape(-1).float()
+    bf = bmat.reshape(-1, s, n).float()
+    cf = cmat.reshape(-1, s, n).float()
+    state = torch.zeros((xf.shape[0], p, n), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t0 in range(0, s, SCAN_CHUNK):
+        xc, dc = xf[:, t0:t0 + SCAN_CHUNK], dtf[:, t0:t0 + SCAN_CHUNK]
+        bc, cc = bf[:, t0:t0 + SCAN_CHUNK], cf[:, t0:t0 + SCAN_CHUNK]
+        q = xc.shape[1]
+        cum = torch.cumsum(af[:, None] * dc, dim=1)              # (G, q)
+        last = cum[:, -1:]
+        causal = torch.ones(q, q, dtype=torch.bool,
+                            device=x.device).tril()
+        diff = torch.where(causal, cum[:, :, None] - cum[:, None, :], 0.0)
+        m = torch.where(causal, (cc @ bc.transpose(1, 2)) * dc[:, None, :]
+                        * torch.exp(diff), 0.0)
+        y = _split_lhs_matmul(m, xc)
+        if t0 > 0:
+            y = y + _split_matmul(cc * torch.exp(cum)[..., None],
+                                  state.transpose(1, 2))
+        ys.append(y)
+        w = torch.exp(last - cum) * dc
+        state = state * torch.exp(last)[..., None] + _split_lhs_matmul(
+            (xc * w[..., None]).transpose(1, 2), bc)
+    y = torch.cat(ys, 1) if ys else xf.new_zeros((xf.shape[0], 0, p))
     return (y.reshape(*lead, s, p).to(x.dtype),
             state.reshape(*lead, p, n).to(x.dtype))
 
