@@ -24,18 +24,28 @@ beside it as ``previous``.  So has the selective scan: f32 sequential
 on the CUDA cores, bf16 chunked (SSD) on the tensor cores; its earlier
 sequential bf16 body is checked and timed beside it as ``previous``.  Flash decode is a split-KV kernel (bf16 on
 the tensor cores); its earlier one-block-per-(b, h) body is checked and
-timed beside it as ``previous``.  Phases, each printed on
-its own line and each failing the script (non-zero exit) on error:
+timed beside it as ``previous``.  RMSNorm keeps a row in registers
+(REGS) for every view on the 16-byte width, and the masked arg-extremum
+folds each entry into one 64-bit key (KEY); each one's earlier body is
+checked and timed beside it as ``previous``, and every timed row stands
+beside the launch floor (a one-element ``fill_``, timed alike).
+Phases, each printed on its own line and each failing the script
+(non-zero exit) on error:
 
 1. device: card name, ``nvidia-smi`` name and power limit, TF32 flags,
    the six kernels built at once, registers per instantiation;
 2. kernels vs their plain PyTorch versions on the card: masked_argext
-   exact; flash attention and flash decode on the kernel tests' sweep
+   exact on both bodies (ties of ±0.0 and enabled scores equal to the
+   fill among the cases), timed at (28, 64), (1, 32), (1, 28) and
+   (1024, 64) beside its previous body and the floor; flash attention and flash decode on the kernel tests' sweep
    and the serve/decode shapes, hd 64, 112, 128 and 192 (f32 1e-5, bf16
    2e-2), views off the 16-byte width, decode lengths 0 (exactly zero),
    1, W and off the slices, bf16 flash also over every hd × S 1-512 ×
    band × MHA/GQA/MQA;
-   RMSNorm (f32 1e-5, bf16 2e-2) and the selective scan (f32 2e-4, bf16
+   RMSNorm (f32 1e-5, bf16 2e-2; every case on the body its plan names,
+   views off the 16-byte width on the previous one, and the previous one
+   too where REGS took the case; the paths' shapes up to (4096, 2048) and
+   (64, 18432)) and the selective scan (f32 2e-4, bf16
    2e-2) on the kernel tests' shapes and the zamba2 path's views (the
    scan also on ragged chunks, S up to 512, N and P 128, B/C per head,
    x at a zero head stride and views off the 16-byte width, which take
@@ -50,8 +60,9 @@ its own line and each failing the script (non-zero exit) on error:
    SOTA2) on the card and on the host, every final-state leaf equal,
    summaries equal to the golden JAX ones;
 4. paper-scale fleet (masked_argext's main path; its launches are read
-   over this phase): DEMS-A, GEMS and DEMS-COOP, 28 edges × 30 s each,
-   each summary equal to its golden JAX entry;
+   over this phase, every one on the key body): DEMS-A, GEMS and
+   DEMS-COOP, 28 edges × 30 s each, each summary equal to its golden JAX
+   entry;
 5. model golden: granite-3-2b at full width, 2 layers, f32 — forward,
    prefill and teacher-forced decode against the JAX reference's numbers;
 6. serve (flash_attention's main path): HV starcoder2-3b, DEV
@@ -62,7 +73,7 @@ its own line and each failing the script (non-zero exit) on error:
    replays = the forwards run, one replay == an eager forward bitwise
    (here and in phases 7, 13, 16 and 18 every bf16 flash, GEMM and scan
    launch must have taken the tensor cores; in the f32 goldens 5, 12 and
-   15 none);
+   15 none; in all of them every rmsnorm launch the REGS body);
 7. decode (decode_attention's main path): granite-3-2b, bf16, batch 8,
    a 512-token prompt, 64 greedy steps, against ``attn_impl="ref"``;
 8. attention kernel times at the serve and decode shapes (granite,
@@ -82,11 +93,17 @@ its own line and each failing the script (non-zero exit) on error:
     ``ServableModel.from_arch`` (a CUDA graph) with ``probe_p95``, a 10 s
     GEMS stream, then a 128-token prompt and 32 greedy steps against
     ``"ref"`` and f32; after the counts are read, the served forward
-    captured once with each bf16 scan body (chunked, previous) and both
-    timed in this call (p95 and the busy ms of one replay);
-14. the zamba2 path's kernel times: RMSNorm beside
-    ``torch.nn.functional.rms_norm``, the selective scan and the two
-    attention kernels at hd 112 (each beside its previous body);
+    captured once with each bf16 scan body (chunked, previous) and once
+    with each rmsnorm body (REGS, previous), each pair timed in this call
+    (order new, previous, previous, new: p95 and the busy ms of one
+    replay);
+14. kernel times: RMSNorm at every path shape (``RMS_SHAPES``, the
+    prefill ones also with inputs that miss the L2) beside its previous
+    body, its plain version, ``torch.nn.functional.rms_norm``, its plan
+    and registers; the zamba2 path's selective scan and the two
+    attention kernels at hd 112 (each beside its previous body); the
+    floor and a one-element ``copy_`` (a launch that loads, then
+    stores);
 15. moe golden: qwen3-moe-30b-a3b at full width, 2 layers, f32 — forward
     on (B 2, S 128) (capacity 21: pairs drop), prefill and teacher-forced
     decode against the JAX reference's numbers;
@@ -116,6 +133,7 @@ imports nothing of the JAX package.  Its last two lines are the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -141,7 +159,7 @@ METRO_MS = 60_000.0
 # alone spread 313-465 s between hosts, and the floor keeps the script
 # inside about 770 s on the slowest
 BUDGET_S = 850.0
-RESERVE_S = 400.0
+RESERVE_S = 440.0
 MIN_METRO_MS = 5_000.0
 SYNC_TICKS = 50
 # the profiler's post-processing takes seconds per traced tick (thousands
@@ -155,6 +173,11 @@ BF16_OPS_PER_S = 989e12          # bf16 dense tensor cores, same sheet
 # tests/test_kernels.py states them: |got - want| <= atol + rtol * |want|
 ATT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# rmsnorm's (rows, D) on the served paths, timed in phase 14: zamba2-7b
+# decode, serve and prefill; granite-3-2b serve, decode and prefill (B 2
+# and B 8 × 512); starcoder2-3b serve; nemotron-4-340b serve
+RMS_SHAPES = ((1, 3584), (64, 3584), (128, 3584), (64, 2048), (8, 2048),
+              (1024, 2048), (4096, 2048), (64, 3072), (64, 18432))
 # the scan sums a state over up to 512 steps in another order than the
 # plain recurrence: tests/test_kernels.py's 2e-4 in f32
 SCAN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -268,6 +291,11 @@ def _short_name(mangled: str) -> str:
             elif mangled[i] == "f":
                 args.append("float")
                 i += 1
+            elif mangled[i] == "S":      # a substitution: this repo's
+                j = mangled.index("_", i)    # templates repeat the last
+                args.append(next((a for a in reversed(args)   # named type
+                                  if not a.isdigit()), "?"))
+                i = j + 1
             elif mangled[i].isdigit():
                 n = re.match(r"\d+", mangled[i:]).group()
                 i += len(n)
@@ -353,6 +381,32 @@ def graph_ms(fn, iters: int = 200, replays: int = 10,
         for _ in range(replays):
             graph.replay()
     return _events_ms(run, iters * replays)
+
+
+def floor_ms() -> float:
+    """The card's launch floor, in ms: a one-element ``fill_`` timed as
+    :func:`graph_ms` times the kernels (200 launches a graph)."""
+    import torch
+    one = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: one.fill_(1.0))
+
+
+def load_floor_ms() -> float:
+    """A launch that loads one element and stores it (a one-element
+    ``copy_``), timed as :func:`floor_ms`: the least a kernel that reads
+    device memory before it writes can take."""
+    import torch
+    src, dst = torch.ones(1, device="cuda"), torch.zeros(1, device="cuda")
+    return graph_ms(lambda: dst.copy_(src))
+
+
+def same_values(got, want) -> bool:
+    """Equal as numbers (+0.0 == -0.0: a reduction's max may return
+    either sign of a tie of zeros), and bit for bit wherever not zero."""
+    import torch
+    nz = want != 0
+    return bool(torch.equal(got, want) and torch.equal(
+        got[nz].view(torch.int32), want[nz].view(torch.int32)))
 
 
 def allclose_err(got, want, tol: float) -> tuple[float, float]:
@@ -559,11 +613,15 @@ def reset_model_counts() -> None:
 
 
 def tc_counts() -> dict:
-    """The tensor-core launches of the three kernels that have that route
-    (the scan's is its chunked body)."""
-    from repro_torch.kernels import flash_attention, moe_gemm, ssm_scan
-    return {m.KERNEL: m.tc_launch_count for m in (flash_attention,
-                                                 moe_gemm, ssm_scan)}
+    """The launches that took each redesigned model kernel's new body:
+    the tensor-core route of flash and moe, the scan's chunked body, and
+    rmsnorm's register-resident body (REGS)."""
+    from repro_torch.kernels import flash_attention, moe_gemm, rmsnorm
+    from repro_torch.kernels import ssm_scan
+    counts = {m.KERNEL: m.tc_launch_count for m in (flash_attention,
+                                                    moe_gemm, ssm_scan)}
+    counts[rmsnorm.KERNEL] = rmsnorm.reg_launch_count
+    return counts
 
 
 def check_launches(what: str, got: dict, want: dict) -> None:
@@ -575,11 +633,14 @@ def check_launches(what: str, got: dict, want: dict) -> None:
 def check_tc(what: str, launches: dict, tc: dict, bf16: bool) -> None:
     """On a bf16 path every flash, moe and scan launch took the
     tensor-core route (the scan's chunked body); on an f32 one none did
-    (the f32 goldens need the CUDA cores)."""
-    want = {k: launches[k] if bf16 else 0 for k in tc}
+    (the f32 goldens need the CUDA cores).  Every rmsnorm launch, in
+    either dtype, took the REGS body: every norm of the paths is on the
+    16-byte width."""
+    want = {k: launches[k] if bf16 or k == "rmsnorm" else 0 for k in tc}
     if tc != want:
-        fail(f"{what}: tensor-core launches {json.dumps(tc)}, want "
-             f"{json.dumps(want)} of {json.dumps(launches)}")
+        fail(f"{what}: new-body launches (tensor cores; rmsnorm REGS) "
+             f"{json.dumps(tc)}, want {json.dumps(want)} of "
+             f"{json.dumps(launches)}")
 
 
 def phase_golden(dev, path: str, phase: int) -> None:
@@ -660,7 +721,7 @@ def phase_golden(dev, path: str, phase: int) -> None:
         f"{worst['value']:.3e} (tol {GOLD_TOL}), max |Δ checksum| "
         f"{worst['checksum']:.3e} (tol {GOLD_SUM_TOL}); kernel launches "
         f"{json.dumps(launches)} (= the path's, none on the tensor "
-        f"cores); "
+        f"cores, every rmsnorm on the REGS body); "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -954,8 +1015,8 @@ def phase_hybrid(dev) -> dict:
     :func:`serve_one_role`, then greedy decoding held against the plain
     and f32 paths.  Every model kernel's launches over the phase must
     equal the path's exactly; returns them.  Then, after those counts are
-    read, :func:`scan_bodies_on_path` times the served forward with each
-    bf16 scan body."""
+    read, :func:`bodies_on_path` times the served forward with each bf16
+    scan body and with each rmsnorm body."""
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models.model import Model
@@ -984,26 +1045,41 @@ def phase_hybrid(dev) -> dict:
         f"launch nothing through the wrappers), 1 prefill, {z['steps']} "
         f"steps × the path's per-call counts; every flash launch on the "
         f"tensor cores, every ssm_scan launch ({serve_tc['ssm_scan']} + "
-        f"{r['tc']['ssm_scan']}) on the chunked tensor-core body")
+        f"{r['tc']['ssm_scan']}) on the chunked tensor-core body, every "
+        f"rmsnorm launch ({serve_tc['rmsnorm']} + {r['tc']['rmsnorm']}) on "
+        f"the REGS body")
     del params, prompt
     torch.cuda.empty_cache()
-    scan_bodies_on_path(dev, cfg, z)
+    bodies_on_path(dev, cfg, z, ("ssm_scan", "rmsnorm"))
     return launches
 
 
-def scan_bodies_on_path(dev, cfg, z: dict) -> None:
-    """The served zamba2-7b forward of phase 13 (``from_arch``'s weights
-    and tokens: seed 0, (B 1, S ``z["seq"]``)) captured twice as a
-    :class:`GraphForward` on one set of weights: with the route rule as it
-    stands (every bf16 scan on the chunked body) and with
-    ``SS.scan_route`` patched, for that capture only, to send every scan
-    to the previous sequential body.  Then, in the order chunked,
-    previous, previous, chunked, each graph's ``probe_p95`` and the device
-    busy ms of one profiled replay: the two bodies end to end in one
-    call.  Launches made here are not the path's (phase 13's counts are
-    read before); each capture must have taken the body it names."""
-    import torch
+def body_switch(kernel: str):
+    """How phase 13 sends every launch of a redesigned model kernel to
+    its previous body for one capture: (module, the name of its route
+    rule, a rule that names the previous body, the count of the new
+    body's launches, the new and previous bodies' names)."""
+    from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssm_scan as SS
+    return {"ssm_scan": (SS, "scan_route", lambda *a: SS.SEQ,
+                         "tc_launch_count", "chunked", "previous"),
+            "rmsnorm": (RN, "norm_plan", lambda *a: RN.PREVIOUS_PLAN,
+                        "reg_launch_count", "regs", "previous")}[kernel]
+
+
+def bodies_on_path(dev, cfg, z: dict, kernels: tuple) -> None:
+    """The served zamba2-7b forward of phase 13 (``from_arch``'s weights
+    and tokens: seed 0, (B 1, S ``z["seq"]``)), for each of ``kernels``
+    captured twice as a :class:`GraphForward` on one set of weights: with
+    the kernel's route rule as it stands (every launch on the new body)
+    and with that rule patched, for that capture only, to send every
+    launch to the previous body (:func:`body_switch`).  Then, in the
+    order new, previous, previous, new, each graph's ``probe_p95`` and
+    the device busy ms of one profiled replay: the two bodies end to end
+    in one call.  Launches made here are not the path's (phase 13's
+    counts are read before); each capture must have taken the body it
+    names."""
+    import torch
     from repro_torch.launch import serve as launch
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import GraphForward
@@ -1016,36 +1092,40 @@ def scan_bodies_on_path(dev, cfg, z: dict) -> None:
     def fwd():
         return model.forward(params, b)[0]
 
-    graphs = {}
-    for name in ("chunked", "previous"):
-        n0, tc0 = SS.launch_count, SS.tc_launch_count
-        rule = SS.scan_route
-        if name == "previous":
-            SS.scan_route = lambda x, bmat, cmat: SS.SEQ
-        try:
-            graphs[name] = GraphForward(fwd, dev)
-        finally:
-            SS.scan_route = rule
-        n, tc = SS.launch_count - n0, SS.tc_launch_count - tc0
-        if n == 0 or tc != (n if name == "chunked" else 0):
-            fail(f"phase13 {name} capture: {n} scan launches, {tc} on the "
-                 f"chunked body")
-    rows = []
-    for name in ("chunked", "previous", "previous", "chunked"):
-        g = graphs[name]
-        t95 = launch.probe_p95(types.SimpleNamespace(run=g))
-        n_k, busy, wall = profile_call(g)
-        rows.append(f"{name} p95 {t95:.3f} ms, busy {busy:.3f} ms of "
-                    f"{wall:.3f} ms wall ({n_k} kernels)")
-    lc, lp = graphs["chunked"]().float(), graphs["previous"]().float()
-    if not bool(torch.isfinite(lc).all() and torch.isfinite(lp).all()):
-        fail("phase13: a scan body's logits are not finite")
-    rel = float((lc - lp).pow(2).mean().sqrt() / lc.pow(2).mean().sqrt())
-    say(f"phase13 zamba2-7b served forward by scan body, in this call "
-        f"(CUDA-graph replays, order chunked, previous, previous, "
-        f"chunked): {'; '.join(rows)}; logits relative RMS chunked vs "
-        f"previous {rel:.4g}")
-    del graphs, params, model
+    for kernel in kernels:
+        mod, rule_name, previous_rule, count, new, old = body_switch(kernel)
+        graphs = {}
+        for name in (new, old):
+            n0, k0 = mod.launch_count, getattr(mod, count)
+            rule = getattr(mod, rule_name)
+            if name == old:
+                setattr(mod, rule_name, previous_rule)
+            try:
+                graphs[name] = GraphForward(fwd, dev)
+            finally:
+                setattr(mod, rule_name, rule)
+            n, k = mod.launch_count - n0, getattr(mod, count) - k0
+            if n == 0 or k != (n if name == new else 0):
+                fail(f"phase13 {kernel} {name} capture: {n} launches, {k} "
+                     f"on the {new} body")
+        rows = []
+        for name in (new, old, old, new):
+            g = graphs[name]
+            t95 = launch.probe_p95(types.SimpleNamespace(run=g))
+            n_k, busy, wall = profile_call(g)
+            rows.append(f"{name} p95 {t95:.3f} ms, busy {busy:.3f} ms of "
+                        f"{wall:.3f} ms wall ({n_k} kernels)")
+        ln, lo = graphs[new]().float(), graphs[old]().float()
+        if not bool(torch.isfinite(ln).all() and torch.isfinite(lo).all()):
+            fail(f"phase13: a {kernel} body's logits are not finite")
+        rel = float((ln - lo).pow(2).mean().sqrt() / ln.pow(2).mean().sqrt())
+        say(f"phase13 zamba2-7b served forward by {kernel} body, in this "
+            f"call (CUDA-graph replays, order {new}, {old}, {old}, {new}): "
+            f"{'; '.join(rows)}; logits relative RMS {new} vs {old} "
+            f"{rel:.4g}")
+        del graphs
+        torch.cuda.empty_cache()
+    del params, model
     torch.cuda.empty_cache()
 
 
@@ -1132,6 +1212,7 @@ def phase_times(dev) -> dict:
     from repro_torch.kernels import ref
     bf = torch.bfloat16
     out = {}
+    floor = floor_ms()
 
     for key, (b, h, kv, s, hd) in (("flash serve granite", (1, 32, 8, 64, 64)),
                                    ("flash serve starcoder2",
@@ -1155,6 +1236,7 @@ def phase_times(dev) -> dict:
         row["bound"], row["bound_by"] = _bound(nbytes, flops, BF16_OPS_PER_S)
         row["profile_us"] = _prof_us(
             lambda: FA.cuda_flash_attention(q, k, v), "flash_tc_kernel")
+        row["floor"] = floor
         out[key] = row
 
     for key, shape in (("decode B8 W1024 L576", (8, 32, 8, 1024, 64, 576)),
@@ -1163,28 +1245,37 @@ def phase_times(dev) -> dict:
                        ("decode nemotron B8 W1024 L576",
                         (8, 96, 8, 1024, 192, 576))):
         out[key] = decode_row(dev, *shape)
+        out[key]["floor"] = floor
     say_times(8, out)
     return out
 
 
 def say_times(phase: int, rows: dict) -> None:
     for key, row in rows.items():
-        prev = (f"previous (CUDA cores) {row['previous']:.6f}, "
+        prev = (f"previous {row['previous']:.6f}, "
                 if "previous" in row else "")
         plan = (f"; (splits, chunk) {row['splits, chunk']}"
                 if "splits, chunk" in row else "")
+        plan += "".join(f"; {k} {row[k]}" for k in (
+            "kernel cold", "previous cold") if k in row)
+        if "plan" in row:
+            plan += (f"; plan (route, vpt, warps a row, rows a block, "
+                     f"threads) {row['plan']}; ptxas {row['registers']}")
         say(f"phase{phase} {key} (bf16): device ms per call (graph replay) "
             f"kernel {row['kernel']:.6f}, {prev}plain {row['plain']:.6f}, "
-            f"library {row['library']}; bound "
+            f"library {row['library']}; floor {row['floor']:.6f}; bound "
             f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
             f"launch {row['profile_us']}{plan}")
 
 
 def kernel_times(dev) -> dict:
     """Phase 14: the zamba2 path's kernels at its serve and decode shapes,
-    bf16, as phase 8 times the others: ``rmsnorm`` on (64, 3584) beside
+    bf16, as phase 8 times the others, each row beside the launch floor
+    (:func:`floor_ms`): ``rmsnorm`` at every path shape (``RMS_SHAPES``)
+    beside its previous body, its plain version and
     ``torch.nn.functional.rms_norm`` (timed only; the port never calls
-    it), ``ssm_scan`` on the model's views at (B 1, S 64, H 112, P = N =
+    it), with the plan it took and its instantiation's registers, and at
+    the prefill shapes also on inputs that miss the L2 (``cold``), ``ssm_scan`` on the model's views at (B 1, S 64, H 112, P = N =
     64) beside its previous sequential body (no one PyTorch call computes
     it), flash attention at (1, 32, 64,
     112) beside its previous CUDA-core body, and flash decode at (1, 32,
@@ -1193,25 +1284,53 @@ def kernel_times(dev) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssm_scan as SS
     bf = torch.bfloat16
     out = {}
 
-    x = torch.randn(64, 3584, device=dev, dtype=bf)
-    scale = torch.randn(3584, device=dev, dtype=bf) + 1.0
-    row = {name: graph_ms(fn) for name, fn in (
-        ("kernel", lambda: RN.cuda_rmsnorm(x, scale)),
-        ("plain", lambda: ref.ref_rmsnorm(x, scale)),
-        ("library", lambda: F.rms_norm(x, (3584,), scale, 1e-5)))}
-    # read x and scale once, write y once; square, sum, scale, multiply
-    row["bound"], row["bound_by"] = _bound(
-        2 * (2 * x.numel() + scale.numel()), 4 * x.numel(), F32_OPS_PER_S)
-    row["profile_us"] = _prof_us(lambda: RN.cuda_rmsnorm(x, scale),
-                                 "rmsnorm_kernel")
-    out["rmsnorm (64, 3584)"] = row
+    floor, load_floor = floor_ms(), load_floor_ms()
+    say(f"phase14 launch floor: a one-element fill_ {floor:.6f} ms, a "
+        f"one-element copy_ (a load, then a store) {load_floor:.6f} ms a "
+        f"launch (graph replay)")
+    ptx = ptxas_rows(_build.BUILD_LOG.get(RN.KERNEL, {}).get("ptxas", ""))
+    for rows, d in RMS_SHAPES:
+        x = torch.randn(rows, d, device=dev, dtype=bf)
+        scale = torch.randn(d, device=dev, dtype=bf) + 1.0
+        row = {name: graph_ms(fn) for name, fn in (
+            ("kernel", lambda: RN.cuda_rmsnorm(x, scale)),
+            ("previous", lambda: RN.cuda_rmsnorm(x, scale,
+                                                 _route=RN.PREVIOUS)),
+            ("plain", lambda: ref.ref_rmsnorm(x, scale)),
+            ("library", lambda: F.rms_norm(x, (d,), scale, 1e-5)))}
+        row["floor"] = floor
+        # read x and scale once, write y once; square, sum, scale, multiply
+        row["bound"], row["bound_by"] = _bound(
+            2 * (2 * x.numel() + scale.numel()), 4 * x.numel(),
+            F32_OPS_PER_S)
+        row["profile_us"] = _prof_us(lambda: RN.cuda_rmsnorm(x, scale),
+                                     "rmsnorm_rows_kernel")
+        plan = RN.view_plan(x, scale)
+        row["plan"] = plan
+        inst = f"rmsnorm_rows_kernel<bfloat16, bfloat16, {plan[1]}, {plan[2]}>"
+        row["registers"] = next((r.split(": ", 1)[1] for r in ptx
+                                 if r.startswith(inst + ":")),
+                                "built before this run (no ptxas record)")
+        if x.numel() * 2 >= 4 << 20:
+            # the same launches on buffers that together pass the 50 MB
+            # L2: each launch finds its x cold, as a caller whose x was
+            # written long before would
+            copies = -(-120_000_000 // (4 * x.numel()))
+            xs = [x] + [torch.randn_like(x) for _ in range(copies - 1)]
+            for name, route in (("kernel cold", None),
+                                ("previous cold", RN.PREVIOUS)):
+                ring = itertools.cycle(xs)
+                row[name] = graph_ms(lambda: RN.cuda_rmsnorm(
+                    next(ring), scale, _route=route))
+            del xs
+        out[f"rmsnorm ({rows}, {d})"] = row
 
     b, s, h, p, n = 1, 64, 112, 64, 64
     views = scan_views(dev, bf, b, s, h, p, n, seed=5)
@@ -1231,6 +1350,7 @@ def kernel_times(dev) -> dict:
         nbytes, mma + f32 * BF16_OPS_PER_S / F32_OPS_PER_S, BF16_OPS_PER_S)
     row["profile_us"] = _prof_us(lambda: SS.cuda_ssm_scan(*views),
                                  "ssm_chunk_kernel")
+    row["floor"] = floor
     out["ssm_scan (B1, S64, H112, P64, N64)"] = row
 
     b, h, s, hd = 1, 32, 64, 112
@@ -1247,10 +1367,12 @@ def kernel_times(dev) -> dict:
         2 * 4 * q.numel(), 4 * hd * b * h * s * (s + 1) // 2, BF16_OPS_PER_S)
     row["profile_us"] = _prof_us(lambda: FA.cuda_flash_attention(q, k, v),
                                  "flash_tc_kernel")
+    row["floor"] = floor
     out["flash serve zamba2 (1, 32, 64, 112)"] = row
 
     out["decode zamba2 B1 W160 L144"] = decode_row(dev, 1, 32, 32, 160, 112,
                                                    144)
+    out["decode zamba2 B1 W160 L144"]["floor"] = floor
     say_times(14, out)
     return out
 
@@ -1299,9 +1421,13 @@ def check_norm_scan_kernels(dev) -> tuple[dict, dict]:
     shapes (RMSNorm (2,128,256), (4,96,512), (1,1,64), (300,128); the scan
     (4,256,64,64), (2,128,32,16), (8,512,64,64) and the carry case), a D
     that is not a multiple of 8, strided and unaligned rows, and the
-    zamba2 path's shapes through the model's views (RMSNorm on
-    (1|64|128|512, 3584); the scan at S 64, 100, 128, 256 and 512 with B/C
-    at a zero head stride).  The scan also runs ragged chunks (S 37, 70,
+    paths' shapes (RMSNorm on (1|64|128|512, 3584), (8|64|1024|4096,
+    2048), (64, 3072), (1|64, 18432), scale in the other dtype; the scan
+    at S 64, 100, 128, 256 and 512 with B/C at a zero head stride through
+    the model's views).  RMSNorm runs each case on the body its plan
+    names (views off the 16-byte width and D 1003 on the previous body,
+    every other on REGS, checked) and, where that is REGS, on the
+    previous body too (key "<dtype> previous").  The scan also runs ragged chunks (S 37, 70,
     100, 130), N 128, P 128, B/C per head, x at a zero head stride, views
     off the 16-byte width and P, N off multiples of 8; every bf16 case on
     the 16-byte width must take the chunked tensor-core body and also runs
@@ -1314,6 +1440,7 @@ def check_norm_scan_kernels(dev) -> tuple[dict, dict]:
     counts)."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssm_scan as SS
     from repro_torch.models import layers as L
     gen = torch.Generator(device=dev).manual_seed(20241232)
@@ -1336,24 +1463,51 @@ def check_norm_scan_kernels(dev) -> tuple[dict, dict]:
                     * scale).to(td)
 
         tol = RMS_TOL[dname]
+
+        def norm(what, x, scale, route=None):
+            """``ops.rmsnorm`` on the body its plan names (``route`` where
+            given), counted on REGS exactly when the plan names it; where
+            it does, the previous body too (key "<dtype> previous")."""
+            plan = RN.view_plan(x, scale)
+            if route is not None and plan[0] != route:
+                fail(f"rmsnorm {what} {dname}: plan {plan}, want route "
+                     f"{route}")
+            want = ref.ref_rmsnorm(x, scale)
+            r0 = RN.reg_launch_count
+            record("rmsnorm", dname, ops.rmsnorm(x, scale), want, tol, what)
+            if RN.reg_launch_count - r0 != (plan[0] == RN.REGS):
+                fail(f"rmsnorm {what} {dname}: plan {plan}, but "
+                     f"{RN.reg_launch_count - r0} REGS launches")
+            if plan[0] == RN.REGS:
+                record("rmsnorm", f"{dname} previous", RN.cuda_rmsnorm(
+                    x, scale, _route=RN.PREVIOUS), want, tol, what)
+
         for shape in ((2, 128, 256), (4, 96, 512), (1, 1, 64), (300, 128),
                       (3, 5, 1003), (1, 3584), (64, 3584), (128, 3584),
-                      (2, 256, 3584), (8, 2048), (64, 3072)):
+                      (2, 256, 3584), (8, 2048), (64, 3072), (4096, 2048),
+                      (1024, 2048), (64, 18432), (1, 18432)):
             x, scale = rnd(*shape), rnd(shape[-1]) + 1.0
-            record("rmsnorm", dname, ops.rmsnorm(x, scale),
-                   ref.ref_rmsnorm(x, scale), tol, f"{shape}")
+            norm(f"{shape}", x, scale,
+                 RN.PREVIOUS if shape[-1] == 1003 else RN.REGS)
             if dname == "float32":
                 record("rmsnorm", dname,
                        L.rms_norm(x, scale, 1e-5, "kernel"),
                        L.rms_norm(x, scale, 1e-5), tol,
                        f"{shape} vs the model's rms_norm")
-        x = rnd(4, 65, 3584)[:, 1:]                  # strided rows
+        other = torch.bfloat16 if td == torch.float32 else torch.float32
+        for shape in ((64, 3584), (4096, 2048), (1, 18432)):
+            norm(f"{shape}, scale in {other}", rnd(*shape),
+                 (torch.randn(shape[-1], generator=gen, device=dev)
+                  + 1.0).to(other), RN.REGS)
         scale = rnd(3584) + 1.0
-        record("rmsnorm", dname, ops.rmsnorm(x, scale),
-               ref.ref_rmsnorm(x, scale), tol, "strided rows")
-        x = rnd(2, 64, 3585)[..., 1:]                # unaligned rows
-        record("rmsnorm", dname, ops.rmsnorm(x, scale),
-               ref.ref_rmsnorm(x, scale), tol, "unaligned rows")
+        norm("strided rows, copied", rnd(4, 65, 3584)[:, 1:], scale,
+             RN.REGS)
+        norm("strided rows on the width", rnd(64, 3600)[:, :3584], scale,
+             RN.REGS)
+        norm("strided rows off the width", rnd(64, 3585)[:, :3584], scale,
+             RN.PREVIOUS)
+        norm("unaligned rows", rnd(2, 64, 3585)[..., 1:], scale,
+             RN.PREVIOUS)
 
         tol = SCAN_TOL[dname]
 
@@ -1709,9 +1863,10 @@ def phase_moe(dev) -> dict:
         f"{forwards} eager forwards and captures, 2 prefills and "
         f"{z['steps']} steps at 48 "
         f"layers, 1 prefill and {z['steps']} steps at {cfg8.n_layers}, × "
-        f"the path's per-call counts; tensor-core launches "
-        f"{json.dumps(bf16_tc)}: every bf16 flash and moe launch, and "
-        f"none of the f32 copy's")
+        f"the path's per-call counts; new-body launches of the bf16 "
+        f"model {json.dumps(bf16_tc)}: every bf16 flash and moe launch on "
+        f"the tensor cores (none of the f32 copy's), every rmsnorm on "
+        f"REGS (the f32 copy's too)")
     return launches
 
 
@@ -1815,6 +1970,7 @@ def moe_times(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(17)
     e = 128
     out = {}
+    floor = floor_ms()
     for key, (c, d, f) in (("serve we_g (768, 2048→768)", (6, 2048, 768)),
                            ("serve we_d (768, 768→2048)", (6, 768, 2048)),
                            ("decode we_g (128, 2048→768)", (1, 2048, 768)),
@@ -1874,9 +2030,10 @@ def moe_times(dev) -> dict:
                                  "moe_gemm_tc_kernel")
     out[f"ragged 512 pairs over {used} experts (512, 2048→768)"] = row
     for key, row in out.items():
+        row["floor"] = floor
         say(f"phase17 moe_gemm {key} (bf16): device ms per call (graph "
             f"replay) kernel {row['kernel']:.6f}, previous (CUDA cores) "
-            f"{row['previous']:.6f}, plain {row['plain']}, "
+            f"{row['previous']:.6f}, floor {floor:.6f}, plain {row['plain']}, "
             f"library {row['library']} "
             f"({row.get('library_note', 'torch.bmm over (E, C, D)')}); bound "
             f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
@@ -1995,22 +2152,51 @@ def main() -> int:
                     s = np.round(s)                   # ties
                 m = rng.random((b, n)) < rng.choice([0.05, 0.5, 1.0])
                 cases.append((is_max, s, m))
+    # the packed key's traps: -0.0 beside +0.0 (the first must win the
+    # tie), and enabled scores equal to the fill beside masked entries
+    # (a masked entry earlier in the row wins the tie)
+    for n in (2, 31, 32, 33, 64, 65, 200):
+        for is_max in (True, False):
+            z = np.where(rng.random((7, n)) < 0.5, -0.0, 0.0)
+            z[1::2, ::5] = -1.0 if is_max else 1.0
+            cases.append((is_max, z, rng.random((7, n)) < 0.8))
+            f = np.where(rng.random((7, n)) < 0.5,
+                         sched_ops.NEG if is_max else sched_ops.POS,
+                         rng.normal(size=(7, n)) - (5 if is_max else -5))
+            cases.append((is_max, f, rng.random((7, n)) < 0.5))
     max_err = 0.0
     for i, (is_max, s, m) in enumerate(cases):
         st = torch.from_numpy(np.asarray(s, np.float32))
         mt = torch.from_numpy(np.asarray(m))
         want_i, want_v = ref.ref_masked_argext(st, mt, is_max=is_max)
-        got_i, got_v = sched_ops.masked_argext(st.to(dev), mt.to(dev),
-                                               is_max=is_max)
+        k0 = sched_ops.key_launch_count
+        got = {"key": sched_ops.masked_argext(st.to(dev), mt.to(dev),
+                                              is_max=is_max),
+               "previous": sched_ops.cuda_masked_argext(
+                   st.to(dev), mt.to(dev), is_max=is_max,
+                   _route=sched_ops.PREVIOUS)}
         torch.cuda.synchronize()
-        got_i, got_v = got_i.cpu(), got_v.cpu()
-        if not (torch.equal(got_i, want_i) and torch.equal(got_v, want_v)):
-            fail(f"masked_argext case {i} shape {tuple(st.shape)} "
-                 f"is_max={is_max}: kernel differs from the plain version")
-        max_err = max(max_err, float((got_v.double()
-                                      - want_v.double()).abs().max()))
-    say(f"phase2 kernels: masked_argext {len(cases)} cases equal to the "
-        f"plain version (max_abs_err {max_err})")
+        if sched_ops.key_launch_count != k0 + 1:
+            fail(f"masked_argext case {i}: the launch missed the key body")
+        emu = ref.ref_packed_argext(st, mt, is_max=is_max)
+        if not all(torch.equal(g.cpu().view(torch.int32), e.view(torch.int32))
+                   for g, e in zip(got["key"], emu)):
+            fail(f"masked_argext case {i}: the key body differs from "
+                 f"ref_packed_argext, the emulation of its arithmetic")
+        for body, (got_i, got_v) in got.items():
+            got_i, got_v = got_i.cpu(), got_v.cpu()
+            if not (torch.equal(got_i, want_i)
+                    and same_values(got_v, want_v)):
+                fail(f"masked_argext case {i} shape {tuple(st.shape)} "
+                     f"is_max={is_max}: the {body} body differs from the "
+                     f"plain version")
+            max_err = max(max_err, float((got_v.double()
+                                          - want_v.double()).abs().max()))
+    say(f"phase2 kernels: masked_argext {len(cases)} cases, each on the "
+        f"key body and the previous one, equal to the plain version (index "
+        f"exactly, value bit for bit, a tie of ±0.0 as numbers; "
+        f"max_abs_err {max_err}); the key body bit for bit equal to "
+        f"ref_packed_argext, the emulation of its arithmetic")
 
     # timing at the main path's hottest shape: steal_select over (28, 64)
     e, n = 28, 64
@@ -2018,12 +2204,15 @@ def main() -> int:
         rng.random((e, n)) < 0.3, 1e12, 0.0)).astype(np.float32)).to(dev)
     m = torch.from_numpy(rng.random((e, n)) < 0.5).to(dev)
     fns = {"kernel": lambda: sched_ops.cuda_masked_argext(s, m, is_max=True),
+           "previous": lambda: sched_ops.cuda_masked_argext(
+               s, m, is_max=True, _route=sched_ops.PREVIOUS),
            "plain": lambda: ref.ref_masked_argext(s, m, is_max=True),
            "torch.max(where)": lambda: torch.max(
                torch.where(m, s, sched_ops.NEG), dim=-1)}
     dev_ms = {k: graph_ms(f) for k, f in fns.items()}
     call_ms = {k: eager_ms(f) for k, f in fns.items()}
-    k_ms, plain_ms, compo_ms = dev_ms.values()
+    dev_ms["floor"], dev_ms["load floor"] = floor_ms(), load_floor_ms()
+    k_ms, prev_ms, plain_ms, compo_ms, argext_floor, _ = dev_ms.values()
     # least time for the work: each score and mask byte read once, idx and
     # value written once; a select and a compare per entry in f32
     bytes_ms = (e * n * (4 + 1) + e * (4 + 4)) / HBM_BYTES_PER_S * 1e3
@@ -2035,8 +2224,12 @@ def main() -> int:
     for (b, nn, mx) in ((1, 32, False), (1, 28, False), (1024, 64, True)):
         ss = torch.randn(b, nn, device=dev)
         mm = torch.rand(b, nn, device=dev) < 0.5
-        shape_ms[f"{b}x{nn}"] = graph_ms(
-            lambda: sched_ops.cuda_masked_argext(ss, mm, is_max=mx))
+        shape_ms[f"{b}x{nn}"] = {body: graph_ms(
+            lambda: sched_ops.cuda_masked_argext(ss, mm, is_max=mx,
+                                                 _route=route))
+            for body, route in (("kernel", sched_ops.KEY),
+                                ("previous", sched_ops.PREVIOUS))}
+    shape_ms["floor"] = floor_ms()
     att_err, att_cases = check_attention_kernels(dev)
     say(f"phase2 kernels: flash_attention {att_cases['flash_attention']} "
         f"cases, decode_attention {att_cases['decode_attention']} cases "
@@ -2057,8 +2250,8 @@ def main() -> int:
     say(f"phase2 timing (28x64), device ms per call (graph replay): "
         f"{json.dumps(dev_ms)}; issued eagerly, ms per call: "
         f"{json.dumps(call_ms)}; bound {bound_ms:.7f} ms ({bound_by}: bytes "
-        f"{bytes_ms:.7f} ms, operations {ops_ms:.7f} ms); kernel at other "
-        f"shapes, device ms: {json.dumps(shape_ms)}")
+        f"{bytes_ms:.7f} ms, operations {ops_ms:.7f} ms); kernel and "
+        f"previous body at other shapes, device ms: {json.dumps(shape_ms)}")
 
     # ---- phase 3: small parity, card vs host vs golden ------------------
     for run in (r for r in golden["runs"] if r["phase"] == 3):
@@ -2102,7 +2295,11 @@ def main() -> int:
     launches = sched_ops.launch_count
     if launches <= 0:
         fail("phase 4 ran no masked_argext launch")
-    say(f"phase4 launches: masked_argext {launches}")
+    if sched_ops.key_launch_count != launches:
+        fail(f"phase 4: {sched_ops.key_launch_count} of {launches} "
+             f"masked_argext launches on the key body")
+    say(f"phase4 launches: masked_argext {launches}, every one on the key "
+        f"body")
 
     # ---- phases 5-8: the serve path and its kernels ----------------------
     phase_golden(dev, GOLDEN_MODEL, 5)
@@ -2236,6 +2433,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/masked_argext.cu",
         "replaces": "src/repro/kernels/sched_ops.py:41",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
+        "previous_ms": prev_ms, "floor_ms": argext_floor,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
@@ -2244,7 +2442,7 @@ def main() -> int:
         "launches": serve_launches,
         "max_abs_err": max(att_err["flash_attention"].values()),
         "ms": flash_t["kernel"], "previous_ms": flash_t["previous"],
-        "plain_ms": flash_t["plain"],
+        "floor_ms": flash_t["floor"], "plain_ms": flash_t["plain"],
         "bound_ms": flash_t["bound"], "bound_by": flash_t["bound_by"],
         "library_ms": flash_t["library"]}, {
         "name": "decode_attention", "route": "cuda",
@@ -2253,7 +2451,7 @@ def main() -> int:
         "launches": decode_launches,
         "max_abs_err": max(att_err["decode_attention"].values()),
         "ms": decode_t["kernel"], "previous_ms": decode_t["previous"],
-        "plain_ms": decode_t["plain"],
+        "floor_ms": decode_t["floor"], "plain_ms": decode_t["plain"],
         "bound_ms": decode_t["bound"], "bound_by": decode_t["bound_by"],
         "library_ms": decode_t["library"]}, {
         "name": "rmsnorm", "route": "cuda",
@@ -2261,7 +2459,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/rmsnorm.py:22",
         "launches": hybrid["rmsnorm"],
         "max_abs_err": max(ns_err["rmsnorm"].values()),
-        "ms": rms_t["kernel"], "plain_ms": rms_t["plain"],
+        "ms": rms_t["kernel"], "previous_ms": rms_t["previous"],
+        "floor_ms": rms_t["floor"], "plain_ms": rms_t["plain"],
         "bound_ms": rms_t["bound"], "bound_by": rms_t["bound_by"],
         "library_ms": rms_t["library"]}, {
         "name": "ssm_scan", "route": "cuda",
@@ -2271,7 +2470,7 @@ def main() -> int:
         "max_abs_err": max(ns_err["ssm_scan"][k]
                            for k in ("float32", "bfloat16")),
         "ms": scan_t["kernel"], "previous_ms": scan_t["previous"],
-        "plain_ms": scan_t["plain"],
+        "floor_ms": scan_t["floor"], "plain_ms": scan_t["plain"],
         "bound_ms": scan_t["bound"], "bound_by": scan_t["bound_by"],
         "library_ms": None}, {
         "name": "moe_gemm", "route": "cuda",
@@ -2280,7 +2479,7 @@ def main() -> int:
         "launches": moe["moe_gemm"],
         "max_abs_err": max(moe_err["float32"], moe_err["bfloat16"]),
         "ms": moe_t["kernel"], "previous_ms": moe_t["previous"],
-        "plain_ms": moe_t["plain"],
+        "floor_ms": moe_t["floor"], "plain_ms": moe_t["plain"],
         "bound_ms": moe_t["bound"], "bound_by": moe_t["bound_by"],
         "library_ms": moe_t["library"]}]}))
     print(json.dumps({"ok": True, "device": {

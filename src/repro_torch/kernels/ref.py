@@ -36,6 +36,32 @@ def ref_masked_argext(scores: torch.Tensor, mask: torch.Tensor, *,
     return torch.where(some, idx, -1), val
 
 
+def ref_packed_argext(scores: torch.Tensor, mask: torch.Tensor, *,
+                      is_max: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ref_masked_argext` by the arithmetic of the ``KEY`` body of
+    ``csrc/masked_argext.cu``, for the tests and ``chip_smoke.py`` only:
+    each filled entry j becomes one 64-bit key, its value mapped to an
+    order-preserving u32 (-0.0 first mapped to +0.0; complemented for
+    min) in the high half and ``0xFFFFFFFF - j`` in the low half; the
+    largest key wins, and the value is the winner's filled score as read,
+    never decoded from the key.  Keys are held as int64 with the high
+    half offset by 2**31, which keeps their order."""
+    fill = NEG if is_max else POS
+    v = torch.where(mask, scores.float(), fill)
+    n = v.shape[-1]
+    u = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, 0, u)
+    u = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    if not is_max:
+        u = u ^ 0xFFFFFFFF
+    low = 0xFFFFFFFF - torch.arange(n, dtype=torch.int64, device=v.device)
+    key = ((u - 2**31) << 32) | low
+    j = 0xFFFFFFFF - (key.amax(-1) & 0xFFFFFFFF)
+    val = torch.gather(v, -1, j[..., None])[..., 0]
+    some = torch.broadcast_to(mask, v.shape).any(-1)
+    return torch.where(some, j, -1).int(), val
+
+
 def _repeat_heads(x: torch.Tensor, groups: int) -> torch.Tensor:
     """``jnp.repeat(x, groups, axis=1)``: KV heads → query heads."""
     return x.repeat_interleave(groups, dim=1) if groups > 1 else x

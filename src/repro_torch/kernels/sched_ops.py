@@ -11,7 +11,12 @@ ref_masked_argext`.
 Dispatch: a CUDA tensor goes to the hand-written ``sm_90a`` kernel in
 ``csrc/masked_argext.cu`` (built at first use; a build or launch failure
 raises), a CPU tensor to the plain PyTorch version.  Nothing falls back
-to the plain version on the card.
+to the plain version on the card.  The source has two bodies: ``KEY``,
+which every call takes (one 64-bit key an entry, a butterfly of
+``max``; :func:`repro_torch.kernels.ref.ref_packed_argext` repeats its
+arithmetic), and ``PREVIOUS``, the body before it, which only
+``chip_smoke.py`` reaches (``_route=PREVIOUS``), to check and time it
+beside the new one.
 """
 from __future__ import annotations
 
@@ -25,14 +30,17 @@ NEG = ref.NEG
 POS = ref.POS
 
 KERNEL = "masked_argext"
-# launches of the hand kernel (one per wrapper call on a CUDA tensor);
-# chip_smoke.py zeroes it before driving the main path
+PREVIOUS, KEY = 0, 1      # the launcher's routes
+# launches of the hand kernel (one per wrapper call on a CUDA tensor), and
+# those of them that took the KEY body; chip_smoke.py zeroes them before
+# driving the main path
 launch_count = 0
+key_launch_count = 0
 
 
 def reset_count() -> None:
-    global launch_count
-    launch_count = 0
+    global launch_count, key_launch_count
+    launch_count = key_launch_count = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,15 +49,18 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def cuda_masked_argext(scores: torch.Tensor, mask: torch.Tensor, *,
-                       is_max: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """The hand kernel on ``(B, N)`` CUDA tensors (f32 scores, bool mask)."""
-    global launch_count
+                       is_max: bool, _route: int = KEY
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The hand kernel on ``(B, N)`` CUDA tensors (f32 scores, bool mask).
+    ``_route=PREVIOUS`` runs the earlier body; only ``chip_smoke.py``
+    passes it."""
+    global launch_count, key_launch_count
     if scores.device.type != "cuda" or mask.device != scores.device:
         raise ValueError("cuda_masked_argext: scores and mask must lie on "
                          "the same CUDA device")
@@ -62,6 +73,8 @@ def cuda_masked_argext(scores: torch.Tensor, mask: torch.Tensor, *,
     b, n = scores.shape
     if n < 1 or n >= 2**31:
         raise ValueError(f"cuda_masked_argext: N={n} out of range")
+    if _route not in (PREVIOUS, KEY):
+        raise ValueError(f"cuda_masked_argext: no route {_route}")
     scores = scores.contiguous()
     mask = mask.contiguous()
     idx = torch.empty(b, dtype=torch.int32, device=scores.device)
@@ -71,10 +84,11 @@ def cuda_masked_argext(scores: torch.Tensor, mask: torch.Tensor, *,
     fn = _lib().masked_argext_launch
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     err = fn(scores.data_ptr(), mask.data_ptr(), idx.data_ptr(),
-             val.data_ptr(), b, n, int(is_max), stream)
+             val.data_ptr(), b, n, int(is_max), _route, stream)
     if err != 0:
         raise RuntimeError(f"masked_argext launch failed: cudaError {err}")
     launch_count += 1
+    key_launch_count += _route == KEY
     return idx, val
 
 
