@@ -122,9 +122,22 @@ Phases, each printed on its own line and each failing the script
 18. hd 192 on the path: nemotron-4-340b at its published width, 2 layers,
     bf16, ``"kernel"`` — a (B 1, S 64) forward, a prefill and 8 greedy
     steps against ``"ref"`` on the same weights; flash and decode
-    launches exactly the path's.
+    launches exactly the path's;
+19. registry scenarios through the port alone, run right after phase 4
+    (the scenario path: ``masked_argext``'s counts are read over this
+    phase, every launch on the key body, at least one a run):
+    ``hetero-edges``, ``duration-jitter`` and ``heavy-tail`` under DEMS,
+    GEMS-A and DEMS-COOP, a short ``partition`` (link partition and edge
+    crash) under DEMS-COOP and a short ``brownout`` under GEMS-A, each at
+    its registry width — the spec rebuilt by the port's registry,
+    compiled on the card by the port's ``compile_fleet`` (every field's
+    SHA-256 equal to the JAX compiler's), run on the card by
+    ``run_scenario_fleet`` (integer summary fields exactly the JAX ones,
+    utilities within 1e-6 relative / 1e-4 absolute) and on the host by
+    ``run_scenario_oracle`` (merged results exactly the JAX oracle's).
 
-The expected numbers come from ``tests/golden/torch_port_summaries.json``,
+The expected numbers come from ``tests/golden/torch_port_summaries.json``
+(phase 19's under its ``scenario_runs`` key),
 ``tests/golden/torch_port_model.json``,
 ``tests/golden/torch_port_zamba2.json`` and
 ``tests/golden/torch_port_qwen3moe.json`` (JAX results written by
@@ -239,6 +252,12 @@ QWEN3MOE = dict(ZAMBA2, batch=8, prompt=128, max_seq=160, steps=32,
 # 2e-2, bounds the relative RMS of the logit difference.
 NEMOTRON = dict(layers=2, seq=64, steps=8, seed=18)
 NEMOTRON_TOL = 2e-2
+# phase 19: a fleet summary's float fields against the JAX one, the
+# parity tolerance of tests/_torch_parity.py (XLA on the host fuses a
+# product and a sum into one multiply-add where the port rounds twice,
+# so utilities may part in the last bits); integer fields are exact
+SUMMARY_RTOL, SUMMARY_ATOL = 1e-6, 1e-4
+SUMMARY_FLOATS = ("qos_utility", "qoe_utility", "completion_rate")
 
 
 def fail(msg: str) -> None:
@@ -324,6 +343,123 @@ def ptxas_rows(text: str) -> list:
                            else ""))
             name = None
     return rows
+
+
+def scenario_spec(entry: dict):
+    """A phase-19 golden entry's ``ScenarioSpec``: the port's registry
+    scenario cut to the entry's horizon, plus the fault schedule the
+    entry spells out in JSON (``FaultSpec`` field → the faults' keyword
+    arguments, lists as tuples)."""
+    from repro_torch import faults
+    from repro_torch.scenarios import registry
+    spec = registry.get(entry["scenario"], duration_ms=entry["duration_ms"])
+    if entry["faults"] is None:
+        return spec
+    kinds = dict(crashes=faults.EdgeCrash, partitions=faults.Partition,
+                 jamming=faults.Jamming, brownouts=faults.Brownout,
+                 floods=faults.Flood)
+    return dataclasses.replace(spec, faults=faults.FaultSpec(**{
+        field: tuple(kinds[field](**{k: tuple(v) if isinstance(v, list)
+                                     else v for k, v in f.items()})
+                     for f in fs)
+        for field, fs in entry["faults"].items()}))
+
+
+def summary_mismatch(got: dict, want: dict) -> list:
+    """The fields of a fleet summary off the golden one: an integer field
+    unequal, or a float one outside SUMMARY_RTOL / SUMMARY_ATOL."""
+    bad = []
+    for key, w in want.items():
+        g = got[key]
+        ok = (abs(g - w) <= SUMMARY_ATOL + SUMMARY_RTOL * abs(w)
+              if key in SUMMARY_FLOATS else g == w)
+        if not ok:
+            bad.append(f"{key} {g} != {w}")
+    return bad if set(got) == set(want) else bad + ["fields differ"]
+
+
+def phase_scenarios(golden: dict) -> dict:
+    """Phase 19: registry scenarios through the port alone.  Each entry's
+    spec is rebuilt by the port's registry, compiled on the card by the
+    port's ``compile_fleet`` (every field's SHA-256 from its host copy
+    equal to the JAX compiler's), run on the card by
+    ``run_scenario_fleet`` (its ``fleet_summary`` against the JAX one),
+    and run on the host by the port's ``run_scenario_oracle`` (its merged
+    results exactly the JAX oracle's).  ``masked_argext``'s counts are
+    set to 0 before the phase and read after it, every launch on the
+    key body and at least one a run.  Returns the phase's numbers."""
+    import torch
+    from repro_torch.kernels import sched_ops
+    from repro_torch.scenarios.compile import compile_fleet, signal_digests
+    from repro_torch.scenarios.runner import (fleet_summary,
+                                              run_scenario_fleet,
+                                              run_scenario_oracle)
+    dt = golden["dt"]
+    rows = {}
+    sched_ops.reset_count()
+    t_phase = time.perf_counter()
+    for entry in golden["scenario_runs"]:
+        name = entry["name"]
+        spec = scenario_spec(entry)
+        t0 = time.perf_counter()
+        sig = compile_fleet(spec, dt, device="cuda")
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        digests = signal_digests(sig)
+        off = sorted(k for k in digests
+                     if digests[k] != entry["digests"].get(k))
+        if off or set(digests) != set(entry["digests"]):
+            fail(f"phase 19 {name}: signal fields {off} differ from the JAX "
+                 f"compiler's")
+        ticks = int(sig.times.shape[0])
+        del sig
+        before, key_before = (sched_ops.launch_count,
+                              sched_ops.key_launch_count)
+        t0 = time.perf_counter()
+        final = run_scenario_fleet(spec, entry["policy"], dt=dt,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = sched_ops.launch_count - before
+        if launches <= 0:
+            fail(f"phase 19 {name}: no masked_argext launch")
+        if sched_ops.key_launch_count - key_before != launches:
+            fail(f"phase 19 {name}: a masked_argext launch missed the key "
+                 f"body")
+        summ = fleet_summary(final)
+        bad = summary_mismatch(summ, entry["summary"])
+        if bad:
+            fail(f"phase 19 {name}: summary off the golden: {bad}")
+        t0 = time.perf_counter()
+        merged = run_scenario_oracle(spec, entry["policy"], dt=dt).merged
+        oracle_s = time.perf_counter() - t0
+        oracle = {k: getattr(merged, k) for k in entry["oracle"]}
+        if oracle != entry["oracle"]:
+            fail(f"phase 19 {name}: oracle {oracle} != golden "
+                 f"{entry['oracle']}")
+        # run_scenario_fleet compiles the signals again on the host: its
+        # card seconds are its wall less one compile
+        card_s = run_s - compile_s
+        rows[name] = dict(compile_s=compile_s, card_s=card_s, ticks=ticks,
+                          ticks_per_s=ticks / card_s, launches=launches,
+                          launches_per_tick=launches / ticks,
+                          oracle_s=oracle_s)
+        say(f"phase19 {name}: digests == JAX compiler's; summary == golden "
+            f"{json.dumps(summ)}; oracle == JAX oracle's; compile "
+            f"{compile_s:.4f} s, card {card_s:.3f} s for {ticks} ticks × "
+            f"{spec.n_edges} edges = {ticks / card_s:.2f} ticks/s, oracle "
+            f"{oracle_s:.3f} s; fleet − oracle: completed "
+            f"{summ['completed'] - oracle['completed']}, QoS "
+            f"{summ['qos_utility'] - oracle['qos_utility']:.1f}; "
+            f"masked_argext {launches} launches "
+            f"({launches / ticks:.1f} a tick), every one on the key body")
+    launches = sched_ops.launch_count
+    if sched_ops.key_launch_count != launches:
+        fail("phase 19: a masked_argext launch missed the key body")
+    say(f"phase19 done: {len(rows)} runs in "
+        f"{time.perf_counter() - t_phase:.1f} s; masked_argext {launches} "
+        f"launches, every one on the key body")
+    return dict(runs=rows, launches=launches)
 
 
 def states_equal(a, b) -> bool:
@@ -2301,6 +2437,10 @@ def main() -> int:
     say(f"phase4 launches: masked_argext {launches}, every one on the key "
         f"body")
 
+    # ---- phase 19: registry scenarios through the port alone ----------
+    # before phase 9, whose budgeted horizon absorbs its time
+    scenarios = phase_scenarios(golden)
+
     # ---- phases 5-8: the serve path and its kernels ----------------------
     phase_golden(dev, GOLDEN_MODEL, 5)
     torch.cuda.empty_cache()
@@ -2432,7 +2572,8 @@ def main() -> int:
         "name": "masked_argext", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/masked_argext.cu",
         "replaces": "src/repro/kernels/sched_ops.py:41",
-        "launches": launches, "max_abs_err": max_err, "ms": k_ms,
+        "launches": launches, "scenario_launches": scenarios["launches"],
+        "max_abs_err": max_err, "ms": k_ms,
         "previous_ms": prev_ms, "floor_ms": argext_floor,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}, {

@@ -2,10 +2,14 @@
 tick program, held against it on the same inputs).
 
 Layout mirrors ``repro``: ``core`` (task profiles, policy flags, the
-array-encoded decision functions), ``kernels`` (the masked arg-extremum
-selection kernel: a hand-written ``sm_90a`` CUDA kernel and its plain
-PyTorch version), ``sim`` (the fleet tick program and its drivers),
-``scenarios`` (summaries) and ``convert`` (numpy ↔ port NamedTuples).
+array-encoded decision functions), ``kernels`` (the hand-written
+``sm_90a`` CUDA kernels and their plain PyTorch versions), ``sim`` (the
+fleet tick program and its drivers, the discrete-event simulator and
+its lockstep oracle, workloads and latency models), ``faults`` and
+``scenarios`` (scenario specs, the registry, compilation to both
+simulators, runners and summaries), the model zoo and serve engine
+(``configs``, ``models``, ``serve``, ``launch``) and ``convert`` (numpy
+↔ port NamedTuples).
 
 The package imports ``torch`` and ``numpy`` only.  Entry points run on
 the card by default (``device="cuda"``) and raise when no card is

@@ -1,9 +1,30 @@
-"""Fleet-level summaries of a final stacked state (port of the summary
-half of ``repro.scenarios.runner``)."""
+"""Drive a scenario through either simulator and merge results (a copy
+of the one-scenario half of ``repro.scenarios.runner``).
+
+``run_scenario_oracle`` runs one discrete-event :class:`Simulator` per
+edge site (each with its own θ trace, outage windows and speed-scaled
+model table; ``*-COOP`` policies in the lockstep :class:`FleetOracle`)
+and merges the per-edge :class:`Results` on the host.
+``run_scenario_fleet`` lowers the same spec to dense tick signals on a
+device and runs the port's fleet tick program; ``fleet_summary`` reads
+its final stacked state.
+"""
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.core.schedulers import make_policy
+from repro_torch.scenarios.compile import (compile_exec_jitter,
+                                           compile_fleet, compile_oracle)
+from repro_torch.scenarios.spec import ScenarioSpec
+from repro_torch.sim import fleet as F
+from repro_torch.sim.engine import FleetOracle, ModelStats, Results, Simulator
+from repro_torch.sim.network import (CloudLatencyModel, EdgeLatencyModel,
+                                     TableCloudLatencyModel,
+                                     TableEdgeLatencyModel)
 
 
 def _host(a) -> np.ndarray:
@@ -25,3 +46,121 @@ def fleet_summary(final) -> dict[str, float]:
         qoe_utility=float(_host(final.qoe_utility).sum()),
         stolen=int(_host(final.n_stolen).sum()),
         peer_offloaded=int(_host(final.n_peer_out).sum()))
+
+
+def merge_results(results: list[Results]) -> Results:
+    """Fleet-wide totals: per-model stats summed across edge sites."""
+    per_model: dict[str, ModelStats] = {}
+    for r in results:
+        for name, st in r.per_model.items():
+            agg = per_model.setdefault(name, ModelStats())
+            for f in dataclasses.fields(ModelStats):
+                setattr(agg, f.name,
+                        getattr(agg, f.name) + getattr(st, f.name))
+    # duration = total edge-time so edge_utilization reads as fleet average
+    return Results(policy=results[0].policy if results else "?",
+                   duration=sum(r.duration for r in results),
+                   per_model=per_model,
+                   edge_busy=sum(r.edge_busy for r in results))
+
+
+@dataclasses.dataclass
+class OracleScenarioRun:
+    spec: ScenarioSpec
+    per_edge: list[Results]
+    merged: Results
+
+
+def run_scenario_oracle(spec: ScenarioSpec, policy: str, *,
+                        edge_model: EdgeLatencyModel | None = None,
+                        cloud_concurrency: int | None = None,
+                        cloud_model_overrides: dict | None = None,
+                        cloud_give_up_ms: float = float("inf"),
+                        dt: float = 25.0,
+                        **policy_overrides) -> OracleScenarioRun:
+    """One event-driven Simulator per edge site.
+
+    ``cloud_concurrency`` defaults to ``spec.cloud_concurrency`` (each
+    edge's share of the bounded FaaS pool); ``cloud_model_overrides``
+    replaces :class:`CloudLatencyModel` fields (e.g. ``sigma=1e-6`` for
+    deterministic fleet-agreement comparisons) while the compiled θ and
+    bandwidth traces stay attached.
+
+    With ``spec.jitter`` set, both latency models become table-backed
+    (:class:`~repro_torch.sim.network.TableEdgeLatencyModel` /
+    :class:`~repro_torch.sim.network.TableCloudLatencyModel`) over the *same*
+    per-(tick, model) sample tables the fleet simulator consumes as its
+    ``exec_jit`` lane — same-sample fleet-vs-oracle comparisons.
+
+    With ``spec.faults`` set, the compiled chaos lowering rides along:
+    flood arrivals are already merged into each edge's stream, θ/bw
+    traces carry the jamming and brownout overlays, partitions surface
+    as per-edge zero-cold outage windows and edge crashes as
+    ``edge_down_windows``.  ``cloud_give_up_ms`` bounds how long a
+    parked cloud dispatch waits before being abandoned — pass the same
+    value as the fleet side's ``FleetPolicy.cloud_give_up_ms`` for
+    agreement runs.
+
+    A ``*-COOP`` policy runs the per-edge simulators through the
+    :class:`~repro_torch.sim.engine.FleetOracle` lockstep wrapper (base policy
+    on each edge + cross-edge peer offload between ``dt`` slices,
+    mirroring the fleet's exchange); silo policies keep the independent
+    per-edge loop.
+    """
+    coop = policy.endswith("-COOP")
+    base_policy = policy[:-5] if coop else policy
+    compiled = compile_oracle(spec)
+    jit_tables = None
+    if spec.jitter is not None:
+        jit_tables = compile_exec_jitter(spec, dt)
+        if edge_model is None:
+            edge_model = TableEdgeLatencyModel(
+                table=jit_tables[0], names=spec.model_names, dt=dt)
+    sims: list[Simulator] = []
+    for e, arrivals in enumerate(compiled.edge_arrivals):
+        shaping = dict(latency_at=compiled.theta_fns[e],
+                       bandwidth_at=compiled.bw_fns[e])
+        if jit_tables is not None:
+            cloud_model = TableCloudLatencyModel(
+                table=jit_tables[1], names=spec.model_names, dt=dt,
+                **shaping, **(cloud_model_overrides or {}))
+        else:
+            cloud_model = CloudLatencyModel(
+                **shaping, **(cloud_model_overrides or {}))
+        sims.append(Simulator(
+            make_policy(base_policy, **policy_overrides), arrivals,
+            spec.duration_ms,
+            cloud_concurrency=spec.cloud_concurrency
+            if cloud_concurrency is None else cloud_concurrency,
+            edge_model=edge_model, cloud_model=cloud_model,
+            cloud_outages=compiled.edge_outages[e]
+            if compiled.edge_outages is not None else compiled.outages,
+            edge_down_windows=compiled.crashes[e]
+            if compiled.crashes is not None else (),
+            cloud_give_up_ms=cloud_give_up_ms,
+            seed=spec.seed + e))
+    if coop:
+        fp = F.FleetPolicy.from_name(policy)
+        per_edge = FleetOracle(
+            sims, spec.duration_ms, dt=dt, slack_ms=fp.coop_slack_ms,
+            max_transfers=fp.coop_max_transfers).run()
+    else:
+        per_edge = [sim.run() for sim in sims]
+    return OracleScenarioRun(spec=spec, per_edge=per_edge,
+                             merged=merge_results(per_edge))
+
+
+def run_scenario_fleet(spec: ScenarioSpec, policy, *, dt: float = 25.0,
+                       edge_frac: float = 0.62, cloud_frac: float = 0.80,
+                       device="cuda"):
+    """The scenario through the port's fleet tick program; returns the
+    final stacked ``EdgeState`` on ``device``.
+
+    The signals are compiled on ``device`` by :func:`compile_fleet`, and
+    the spec's ``cloud_concurrency`` becomes each edge's finite
+    ``cloud_slots`` pool, matching the oracle path slot for slot.
+    """
+    signals = compile_fleet(spec, dt, device=device)
+    return F.run_fleet(spec.models, policy, signals, dt=dt,
+                       edge_frac=edge_frac, cloud_frac=cloud_frac,
+                       cloud_slots=spec.cloud_concurrency, device=device)

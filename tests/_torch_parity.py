@@ -39,6 +39,16 @@ def assert_states_match(got, want) -> None:
     assert len(names) == len(list(leaves(want)))
 
 
+def assert_signals_equal(got, want) -> None:
+    """``got``: port ``FleetSignals`` (tensors); ``want``: the JAX ones."""
+    assert got._fields == tuple(want._fields)
+    for name, g, w in zip(got._fields, got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.dtype == w.dtype, (name, g.dtype, w.dtype)
+        assert g.shape == w.shape, (name, g.shape, w.shape)
+        assert g.tobytes() == w.tobytes(), name
+
+
 def run_pair(models, policy, signals, *, cloud_slots=FJ.CLOUD_SLOTS):
     """(port final state on the CPU, JAX final state) on the same
     signals, handed to the port through numpy."""

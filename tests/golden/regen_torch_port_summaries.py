@@ -12,7 +12,17 @@ their expected numbers from it and never imports the JAX package;
 ``tests/test_torch_golden.py`` re-runs the small entries through JAX and
 the CPU port so the file cannot rot.  ``--check`` recomputes every entry
 and fails (exit 1) if any summary differs, without rewriting the file.
+
+Phase 19's registry scenarios (``SCENARIO_RUNS``, under the file's
+``scenario_runs`` key) are each a registry name, a policy, a horizon and
+an optional fault schedule written as JSON (``FaultSpec`` field → list
+of the fault's keyword arguments).  Each entry carries the SHA-256 of
+every ``FleetSignals`` field the JAX ``compile_fleet`` produced (dtype,
+shape and bytes, as ``repro_torch.scenarios.compile.signal_digests``
+takes them), the JAX ``fleet_summary`` of ``run_scenario_fleet``, and
+the merged numbers of the JAX ``run_scenario_oracle``.
 """
+import dataclasses
 import json
 import pathlib
 import sys
@@ -47,6 +57,61 @@ RUNS = [
 ]
 
 
+# the scenarios whose signals carry a factor other than 1.0 (edge speed
+# factors, stochastic durations), each for 8 s under DEMS, GEMS-A and
+# DEMS-COOP; then the short partition (a link partition and an edge crash
+# both fire) and brownout specs of tests/test_torch_scenarios.py
+SCENARIO_RUNS = [
+    dict(name=f"{scenario}-{policy.lower()}", phase=19, scenario=scenario,
+         policy=policy, duration_ms=8_000.0, faults=None)
+    for scenario in ("hetero-edges", "duration-jitter", "heavy-tail")
+    for policy in ("DEMS", "GEMS-A", "DEMS-COOP")] + [
+    dict(name="partition-dems-coop", phase=19, scenario="partition",
+         policy="DEMS-COOP", duration_ms=10_000.0, faults=dict(
+             partitions=[dict(start_ms=2_000.0, end_ms=6_000.0,
+                              edges=[0])],
+             crashes=[dict(edge=1, start_ms=4_000.0, end_ms=7_000.0)])),
+    dict(name="brownout-gems-a", phase=19, scenario="brownout",
+         policy="GEMS-A", duration_ms=15_000.0, faults=dict(
+             brownouts=[dict(start_ms=2_000.0, end_ms=12_000.0,
+                             theta_ms=350.0, ramp_ms=3_000.0)])),
+]
+ORACLE_FIELDS = ("generated", "completed", "qos_utility", "qoe_utility",
+                 "stolen", "migrated")
+
+
+def spec_of(run: dict, registry, faults):
+    """A phase-19 entry's ``ScenarioSpec`` from either package's
+    ``scenarios.registry`` and ``faults`` modules."""
+    spec = registry.get(run["scenario"], duration_ms=run["duration_ms"])
+    if run["faults"] is None:
+        return spec
+    kinds = dict(crashes=faults.EdgeCrash, partitions=faults.Partition,
+                 jamming=faults.Jamming, brownouts=faults.Brownout,
+                 floods=faults.Flood)
+    return dataclasses.replace(spec, faults=faults.FaultSpec(**{
+        field: tuple(kinds[field](**{k: tuple(v) if isinstance(v, list)
+                                     else v for k, v in f.items()})
+                     for f in fs)
+        for field, fs in run["faults"].items()}))
+
+
+def jax_scenario_entry(run: dict) -> dict:
+    from repro import faults
+    from repro.scenarios import registry
+    from repro.scenarios.compile import compile_fleet
+    from repro.scenarios.runner import (fleet_summary, run_scenario_fleet,
+                                        run_scenario_oracle)
+    from repro_torch.scenarios.compile import signal_digests
+    spec = spec_of(run, registry, faults)
+    merged = run_scenario_oracle(spec, run["policy"]).merged
+    return dict(
+        run, digests=signal_digests(compile_fleet(spec, COMMON["dt"])),
+        summary=fleet_summary(run_scenario_fleet(spec, run["policy"],
+                                                 dt=COMMON["dt"])),
+        oracle={k: getattr(merged, k) for k in ORACLE_FIELDS})
+
+
 def models_of(spec: str):
     """``PASSIVE`` / ``ACTIVE`` Table-1 sets or ``WLn@alpha`` (Table 2)."""
     from repro.core.task import ACTIVE, PASSIVE, TABLE1, table2
@@ -78,7 +143,12 @@ def _compute() -> dict:
     for run in RUNS:
         runs.append(dict(run, summary=jax_summary(run)))
         print(run["name"], runs[-1]["summary"], flush=True)
-    return dict(COMMON, runs=runs)
+    scenario_runs = []
+    for run in SCENARIO_RUNS:
+        scenario_runs.append(jax_scenario_entry(run))
+        print(run["name"], scenario_runs[-1]["summary"],
+              scenario_runs[-1]["oracle"], flush=True)
+    return dict(COMMON, runs=runs, scenario_runs=scenario_runs)
 
 
 def main() -> None:

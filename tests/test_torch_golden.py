@@ -11,6 +11,13 @@ port: both must reproduce the file exactly, and the port's final state
 must equal the JAX one — these are the slice's main workloads (DEMS-A,
 GEMS on WL1 at α = 0.9, DEMS-COOP) and SOTA2, the one policy that reads
 the mean-completion comparison, with a θ(t) that moves inside 30 s.
+
+Phase 19's registry-scenario entries are rebuilt by ``chip_smoke.py``'s
+own ``scenario_spec`` and compiled by the port on the CPU: every field's
+digest must equal the JAX compiler's in the file, and the port's oracle
+must give the file's JAX oracle numbers; one entry's summary is re-run
+through both fleets (``tests/test_torch_scenarios.py`` holds the rest of
+these scenarios' fleet runs to JAX at 20 s).
 """
 import importlib.util
 import json
@@ -21,10 +28,18 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_parity import assert_states_match  # noqa: E402
+from repro import faults as JF  # noqa: E402
+from repro.scenarios import registry as JR  # noqa: E402
+from repro.scenarios import runner as JRun  # noqa: E402
 from repro.scenarios.runner import fleet_summary as jax_fleet_summary  # noqa: E402,E501
 from repro.sim import fleet_jax as FJ  # noqa: E402
 from repro.sim import network as JN  # noqa: E402
+from repro_torch import faults as TF  # noqa: E402
 from repro_torch.core import task as TT  # noqa: E402
+from repro_torch.scenarios import registry as TR  # noqa: E402
+from repro_torch.scenarios import runner as TRun  # noqa: E402
+from repro_torch.scenarios.compile import (compile_fleet,  # noqa: E402
+                                           signal_digests)
 from repro_torch.scenarios.runner import fleet_summary  # noqa: E402
 from repro_torch.sim import fleet as F  # noqa: E402
 from repro_torch.sim import network as TN  # noqa: E402
@@ -32,11 +47,22 @@ from repro_torch.sim import network as TN  # noqa: E402
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"
 GOLDEN = json.loads((GOLDEN_DIR / "torch_port_summaries.json").read_text())
 SMALL = [r for r in GOLDEN["runs"] if r["phase"] == 3]
+SCENARIOS = GOLDEN["scenario_runs"]
 
 
 def _regen_module(name="regen_torch_port_summaries"):
     spec = importlib.util.spec_from_file_location(
         name, GOLDEN_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level defines only
+    constants and functions; ``main`` runs under ``__main__``)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", GOLDEN_DIR.parents[1] / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -70,6 +96,61 @@ def test_golden_file_matches_its_generator():
     assert {k: GOLDEN[k] for k in regen.COMMON} == regen.COMMON
     assert {r["n_edges"] for r in GOLDEN["runs"] if r["phase"] == 4} == {28}
     assert len(SMALL) == 4
+
+
+def test_scenario_golden_matches_its_generator():
+    """Phase 19's entries are the generator's definitions, each with a
+    digest of every signal field, a fleet summary and the oracle's
+    numbers; and the generator's spec builder agrees with the one
+    ``chip_smoke.py`` uses."""
+    regen = _regen_module()
+    extra = {"digests", "summary", "oracle"}
+    assert [{k: v for k, v in r.items() if k not in extra}
+            for r in SCENARIOS] == regen.SCENARIO_RUNS
+    assert len(SCENARIOS) == 11
+    chip = _chip_smoke()
+    for run in SCENARIOS:
+        assert set(run["digests"]) == set(F.FleetSignals._fields)
+        assert set(run["summary"]) == set(SMALL[0]["summary"])
+        assert set(run["oracle"]) == set(regen.ORACLE_FIELDS)
+        assert chip.scenario_spec(run) == regen.spec_of(run, TR, TF)
+        assert chip.summary_mismatch(run["summary"], run["summary"]) == []
+    assert chip.summary_mismatch(
+        dict(SMALL[0]["summary"], stolen=-1), SMALL[0]["summary"]) != []
+
+
+@pytest.mark.parametrize("run", SCENARIOS, ids=[r["name"] for r in SCENARIOS])
+def test_scenario_digests_and_oracle_through_port(run):
+    """What phase 19 checks on the card, here on the CPU: the port's
+    compiler reproduces the JAX compiler's digests, and the port's oracle
+    the JAX oracle's numbers."""
+    spec = _chip_smoke().scenario_spec(run)
+    sig = compile_fleet(spec, GOLDEN["dt"], device="cpu")
+    assert signal_digests(sig) == run["digests"]
+    merged = TRun.run_scenario_oracle(spec, run["policy"]).merged
+    assert {k: getattr(merged, k) for k in run["oracle"]} == run["oracle"]
+    # within the horizon a fault fires, or a factor other than 1.0 acts
+    fired = (~sig.link_up).any() | (~sig.edge_up).any() | (sig.theta > 0).any()
+    factor = (sig.exec_jit != 1).any() | (sig.load_mult != 1).any()
+    assert bool(fired if run["faults"] is not None else factor)
+
+
+def test_scenario_summary_through_both_packages():
+    """One phase-19 entry through both fleets: the JAX fleet and oracle
+    reproduce the file, and the port's fleet on the CPU is held to it as
+    phase 19 holds the card."""
+    regen = _regen_module()
+    run = next(r for r in SCENARIOS if r["name"] == "heavy-tail-gems-a")
+    j_spec = regen.spec_of(run, JR, JF)
+    assert jax_fleet_summary(JRun.run_scenario_fleet(
+        j_spec, run["policy"], dt=GOLDEN["dt"])) == run["summary"]
+    merged = JRun.run_scenario_oracle(j_spec, run["policy"]).merged
+    assert {k: getattr(merged, k) for k in run["oracle"]} == run["oracle"]
+    got = fleet_summary(TRun.run_scenario_fleet(
+        regen.spec_of(run, TR, TF), run["policy"], dt=GOLDEN["dt"],
+        device="cpu"))
+    assert _chip_smoke().summary_mismatch(got, run["summary"]) == []
+    assert got["stolen"] > 0
 
 
 @pytest.mark.parametrize("run", SMALL, ids=[r["name"] for r in SMALL])

@@ -1,6 +1,7 @@
-"""Registry scenarios through the port: ``repro.scenarios.compile.
-compile_fleet`` → numpy → ``repro_torch.convert.from_numpy``, held to the
-JAX ``run_fleet`` on the same signals.
+"""Registry scenarios through the port's own compiler: each case builds
+its spec in both packages, holds the port's ``compile_fleet`` bitwise to
+the JAX one, then runs the port's ``run_scenario_fleet`` (its own
+signals) against the JAX ``run_fleet`` on the JAX signals.
 
 * ``cloud-crunch`` — a two-slot finite cloud pool under a 4× burst (the
   queue-wait estimate, the slot gate and the parked-dispatch path);
@@ -24,32 +25,38 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_parity import assert_states_match, run_pair  # noqa: E402
-from repro.faults.spec import (Brownout, EdgeCrash, FaultSpec,  # noqa: E402
-                               Partition)
-from repro.scenarios import get  # noqa: E402
-from repro.scenarios.compile import compile_fleet  # noqa: E402
+from _torch_parity import (assert_signals_equal,  # noqa: E402
+                           assert_states_match)
+from repro import faults as JF  # noqa: E402
+from repro.scenarios import compile as JC  # noqa: E402
+from repro.scenarios import registry as JR  # noqa: E402
+from repro.sim import fleet_jax as FJ  # noqa: E402
+from repro_torch import faults as TF  # noqa: E402
+from repro_torch.scenarios import compile as TC  # noqa: E402
+from repro_torch.scenarios import registry as TR  # noqa: E402
+from repro_torch.scenarios.runner import run_scenario_fleet  # noqa: E402
 
 
-def _partition_short():
-    spec = get("partition", duration_ms=10_000.0)
-    return dataclasses.replace(spec, faults=FaultSpec(
-        partitions=(Partition(start_ms=2_000.0, end_ms=6_000.0,
-                              edges=(0,)),),
-        crashes=(EdgeCrash(edge=1, start_ms=4_000.0, end_ms=7_000.0),)))
+def _partition_short(reg, fl):
+    spec = reg.get("partition", duration_ms=10_000.0)
+    return dataclasses.replace(spec, faults=fl.FaultSpec(
+        partitions=(fl.Partition(start_ms=2_000.0, end_ms=6_000.0,
+                                 edges=(0,)),),
+        crashes=(fl.EdgeCrash(edge=1, start_ms=4_000.0, end_ms=7_000.0),)))
 
 
-def _brownout_short():
-    spec = get("brownout", duration_ms=15_000.0)
-    return dataclasses.replace(spec, faults=FaultSpec(brownouts=(
-        Brownout(start_ms=2_000.0, end_ms=12_000.0, theta_ms=350.0,
-                 ramp_ms=3_000.0),)))
+def _brownout_short(reg, fl):
+    spec = reg.get("brownout", duration_ms=15_000.0)
+    return dataclasses.replace(spec, faults=fl.FaultSpec(brownouts=(
+        fl.Brownout(start_ms=2_000.0, end_ms=12_000.0, theta_ms=350.0,
+                    ramp_ms=3_000.0),)))
 
 
-# name → (spec maker, policy, the signal that must differ from 1.0
-# somewhere in the horizon, or None)
+# name → (spec maker from (registry, faults) modules, policy, the signal
+# that must differ from 1.0 somewhere in the horizon, or None)
 CASES = {
-    "cloud-crunch": (lambda: get("cloud-crunch", duration_ms=12_000.0),
+    "cloud-crunch": (lambda reg, fl: reg.get("cloud-crunch",
+                                             duration_ms=12_000.0),
                      "DEMS", None),
     "brownout": (_brownout_short, "GEMS-A", None),
     "partition": (_partition_short, "DEMS-COOP", None),
@@ -59,17 +66,19 @@ for _scenario, _factor in (("hetero-edges", "load_mult"),
                            ("heavy-tail", "exec_jit")):
     for _policy in ("DEMS", "GEMS-A", "DEMS-COOP"):
         CASES[f"{_scenario}-{_policy}"] = (
-            lambda s=_scenario: get(s, duration_ms=20_000.0), _policy,
-            _factor)
+            lambda reg, fl, s=_scenario: reg.get(s, duration_ms=20_000.0),
+            _policy, _factor)
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_scenario_matches_jax(name):
     make, policy, factor = CASES[name]
-    spec = make()
-    sig = compile_fleet(spec, 25.0)
-    got, want = run_pair(spec.models, policy, sig,
-                         cloud_slots=spec.cloud_concurrency)
+    j_spec, t_spec = make(JR, JF), make(TR, TF)
+    sig = JC.compile_fleet(j_spec, 25.0)
+    assert_signals_equal(TC.compile_fleet(t_spec, 25.0, device="cpu"), sig)
+    want = FJ.run_fleet(j_spec.models, policy, sig,
+                        cloud_slots=j_spec.cloud_concurrency)
+    got = run_scenario_fleet(t_spec, policy, device="cpu")
     if factor is not None:
         assert (np.asarray(getattr(sig, factor)) != 1.0).any(), factor
     assert_states_match(got, want)
