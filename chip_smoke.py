@@ -57,7 +57,10 @@ Phases, each printed on its own line and each failing the script
    flash and GEMM case on both bodies (tensor cores and previous), every
    aligned decode case on both bodies;
 3. small parity: the 2-edge golden runs (DEMS-A, GEMS, DEMS-COOP,
-   SOTA2) on the card and on the host, every final-state leaf equal,
+   SOTA2) on the card as one heterogeneous ``run_batch`` (a lane each),
+   and alongside it in child processes by ``run_fleet`` each, on the card
+   (one child a run) and on the host (two children); every final-state
+   leaf equal across the three (a lane cut to its run's models),
    summaries equal to the golden JAX ones;
 4. paper-scale fleet (masked_argext's main path; its launches are read
    over this phase, every one on the key body): DEMS-A, GEMS and
@@ -81,7 +84,8 @@ Phases, each printed on its own line and each failing the script
    versions', ``scaled_dot_product_attention``'s and the bounds;
 9. metropolis fleet: DEMS-COOP on 1024 edges, two runs bitwise equal
    (its horizon shrinks to fit the time budget);
-10. sync check: ticks under ``torch.cuda.set_sync_debug_mode("error")``;
+10. sync check: ticks under ``torch.cuda.set_sync_debug_mode("error")``,
+    and one traced window of a padded, heterogeneous ``run_batch`` batch;
 11. profile: CUDA launches per tick, the arg-extremum kernel's time per
     launch, and the nearest plain PyTorch composition's time;
 12. hybrid golden: zamba2-7b at full width, 8 layers (6 Mamba2, the
@@ -134,20 +138,37 @@ Phases, each printed on its own line and each failing the script
     SHA-256 equal to the JAX compiler's), run on the card by
     ``run_scenario_fleet`` (integer summary fields exactly the JAX ones,
     utilities within 1e-6 relative / 1e-4 absolute) and on the host by
-    ``run_scenario_oracle`` (merged results exactly the JAX oracle's).
+    ``run_scenario_oracle`` (merged results exactly the JAX oracle's);
+20. the batched, traced sweep through the port alone, right after phase
+    19 (``masked_argext``'s counts are read over this phase, every launch
+    on the key body): ``run_registry_sweep`` over all 14 registry
+    scenarios at their registry widths, the horizon cut to 10 s, × DEMS,
+    GEMS-A, DEMS-COOP and SJF-E+C, seed 0, ``TraceSpec.full()``, under
+    both planners (exact-shape buckets, one padded batch); every row's
+    summary, ``tail_metrics``, stream sums and stream digests equal to
+    ``tests/golden/torch_port_sweep.json`` (histogram percentiles to one
+    bin where the scenario scales durations), ``check_conservation`` on
+    every row, the two planners' rows bitwise equal, an untraced padded
+    batch's final state bitwise the traced one's; then the paper-width
+    seed batch, ``run_fleet_batch`` of 28 edges × 3 drones × 4 seeds,
+    DEMS-COOP, traced, every lane against the golden and lane 0 bitwise
+    against ``run_fleet`` of seed 0; edge-ticks/s of each beside phase
+    19's, and the traced/untraced ratio of one padded batch.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``
 (phase 19's under its ``scenario_runs`` key),
+``tests/golden/torch_port_sweep.json`` (phase 20's),
 ``tests/golden/torch_port_model.json``,
 ``tests/golden/torch_port_zamba2.json`` and
 ``tests/golden/torch_port_qwen3moe.json`` (JAX results written by
-``tests/golden/regen_torch_port_{summaries,model}.py``); the script
+``tests/golden/regen_torch_port_{summaries,model,sweep}.py``); the script
 imports nothing of the JAX package.  Its last two lines are the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import itertools
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -164,6 +185,7 @@ GOLDEN_ZAMBA2 = os.path.join(ROOT, "tests", "golden",
                              "torch_port_zamba2.json")
 GOLDEN_QWEN3MOE = os.path.join(ROOT, "tests", "golden",
                                "torch_port_qwen3moe.json")
+GOLDEN_SWEEP = os.path.join(ROOT, "tests", "golden", "torch_port_sweep.json")
 METRO_EDGES = 1024
 METRO_MS = 60_000.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
@@ -258,6 +280,10 @@ NEMOTRON_TOL = 2e-2
 # so utilities may part in the last bits); integer fields are exact
 SUMMARY_RTOL, SUMMARY_ATOL = 1e-6, 1e-4
 SUMMARY_FLOATS = ("qos_utility", "qoe_utility", "completion_rate")
+# phase 20: the tail metrics' utilities and the f32 streams' sums are held
+# like a summary's floats; the histogram percentiles exactly, or to one
+# bin width where the run's signals scale durations (exec_jit, load_mult)
+TAIL_FLOATS = ("qos_utility", "qoe_utility", "qos", "qoe")
 
 
 def fail(msg: str) -> None:
@@ -441,7 +467,8 @@ def phase_scenarios(golden: dict) -> dict:
         # card seconds are its wall less one compile
         card_s = run_s - compile_s
         rows[name] = dict(compile_s=compile_s, card_s=card_s, ticks=ticks,
-                          ticks_per_s=ticks / card_s, launches=launches,
+                          edges=spec.n_edges, ticks_per_s=ticks / card_s,
+                          launches=launches,
                           launches_per_tick=launches / ticks,
                           oracle_s=oracle_s)
         say(f"phase19 {name}: digests == JAX compiler's; summary == golden "
@@ -460,6 +487,345 @@ def phase_scenarios(golden: dict) -> dict:
         f"{time.perf_counter() - t_phase:.1f} s; masked_argext {launches} "
         f"launches, every one on the key body")
     return dict(runs=rows, launches=launches)
+
+
+def models_of(spec: str):
+    """``PASSIVE`` / ``ACTIVE`` Table-1 sets or ``WLn@alpha`` (Table 2)."""
+    from repro_torch.core import task
+    if spec in ("PASSIVE", "ACTIVE"):
+        names = task.PASSIVE if spec == "PASSIVE" else task.ACTIVE
+        return [task.TABLE1[n] for n in names]
+    wl, alpha = spec.split("@")
+    return task.table2(wl, float(alpha))
+
+
+def golden_signals(golden: dict, run: dict, device, n_edges=None,
+                   duration_ms=None):
+    """A golden run's ``default_signals`` (edges and horizon overridable)."""
+    from repro_torch.sim import fleet as F
+    from repro_torch.sim import network
+    th = run["theta"]
+    return F.default_signals(
+        len(models_of(run["models"])), n_edges=n_edges or run["n_edges"],
+        drones_per_edge=golden["drones_per_edge"],
+        duration_ms=duration_ms or run["duration_ms"], dt=golden["dt"],
+        theta_fn=None if th is None else network.trapezium(
+            ramp_up=tuple(th["ramp_up"]), ramp_down=tuple(th["ramp_down"])),
+        seed=golden["seed"], device=device)
+
+
+def golden_run(golden: dict, run: dict, sig, device):
+    """A golden run through ``run_fleet`` on ``device``."""
+    from repro_torch.sim import fleet as F
+    return F.run_fleet(models_of(run["models"]), run["policy"], sig,
+                       dt=golden["dt"], edge_frac=golden["edge_frac"],
+                       cloud_frac=golden["cloud_frac"],
+                       cloud_slots=golden["cloud_slots"], device=device)
+
+
+# state leaves whose last axis is the model axis (the estimator buffer has
+# it second to last): phase 3 cuts a batch lane's to its run's models
+MODEL_LAST = ("n_success", "n_miss", "n_drop", "n_stolen", "n_edge_exec",
+              "lam", "lam_hat", "prev_lam", "win_end", "windows_met",
+              "count", "idx", "current", "cooling_start")
+
+
+def named_leaves(tree, name: str = ""):
+    """``(field name, leaf)`` pairs of a state tree, in order."""
+    if isinstance(tree, tuple):
+        for field, v in zip(tree._fields, tree):
+            yield from named_leaves(v, field)
+    else:
+        yield name, tree
+
+
+def cut_models(name: str, a, m: int):
+    """Leaf ``name`` of one lane with its model axis cut to ``m``."""
+    if name in MODEL_LAST:
+        return a[..., :m]
+    return a[..., :m, :] if name == "buf" else a
+
+
+def small_run(golden: dict, name: str, device: str) -> tuple:
+    """One of phase 3's runs through ``run_fleet`` on ``device``, in a
+    child process while the card runs the batch: one intra-op thread (the
+    tensors are tiny, and the host's cores are shared); the final state's
+    leaves as numpy arrays and the run's seconds."""
+    sys.path.insert(0, SRC)
+    import torch
+    torch.set_num_threads(1)
+    run = next(r for r in golden["runs"] if r["name"] == name)
+    t0 = time.perf_counter()
+    final = [a.cpu().numpy() for _, a in named_leaves(golden_run(
+        golden, run, golden_signals(golden, run, device), device))]
+    return final, time.perf_counter() - t0
+
+
+def phase_small(golden: dict) -> None:
+    """Phase 3: the four 2-edge golden runs, three ways at once.  The card
+    runs them as one heterogeneous batch (a lane each, tables padded to
+    the widest); alongside, child processes run each through
+    ``run_fleet``, on the card (one child a run) and on the host (two
+    children).  Every leaf of a card run and of a lane, cut to its run's
+    models, must equal the host run's, and each lane's summary the golden
+    one."""
+    import numpy as np
+    import torch
+    from repro_torch.scenarios.runner import fleet_summary_batch
+    from repro_torch.sim import fleet as F
+    small = [r for r in golden["runs"] if r["phase"] == 3]
+    # the four card children first: each holds a worker to the end, while
+    # the host's four runs share the remaining two
+    jobs = [(golden, r["name"], d) for d in ("cuda", "cpu") for r in small]
+    with multiprocessing.get_context("spawn").Pool(len(small) + 2) as pool:
+        t_children = time.perf_counter()
+        pending = pool.starmap_async(small_run, jobs, chunksize=1)
+        batch = F.build_fleet_batch(
+            [(models_of(r["models"]), r["policy"],
+              golden_signals(golden, r, "cpu"), golden["cloud_slots"])
+             for r in small], dt=golden["dt"], device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = F.run_batch(batch, dt=golden["dt"],
+                           edge_frac=golden["edge_frac"],
+                           cloud_frac=golden["cloud_frac"])
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        done = pending.get(timeout=1200)
+        children_s = time.perf_counter() - t_children
+    runs = {(d, n): res for (_, n, d), res in zip(jobs, done)}
+    for r, (run, summ) in enumerate(zip(small, fleet_summary_batch(card))):
+        m = len(models_of(run["models"]))
+        host, host_s = runs["cpu", run["name"]]
+        own, own_s = runs["cuda", run["name"]]
+        lane = [cut_models(n, a[r], m).cpu().numpy()
+                for n, a in named_leaves(card)]
+
+        def same(a, b):
+            return len(a) == len(b) and all(
+                x.dtype == y.dtype and np.array_equal(x, y)
+                for x, y in zip(a, b))
+
+        if not same(own, host):
+            fail(f"{run['name']}: card and host run_fleet final states "
+                 f"differ")
+        if not same(lane, host):
+            fail(f"{run['name']}: batch lane {r} and host run_fleet final "
+                 f"states differ")
+        if summ != run["summary"]:
+            fail(f"{run['name']}: summary {summ} != golden "
+                 f"{run['summary']}")
+        say(f"phase3 {run['name']}: card run_fleet == card lane {r} of one "
+            f"run_batch == host run_fleet (every leaf), summary == golden; "
+            f"card run_fleet {own_s:.2f} s, host {host_s:.2f} s (children)")
+    say(f"phase3 card: the four runs as one run_batch, {batch_s:.2f} s; "
+        f"the eight run_fleet children alongside, {children_s:.2f} s")
+
+
+def tail_mismatch(got, want, bin_ms: float, path: str = "") -> list:
+    """Where a traced run's numbers (``tail_metrics`` or ``stream_sums``)
+    leave the golden ones: integers and host-computed rates exactly (a
+    golden ``None`` is NaN), the utilities within SUMMARY_RTOL /
+    SUMMARY_ATOL, a slack or latency percentile within ``bin_ms``."""
+    import math
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{path}: keys {sorted(got)} != {sorted(want)}"]
+        return [m for k in want
+                for m in tail_mismatch(got[k], want[k], bin_ms,
+                                       f"{path}.{k}" if path else k)]
+    if want is None:
+        ok = isinstance(got, float) and math.isnan(got)
+    elif path.split(".")[-1] in TAIL_FLOATS:
+        ok = abs(got - want) <= SUMMARY_ATOL + SUMMARY_RTOL * abs(want)
+    elif path.startswith(("slack_ms", "latency_ms")):
+        ok = abs(got - want) <= bin_ms
+    else:
+        ok = got == want
+    return [] if ok else [f"{path} {got} != {want}"]
+
+
+def phase_sweep(scenario_rows: dict) -> dict:
+    """Phase 20: the batched sweep through the port alone, traced.
+
+    ``run_registry_sweep`` over all 14 registry scenarios (registry width,
+    the horizon cut to the golden's) × the golden's policies × its seeds,
+    under both planners; every row against
+    ``tests/golden/torch_port_sweep.json`` (summary, ``tail_metrics``,
+    the streams' sums and digests) and ``check_conservation``, the two
+    planners' rows bitwise equal to each other, the padded batch's final
+    state untraced bitwise equal to the traced rows'; then the paper-width
+    seed batch (``run_fleet_batch``, 28 edges × the golden's seeds,
+    DEMS-COOP, traced) lane by lane against the golden, lane 0 bitwise
+    against ``run_fleet`` of its seed.  ``masked_argext``'s counts are
+    set to 0 before the phase and read after it: every launch on the key
+    body.  Edge-ticks/s: valid (tick, edge) cells over host wall time
+    ending in ``torch.cuda.synchronize()``; information, not a claim."""
+    import numpy as np
+    import torch
+    from repro_torch.core import task
+    from repro_torch.kernels import sched_ops
+    from repro_torch.obs import metrics
+    from repro_torch.obs.trace import TraceSpec
+    from repro_torch.scenarios.compile import compile_registry_batch
+    from repro_torch.scenarios.runner import (fleet_summary_batch,
+                                              run_registry_sweep)
+    from repro_torch.sim import fleet as F
+
+    gold = json.load(open(GOLDEN_SWEEP))
+    dt, dur = gold["dt"], gold["duration_ms"]
+    spec = TraceSpec.full(hist_bins=gold["hist_bins"],
+                          hist_max_ms=gold["hist_max_ms"])
+    bin_ms = spec.hist_max_ms / spec.hist_bins
+    pols, seeds = tuple(gold["policies"]), tuple(gold["seeds"])
+    want = {(r["scenario"], r["policy"], r["seed"]): r for r in gold["rows"]}
+    summary_keys = ("scenario", "policy", "seed", "trace")
+
+    def check_traced(what, summ, c, w):
+        bad = summary_mismatch(summ, w["summary"])
+        bad += tail_mismatch(metrics.tail_metrics(c, spec), w["tail"],
+                             0.0 if w.get("exact_hist", True) else bin_ms)
+        bad += tail_mismatch(metrics.stream_sums(c), w["sums"], 0.0)
+        digests = metrics.stream_digests(c, w.get("n_edges"),
+                                         w.get("n_models"))
+        bad += [f"digest {k}" for k in w["digests"]
+                if digests.get(k) != w["digests"][k]]
+        try:
+            metrics.check_conservation(c)
+        except AssertionError as err:
+            bad.append(str(err))
+        if bad:
+            fail(f"phase 20 {what}: off the golden: {bad}")
+
+    sched_ops.reset_count()
+    t_phase = time.perf_counter()
+    rows, rates = {}, {}
+    for planner in ("bucketed", "padded"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows[planner] = run_registry_sweep(
+            None, pols, seeds, dt=dt, duration_ms=dur, trace=spec,
+            planner=planner, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(rows[planner]) != len(want):
+            fail(f"phase 20 {planner}: {len(rows[planner])} rows, the "
+                 f"golden has {len(want)}")
+        for row in rows[planner]:
+            key = (row["scenario"], row["policy"], row["seed"])
+            check_traced(f"{planner} {key}",
+                         {k: v for k, v in row.items()
+                          if k not in summary_keys},
+                         row["trace"].counters, want[key])
+        cells = sum(int(r["trace"].counters.valid.sum())
+                    for r in rows[planner])
+        rates[planner] = dict(wall_s=wall, cells=cells,
+                              edge_ticks_per_s=cells / wall)
+    # the planners' rows bitwise equal: everything but the padding
+    for b, p in zip(rows["bucketed"], rows["padded"]):
+        key = (b["scenario"], b["policy"], b["seed"])
+        w = want[key]
+        e, m = w["n_edges"], w["n_models"]
+        cb, cp = b["trace"].counters, p["trace"].counters
+        same = ({k: v for k, v in b.items() if k != "trace"}
+                == {k: v for k, v in p.items() if k != "trace"}
+                and json.dumps(metrics.tail_metrics(cb, spec))
+                == json.dumps(metrics.tail_metrics(cp, spec))
+                and metrics.stream_sums(cb) == metrics.stream_sums(cp)
+                and metrics.stream_digests(cb, e, m)
+                == metrics.stream_digests(cp, e, m)
+                and all(np.array_equal(getattr(cb, f),
+                                       getattr(cp, f)[:, :e])
+                        for f in metrics.HIST_FIELDS)
+                and np.array_equal(b["trace"].t_hat,
+                                   p["trace"].t_hat[:, :e, :m]))
+        if not same:
+            fail(f"phase 20 {key}: the bucketed and padded rows differ")
+    # trace off: the padded planner's batch untraced, compiled, run and
+    # copied to the host as the traced sweep does; each lane's final
+    # state bitwise the traced row's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch, brows = compile_registry_batch(None, pols, seeds, dt=dt,
+                                          duration_ms=dur, device="cuda")
+    plain = [a.cpu().numpy() for a in leaves(F.run_batch(batch, dt=dt))]
+    untraced_s = time.perf_counter() - t0
+    for br, row in zip(brows, rows["padded"]):
+        traced = list(leaves(row["trace"].final))
+        if len(traced) != len(plain) or not all(
+                np.array_equal(a[br.lanes[0]], b)
+                for a, b in zip(plain, traced)):
+            fail(f"phase 20 {br.scenario} {br.policy}: the untraced final "
+                 f"state differs from the traced one's")
+    del batch, plain
+    # the paper-width seed batch, lane 0 against run_fleet of its seed
+    sb = gold["seed_batch"]
+    models = [task.TABLE1[n] for n in task.ACTIVE]
+    kw = dict(dt=dt, edge_frac=sb["edge_frac"], cloud_frac=sb["cloud_frac"],
+              cloud_slots=sb["cloud_slots"], trace=spec, device="cuda")
+    sig = F.stack_signals([F.default_signals(
+        len(models), n_edges=sb["n_edges"],
+        drones_per_edge=sb["drones_per_edge"], duration_ms=dur, dt=dt,
+        seed=s, device="cuda") for s in sb["seeds"]])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = F.run_fleet_batch(models, sb["policy"], sig, **kw)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    for r, (summ, w) in enumerate(zip(fleet_summary_batch(res.final),
+                                      sb["lanes"])):
+        check_traced(f"seed batch lane {r}", summ,
+                     metrics.select_replica(res.counters, r),
+                     dict(w, n_edges=sb["n_edges"], n_models=len(models)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    own = F.run_fleet(models, sb["policy"],
+                      F.FleetSignals(*(a[0] for a in sig)), **kw)
+    torch.cuda.synchronize()
+    own_s = time.perf_counter() - t0
+    if not (all(torch.equal(a, b[0])
+                for a, b in zip(leaves(own.final), leaves(res.final)))
+            and torch.equal(own.t_hat, res.t_hat[0])
+            and all(torch.equal(a, b[0])
+                    for a, b in zip(own.counters, res.counters))):
+        fail("phase 20: seed batch lane 0 differs from run_fleet of its "
+             "seed")
+    launches = sched_ops.launch_count
+    if launches <= 0 or sched_ops.key_launch_count != launches:
+        fail(f"phase 20: {sched_ops.key_launch_count} of {launches} "
+             f"masked_argext launches on the key body")
+    ticks = int(sig.times.shape[1])
+    cells = ticks * sb["n_edges"] * len(sb["seeds"])
+    rates["seed batch"] = dict(wall_s=batch_s, cells=cells,
+                               edge_ticks_per_s=cells / batch_s)
+    rates["run_fleet seed 0"] = dict(
+        wall_s=own_s, cells=ticks * sb["n_edges"],
+        edge_ticks_per_s=ticks * sb["n_edges"] / own_s)
+    p19 = [r["ticks"] * r["edges"] / r["card_s"]
+           for r in scenario_rows["runs"].values()]
+    p19_tps = [r["ticks_per_s"] for r in scenario_rows["runs"].values()]
+    ratio = rates["padded"]["wall_s"] / untraced_s
+    say(f"phase20 sweep: {len(want)} rows (14 scenarios × {len(pols)} "
+        f"policies × {len(seeds)} seed, {dur / 1e3:.0f} s traced) under "
+        f"both planners, every row == golden (summary, tail_metrics, "
+        f"stream sums and digests; histogram percentiles to one bin where "
+        f"durations are scaled), check_conservation on every row, the "
+        f"planners' rows bitwise equal; the untraced padded batch's final "
+        f"state == the traced one's; seed batch {sb['n_edges']} edges × "
+        f"{len(sb['seeds'])} seeds {sb['policy']}: every lane == golden, "
+        f"lane 0 == run_fleet of seed {sb['seeds'][0]} bitwise; "
+        f"masked_argext {launches} launches, every one on the key body")
+    say(f"phase20 edge-ticks/s (valid cells / host wall): "
+        f"{json.dumps({k: round(v['edge_ticks_per_s'], 1) for k, v in rates.items()})}"
+        f"; walls s {json.dumps({k: round(v['wall_s'], 3) for k, v in rates.items()})}; "
+        f"phase 19 per run in this call: {min(p19):.1f}-{max(p19):.1f} "
+        f"edge-ticks/s ({min(p19_tps):.2f}-{max(p19_tps):.2f} ticks/s); "
+        f"the padded sweep untraced (compile, run_batch, host copy) "
+        f"{untraced_s:.3f} s against {rates['padded']['wall_s']:.3f} s "
+        f"traced (traced/untraced {ratio:.3f}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(rates=rates, launches=launches, traced_ratio=ratio,
+                untraced_s=untraced_s)
 
 
 def states_equal(a, b) -> bool:
@@ -2189,47 +2555,26 @@ def main() -> int:
     if not (os.path.isdir(os.path.join(SRC, "repro_torch"))
             and all(os.path.isfile(f)
                     for f in (GOLDEN, GOLDEN_MODEL, GOLDEN_ZAMBA2,
-                              GOLDEN_QWEN3MOE))):
+                              GOLDEN_QWEN3MOE, GOLDEN_SWEEP))):
         fail("run from a checkout of the repository: src/repro_torch and "
              "the golden files are missing")
     sys.path.insert(0, SRC)
     import numpy as np
 
-    from repro_torch.core import task
     from repro_torch.kernels import _build, decode_attention, ref, sched_ops
     from repro_torch.kernels import flash_attention, moe_gemm, rmsnorm
     from repro_torch.kernels import ssm_scan
     from repro_torch.scenarios.runner import fleet_summary
     from repro_torch.sim import fleet as F
-    from repro_torch.sim import network
 
     golden = json.load(open(GOLDEN))
     dev = torch.device("cuda")
 
-    def models_of(spec):
-        if spec in ("PASSIVE", "ACTIVE"):
-            names = task.PASSIVE if spec == "PASSIVE" else task.ACTIVE
-            return [task.TABLE1[n] for n in names]
-        wl, alpha = spec.split("@")
-        return task.table2(wl, float(alpha))
-
     def signals_of(run, device, n_edges=None, duration_ms=None):
-        th = run["theta"]
-        return F.default_signals(
-            len(models_of(run["models"])),
-            n_edges=n_edges or run["n_edges"],
-            drones_per_edge=golden["drones_per_edge"],
-            duration_ms=duration_ms or run["duration_ms"], dt=golden["dt"],
-            theta_fn=None if th is None else network.trapezium(
-                ramp_up=tuple(th["ramp_up"]),
-                ramp_down=tuple(th["ramp_down"])),
-            seed=golden["seed"], device=device)
+        return golden_signals(golden, run, device, n_edges, duration_ms)
 
     def run_on(run, sig, device):
-        return F.run_fleet(models_of(run["models"]), run["policy"], sig,
-                           dt=golden["dt"], edge_frac=golden["edge_frac"],
-                           cloud_frac=golden["cloud_frac"],
-                           cloud_slots=golden["cloud_slots"], device=device)
+        return golden_run(golden, run, sig, device)
 
     # ---- phase 1: device and build --------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -2390,21 +2735,7 @@ def main() -> int:
         f"previous body at other shapes, device ms: {json.dumps(shape_ms)}")
 
     # ---- phase 3: small parity, card vs host vs golden ------------------
-    for run in (r for r in golden["runs"] if r["phase"] == 3):
-        finals, secs = {}, {}
-        for where, d in (("card", "cuda"), ("host", "cpu")):
-            t0 = time.perf_counter()
-            finals[where] = run_on(run, signals_of(run, d), d)
-            torch.cuda.synchronize()
-            secs[where] = time.perf_counter() - t0
-        if not states_equal(finals["card"], finals["host"]):
-            fail(f"{run['name']}: card and host final states differ")
-        summ = fleet_summary(finals["card"])
-        if summ != run["summary"]:
-            fail(f"{run['name']}: summary {summ} != golden "
-                 f"{run['summary']}")
-        say(f"phase3 {run['name']}: card == host (every leaf), summary == "
-            f"golden; card {secs['card']:.2f} s, host {secs['host']:.2f} s")
+    phase_small(golden)
 
     # ---- phase 4: paper-scale fleet (the main path) ---------------------
     sched_ops.reset_count()
@@ -2440,6 +2771,10 @@ def main() -> int:
     # ---- phase 19: registry scenarios through the port alone ----------
     # before phase 9, whose budgeted horizon absorbs its time
     scenarios = phase_scenarios(golden)
+
+    # ---- phase 20: the traced, batched sweep through the port alone ----
+    # before phase 9 too, for the same reason
+    sweep = phase_sweep(scenarios)
 
     # ---- phases 5-8: the serve path and its kernels ----------------------
     phase_golden(dev, GOLDEN_MODEL, 5)
@@ -2505,8 +2840,36 @@ def main() -> int:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    # one traced window of a padded, heterogeneous batch (1-3 edges, 4 and
+    # 6 models, 2 and 16 pool slots, with and without peer offload)
+    from repro_torch.obs.trace import TraceSpec
+    from repro_torch.scenarios.compile import compile_registry_batch
+    batch, _ = compile_registry_batch(
+        ("rush-hour", "cloud-crunch", "brownout"), ("DEMS", "DEMS-COOP"),
+        (0,), dt=golden["dt"], duration_ms=2_000.0, device="cuda")
+    bprog = F.FleetProgram(dt=golden["dt"], coop_rounds=batch.coop_rounds,
+                           trace=TraceSpec.full())
+    bstate, _ = bprog.step_chunk(batch.profiles, batch.params, batch.state,
+                                 F.slice_signals(batch.signals, 0, 10))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bstate, bres = bprog.step_chunk(
+            batch.profiles, batch.params, bstate,
+            F.slice_signals(batch.signals, 10, 10 + SYNC_TICKS))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if tuple(bres.counters.valid.shape[:2]) != (
+            batch.signals.times.shape[0], SYNC_TICKS):
+        fail("phase 10: the traced batch window has the wrong shape")
     say(f"phase10 sync: {SYNC_TICKS} DEMS-COOP ticks at {coop['n_edges']} "
-        f"edges ran under set_sync_debug_mode('error')")
+        f"edges, and one traced {SYNC_TICKS}-tick window of a padded batch "
+        f"(R {batch.signals.times.shape[0]}, edges "
+        f"{batch.signals.arrive.shape[2]}, models "
+        f"{batch.signals.arrive.shape[3]}), ran under "
+        f"set_sync_debug_mode('error')")
+    del batch, bstate, bres
 
     # ---- phase 11: profile ---------------------------------------------
     from torch.profiler import ProfilerActivity, profile
@@ -2573,6 +2936,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/masked_argext.cu",
         "replaces": "src/repro/kernels/sched_ops.py:41",
         "launches": launches, "scenario_launches": scenarios["launches"],
+        "sweep_launches": sweep["launches"],
         "max_abs_err": max_err, "ms": k_ms,
         "previous_ms": prev_ms, "floor_ms": argext_floor,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

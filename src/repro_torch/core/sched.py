@@ -5,9 +5,11 @@ edge and vmapped by the fleet; here every function takes an explicit
 leading batch axis (the fleet's edge axis ``E``, or none) and reduces
 over the last axis, so one launch covers the whole fleet.  Queue leaves
 are ``[..., Q]``; per-edge scalars (``busy_rem``, ``new_key``, ``model``)
-are ``[...]``; ``now`` and the policy parameters are shared 0-d tensors
-or Python floats; model tables (``gamma_e``, ``static``) are shared
-``[M]`` or per-edge ``[..., M]``.
+are ``[...]``; ``now`` and the policy parameters are per-edge values too
+(0-d tensors or Python floats shared by every edge, or ``[R, 1]`` with a
+replica axis, where the edges of one replica share them); model tables
+(``gamma_e``, ``static``) are shared ``[M]``, per replica ``[R, 1, M]``,
+or per-edge ``[..., M]``.
 
 Queues are structure-of-arrays with a validity mask:
 
@@ -37,19 +39,26 @@ POS = 1e30
 
 
 def _col(x):
-    """Per-edge value → broadcastable against ``[..., Q]`` leaves."""
-    return x.unsqueeze(-1) if isinstance(x, torch.Tensor) else x
+    """Per-edge value → broadcastable against ``[..., Q]`` leaves (a
+    number or a 0-d tensor broadcasts as it is)."""
+    return x.unsqueeze(-1) if isinstance(x, torch.Tensor) and x.dim() \
+        else x
 
 
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` per edge: a shared ``[M]`` table is indexed
-    directly, a per-edge ``[..., M]`` table is gathered along its last
-    axis with ``ids`` of shape ``[..., K]`` or ``[...]``.  Gather and
-    scatter indices are int64 (``.long()`` is free on int64 ids), the
-    dtype every PyTorch release takes."""
+    directly, a per-edge ``[..., M]`` table (or a per-replica one whose
+    edge axis is 1, broadcast over the edges as a view) is gathered along
+    its last axis with ``ids`` of shape ``[..., K]`` or ``[...]``.
+    Gather and scatter indices are int64 (``.long()`` is free on int64
+    ids), the dtype every PyTorch release takes."""
     if table.dim() == 1:
         return table[ids]
-    if ids.dim() == table.dim() - 1:
+    one = ids.dim() == table.dim() - 1
+    lead = ids.shape if one else ids.shape[:-1]
+    if table.shape[:-1] != lead:
+        table = table.expand(lead + table.shape[-1:])
+    if one:
         return table.gather(-1, ids.long().unsqueeze(-1)).squeeze(-1)
     return table.gather(-1, ids.long())
 
@@ -241,7 +250,7 @@ def eqn3_scores(model_ids, now, deadlines, gamma_e, gamma_c,
     """Eqn 3: S = γ^E−γ^C if cloud-feasible ∧ γ^C>0 else γ^E."""
     ge = take(gamma_e, model_ids)
     gc = take(gamma_c, model_ids)
-    feasible = now + take(t_cloud_cur, model_ids) <= deadlines
+    feasible = _col(now) + take(t_cloud_cur, model_ids) <= deadlines
     return torch.where(feasible & (gc > 0), ge - gc, ge)
 
 
@@ -276,7 +285,8 @@ def head_mask(q: EdgeQueue, ahead: torch.Tensor) -> torch.Tensor:
 def head_slack(q: EdgeQueue, now, is_head=None) -> torch.Tensor:
     """σ of the head task: (t'_j+δ_i) − (now + t_i); +inf if empty."""
     is_head = head_mask(q, _ahead_matrix(q)) if is_head is None else is_head
-    return torch.where(is_head, q.deadline - (now + q.t_edge), POS).amin(-1)
+    return torch.where(is_head, q.deadline - (_col(now) + q.t_edge),
+                       POS).amin(-1)
 
 
 def steal_select(cq: CloudQueue, q: EdgeQueue, now, busy_rem,
@@ -297,7 +307,7 @@ def steal_select(cq: CloudQueue, q: EdgeQueue, now, busy_rem,
                             max_front_delay(q, now, busy_rem, ahead), POS)
     gate = torch.where(any_queued, slack > min_edge_t, True)
     eligible = (cq.valid & (cq.t_edge <= _col(delay_cap))
-                & (now + cq.t_edge <= cq.deadline) & _col(gate))
+                & (_col(now) + cq.t_edge <= cq.deadline) & _col(gate))
     # lexicographic (steal_only desc, rank desc) via one f32 score
     score = torch.where(cq.steal_only, 1e12, 0.0) + cq.rank
     idx, _ = sched_ops.masked_argmax(score, eligible)
@@ -327,7 +337,7 @@ def export_select(q: EdgeQueue, now, busy_rem, dst_load,
     or −1."""
     slacks = queue_slacks(q, now, busy_rem)
     feasible_dst = _col(now + dst_load) + q.t_edge <= q.deadline
-    cand = q.valid & feasible_dst & (slacks < slack_thresh)
+    cand = q.valid & feasible_dst & (slacks < _col(slack_thresh))
     idx, _ = sched_ops.masked_argmin(slacks, cand)
     return idx
 
@@ -357,7 +367,7 @@ def gems_winnable(lam, lam_hat, prev_lam, alpha, now, win_end,
     """GEMS-B: can α̂ still reach α this window?  Remaining arrivals are
     forecast from the previous window's count, prorated by the fraction
     of the window left."""
-    frac_left = ((win_end - now) / window).clamp(min=0.0)
+    frac_left = ((win_end - _col(now)) / window).clamp(min=0.0)
     remaining = torch.maximum(prev_lam, lam) * frac_left
     return lam_hat + remaining >= alpha * (lam + remaining) - 1e-9
 
@@ -432,19 +442,19 @@ def adapt_feed_batch(st: AdaptState, model_ids, sent, obs, obs_val, skip,
         avgs = torch.where(active, sums / nobs, float("-inf"))
         for jj in range(jmax):
             a = avgs[..., jj]
-            cur = torch.where(a - cur > eps, a, cur)
+            cur = torch.where(a - cur > _col(eps), a, cur)
         count = (st.count + cnt).clamp(max=w)
         idx = (st.idx + (cnt - torch.minimum((w - st.count).clamp(min=0),
                                              cnt))) % w
     any_skip = segment_sum(skip, model_ids, m) > 0
     inflated = cur > static
-    expired = (cs >= 0) & (now - cs >= t_cp)
+    expired = (cs >= 0) & (_col(now) - cs >= _col(t_cp))
     new_cur = torch.where(any_skip & inflated & expired, static, cur)
     new_cs = torch.where(
         any_skip,
         torch.where(~inflated, cs,
                     torch.where(expired, -1.0,
-                                torch.where(cs < 0, now, cs))),
+                                torch.where(cs < 0, _col(now), cs))),
         cs)
     return AdaptState(buf, count, idx, new_cur, new_cs)
 

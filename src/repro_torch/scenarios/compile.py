@@ -1,5 +1,5 @@
 """Lower a :class:`ScenarioSpec` to simulator inputs; a copy of
-``repro.scenarios.compile`` (without its batching half).
+``repro.scenarios.compile``.
 
 Two targets, sharing the same arrival-time and handover geometry so the
 oracle and the fleet simulator see the same mission:
@@ -22,6 +22,12 @@ Everything is built in numpy on the host, drawing the reference's seeded
 streams in the reference's order, so the arrays equal the reference's
 bit for bit; only the finished window becomes tensors, with the dtypes
 of ``default_signals`` (f32 channels, bool masks, i32 order).
+
+The batching half lowers many runs to one batch: a scenario over seeds
+(:func:`compile_fleet_batch`), and scenarios × policies × seeds as one
+padded batch (:func:`compile_registry_batch`) or as exact-shape buckets
+(:func:`compile_registry_groups`).  Their signals are compiled on the
+host and reach the device once, as the stacked batch.
 """
 from __future__ import annotations
 
@@ -38,7 +44,9 @@ from repro_torch.scenarios.mobility import assignment
 from repro_torch.scenarios.spec import ScenarioSpec
 from repro_torch.sim import network
 from repro_torch.sim.engine import Arrival
-from repro_torch.sim.fleet import FleetSignals
+from repro_torch.sim.fleet import (FleetBatch, FleetSignals,
+                                   _resolve_policy, build_fleet_batch,
+                                   plan_buckets, stack_signals)
 
 
 @dataclasses.dataclass
@@ -582,4 +590,152 @@ def signal_digests(signals: FleetSignals) -> dict[str, str]:
         h = hashlib.sha256(f"{arr.dtype.str}{arr.shape}".encode())
         h.update(arr.tobytes())
         out[name] = h.hexdigest()
+    return out
+
+
+def compile_fleet_batch(spec: ScenarioSpec, seeds: tuple[int, ...],
+                        dt: float = 25.0, *, device="cuda") -> FleetSignals:
+    """Stacked signals ``[R, …]`` for one scenario across ``seeds``,
+    compiled on the host and moved to ``device`` once — the input of
+    :func:`repro_torch.sim.fleet.run_fleet_batch`."""
+    dev = resolve_device(device)
+    stacked = stack_signals([compile_fleet(sp, dt, device="cpu")
+                             for sp in spec.reseeded(tuple(seeds))])
+    return FleetSignals(*(a.to(dev) for a in stacked))
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepRun:
+    """Index row of one run in a registry batch.
+
+    ``lanes`` are the run's replica indices in the batch: a single lane
+    normally, one lane per edge under the edge-flattened lowering (see
+    :func:`compile_registry_batch`).
+    """
+
+    scenario: str
+    policy: str
+    seed: int
+    lanes: tuple[int, ...] = (0,)
+
+
+def _slice_edge(sig: FleetSignals, e: int) -> FleetSignals:
+    """One edge's signals as a 1-edge mission (edge axis kept, length 1)."""
+    return FleetSignals(
+        times=sig.times, theta=sig.theta[:, e:e + 1],
+        bw=sig.bw[:, e:e + 1], arrive=sig.arrive[:, e:e + 1],
+        order=sig.order[:, e:e + 1], load_mult=sig.load_mult[:, e:e + 1],
+        cloud_up=sig.cloud_up, valid=sig.valid[:, e:e + 1],
+        exec_jit=sig.exec_jit[:, e:e + 1],
+        edge_up=sig.edge_up[:, e:e + 1], link_up=sig.link_up[:, e:e + 1])
+
+
+def _sweep_specs(scenarios, duration_ms) -> list[ScenarioSpec]:
+    """Resolve a sweep's scenario list: registry names and/or ad-hoc
+    :class:`ScenarioSpec` instances, all of the registry when ``None``,
+    with an optional ``duration_ms`` override.  Spec names must be
+    unique — they key the sweep's rows."""
+    from repro_torch.scenarios.registry import get, names
+
+    specs = [sc if isinstance(sc, ScenarioSpec) else get(sc)
+             for sc in (tuple(scenarios) if scenarios is not None
+                        else names())]
+    if duration_ms is not None:
+        specs = [dataclasses.replace(sp, duration_ms=duration_ms)
+                 for sp in specs]
+    seen = {sp.name for sp in specs}
+    if len(seen) != len(specs):
+        raise ValueError("sweep scenarios must have unique names, got "
+                         f"{[sp.name for sp in specs]}")
+    return specs
+
+
+def compile_registry_batch(scenarios=None, policies=("DEMS",),
+                           seeds=(0,), *, dt: float = 25.0,
+                           duration_ms: float | None = None, device="cuda"
+                           ) -> tuple[FleetBatch, list[SweepRun]]:
+    """Lower scenarios × policies × seeds to **one** padded batch.
+
+    Every scenario (each named registry entry by default; ad-hoc
+    :class:`ScenarioSpec` instances are accepted too) is compiled per
+    seed, padded to the batch's max (ticks, edges, models) shape with
+    validity masks, and paired with its policy's
+    :class:`~repro_torch.sim.fleet.PolicyParams` and its own
+    ``cloud_concurrency`` pool, so the whole sweep runs as one
+    :func:`repro_torch.sim.fleet.run_batch` call.
+
+    When no requested policy is cooperative, edges never interact, so the
+    batch is **edge-flattened**: each (run, edge) becomes its own 1-edge
+    replica — zero edge padding, per-edge results bitwise identical to
+    the multi-edge fleet — and each :class:`SweepRun` row carries its
+    ``lanes``.  Returns the batch plus the run index, in replica order.
+    """
+    flatten = not any(_resolve_policy(p).cooperation for p in policies)
+    runs, rows, lane = [], [], 0
+    sig_cache: dict = {}    # policies share a (scenario, seed)'s signals
+    for spec in _sweep_specs(scenarios, duration_ms):
+        sc = spec.name
+        for pol in policies:
+            for seed in seeds:
+                sp = dataclasses.replace(spec, seed=seed)
+                if (sc, seed) not in sig_cache:
+                    sig = compile_fleet(sp, dt, device="cpu")
+                    sig_cache[sc, seed] = [
+                        _slice_edge(sig, e) for e in range(sp.n_edges)
+                    ] if flatten else [sig]
+                sigs = sig_cache[sc, seed]
+                runs.extend((sp.models, pol, s, sp.cloud_concurrency)
+                            for s in sigs)
+                lanes = tuple(range(lane, lane + len(sigs)))
+                lane += len(sigs)
+                rows.append(SweepRun(scenario=sc, policy=pol, seed=seed,
+                                     lanes=lanes))
+    return build_fleet_batch(runs, dt=dt, device=device), rows
+
+
+def compile_registry_groups(scenarios=None, policies=("DEMS",),
+                            seeds=(0,), *, dt: float = 25.0,
+                            duration_ms: float | None = None, device="cuda"
+                            ) -> list[tuple[FleetBatch, list[SweepRun]]]:
+    """The sweep as exact-shape buckets — the shape-bucketed planner.
+
+    Routes the sweep of :func:`compile_registry_batch` through
+    :func:`repro_torch.sim.fleet.plan_buckets`: non-cooperative runs are
+    edge-flattened (1-edge replicas, zero edge padding), cooperative runs
+    bucket by their true multi-edge shape, and peer-offload rounds run
+    only in cooperative buckets.  Within a bucket stacking is exact, so
+    each bucket's ``run_batch`` rows equal the per-scenario ``run_fleet``
+    loop bitwise.
+
+    Returns ``(batch, rows)`` per bucket; each row's ``lanes`` index into
+    its own bucket's batch, and the rows of all buckets partition the
+    sweep.
+    """
+    runs, tags = [], []
+    sig_cache: dict = {}
+    for spec in _sweep_specs(scenarios, duration_ms):
+        sc = spec.name
+        for pol in policies:
+            coop = _resolve_policy(pol).cooperation
+            for seed in seeds:
+                sp = dataclasses.replace(spec, seed=seed)
+                if (sc, seed) not in sig_cache:
+                    sig = compile_fleet(sp, dt, device="cpu")
+                    sig_cache[sc, seed] = (
+                        sig, [_slice_edge(sig, e)
+                              for e in range(sp.n_edges)])
+                whole, slices = sig_cache[sc, seed]
+                for s in ([whole] if coop else slices):
+                    runs.append((sp.models, pol, s, sp.cloud_concurrency))
+                    tags.append((sc, pol, seed))
+    out = []
+    for batch, idxs in plan_buckets(runs, dt=dt, device=device):
+        # a run's edge-flattened lanes land in one bucket (same shape,
+        # same policy), in order — regroup them under their sweep row
+        rows: dict = {}
+        for lane, i in enumerate(idxs):
+            rows.setdefault(tags[i], []).append(lane)
+        out.append((batch, [SweepRun(scenario=sc, policy=pol, seed=seed,
+                                     lanes=tuple(lanes))
+                            for (sc, pol, seed), lanes in rows.items()]))
     return out

@@ -1,13 +1,16 @@
 """Drive a scenario through either simulator and merge results (a copy
-of the one-scenario half of ``repro.scenarios.runner``).
+of ``repro.scenarios.runner`` without its streaming runners).
 
 ``run_scenario_oracle`` runs one discrete-event :class:`Simulator` per
 edge site (each with its own θ trace, outage windows and speed-scaled
 model table; ``*-COOP`` policies in the lockstep :class:`FleetOracle`)
 and merges the per-edge :class:`Results` on the host.
 ``run_scenario_fleet`` lowers the same spec to dense tick signals on a
-device and runs the port's fleet tick program; ``fleet_summary`` reads
-its final stacked state.
+device and runs the port's fleet tick program, optionally with the
+flight recorder; ``fleet_summary`` reads its final stacked state.
+``run_scenario_fleet_batch`` runs one scenario over many seeds as one
+batch, and ``run_registry_sweep`` scenarios × policies × seeds as
+exact-shape buckets or one padded batch.
 """
 from __future__ import annotations
 
@@ -18,7 +21,11 @@ import torch
 
 from repro_torch.core.schedulers import make_policy
 from repro_torch.scenarios.compile import (compile_exec_jitter,
-                                           compile_fleet, compile_oracle)
+                                           compile_fleet,
+                                           compile_fleet_batch,
+                                           compile_oracle,
+                                           compile_registry_batch,
+                                           compile_registry_groups)
 from repro_torch.scenarios.spec import ScenarioSpec
 from repro_torch.sim import fleet as F
 from repro_torch.sim.engine import FleetOracle, ModelStats, Results, Simulator
@@ -152,6 +159,7 @@ def run_scenario_oracle(spec: ScenarioSpec, policy: str, *,
 
 def run_scenario_fleet(spec: ScenarioSpec, policy, *, dt: float = 25.0,
                        edge_frac: float = 0.62, cloud_frac: float = 0.80,
+                       record_trace: bool = False, trace=None,
                        device="cuda"):
     """The scenario through the port's fleet tick program; returns the
     final stacked ``EdgeState`` on ``device``.
@@ -159,8 +167,146 @@ def run_scenario_fleet(spec: ScenarioSpec, policy, *, dt: float = 25.0,
     The signals are compiled on ``device`` by :func:`compile_fleet`, and
     the spec's ``cloud_concurrency`` becomes each edge's finite
     ``cloud_slots`` pool, matching the oracle path slot for slot.
+    ``trace`` (a :class:`repro_torch.obs.trace.TraceSpec`;
+    ``record_trace`` is the ``TraceSpec(t_hat=True)`` alias) returns a
+    ``FleetResult`` carrying the requested flight-recorder streams —
+    per-tick adapted t̂ (``[T, E, M]``) and/or decision counters.
     """
     signals = compile_fleet(spec, dt, device=device)
     return F.run_fleet(spec.models, policy, signals, dt=dt,
                        edge_frac=edge_frac, cloud_frac=cloud_frac,
-                       cloud_slots=spec.cloud_concurrency, device=device)
+                       cloud_slots=spec.cloud_concurrency,
+                       record_trace=record_trace, trace=trace, device=device)
+
+
+def run_scenario_fleet_batch(spec: ScenarioSpec, policy,
+                             seeds: tuple[int, ...], *, dt: float = 25.0,
+                             edge_frac: float = 0.62,
+                             cloud_frac: float = 0.80,
+                             record_trace: bool = False, trace=None,
+                             device="cuda"):
+    """One scenario × many seeds as one batch on ``device``.
+
+    Returns a stacked final ``EdgeState`` with leading ``[R, E]`` axes;
+    use :func:`fleet_summary_batch` for per-seed metrics.  ``trace`` /
+    ``record_trace`` switch to a ``FleetResult`` with replica-leading
+    streams (``t_hat`` ``[R, T, E, M]``).
+    """
+    signals = compile_fleet_batch(spec, tuple(seeds), dt, device=device)
+    return F.run_fleet_batch(spec.models, policy, signals, dt=dt,
+                             edge_frac=edge_frac, cloud_frac=cloud_frac,
+                             cloud_slots=spec.cloud_concurrency,
+                             record_trace=record_trace, trace=trace,
+                             device=device)
+
+
+def _to_host(tree):
+    """A result tree with every tensor leaf as a host numpy array (one
+    copy a leaf; ``None`` streams stay ``None``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to_host(v) for v in tree))
+    return _host(tree)
+
+
+def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
+                       dt: float = 25.0, duration_ms: float | None = None,
+                       trace=None, planner: str = "padded",
+                       device="cuda") -> list[dict]:
+    """Scenarios × policies × seeds as batches on ``device``.
+
+    ``planner`` picks the lowering; both give bitwise-identical rows:
+
+    * ``"padded"`` (default) — one max-shape padded batch
+      (:func:`repro_torch.scenarios.compile.compile_registry_batch` and
+      one :func:`repro_torch.sim.fleet.run_batch`).  The eager tick costs
+      the host the same launches whatever its width, so one wide batch
+      beats several narrow ones: on an H100 the registry sweep ran about
+      six times faster padded than bucketed;
+    * ``"bucketed"`` —
+      :func:`repro_torch.scenarios.compile.compile_registry_groups`
+      partitions the sweep into exact-shape buckets
+      (:func:`repro_torch.sim.fleet.plan_buckets`), one batch each, no
+      padding.
+
+    ``scenarios`` accepts registry names and/or ad-hoc
+    :class:`~repro_torch.scenarios.spec.ScenarioSpec` instances.  Returns
+    one summary dict per run, tagged with its (scenario, policy, seed),
+    in sweep order.  Each batch's result is copied to the host once,
+    after its run.
+
+    ``trace`` (a :class:`repro_torch.obs.trace.TraceSpec`) threads the
+    flight recorder through the sweep: each row then also carries a
+    ``"trace"`` ``FleetResult`` of host arrays whose streams are
+    re-stacked to that run's own ``[T, E, …]`` layout (lanes of the
+    edge-flattened lowering concatenated back along the edge axis; under
+    the padded planner the model axis stays padded to the batch maximum,
+    and padded models never count).
+    """
+    traced = trace is not None and trace.enabled
+
+    def summarize(res, rows):
+        final = res.final if traced else res
+        out = []
+        for row in rows:
+            # a run's lanes are its replicas: one for a multi-edge run,
+            # one per edge under the edge-flattened lowering — re-stack
+            # them into the run's [E, …] state so fleet_summary reduces
+            # the per-edge values as the run_fleet path does
+            def restack(tree, axis=0):
+                if tree is None:
+                    return None
+                if isinstance(tree, tuple):
+                    return type(tree)(*(restack(v, axis) for v in tree))
+                parts = [tree[i] for i in row.lanes]
+                return parts[0] if len(parts) == 1 \
+                    else np.concatenate(parts, axis=axis)
+            state = restack(final)
+            d = dict(scenario=row.scenario, policy=row.policy,
+                     seed=row.seed, **fleet_summary(state))
+            if traced:
+                # trace streams are [T, E, …]: lanes rejoin on the edge
+                # axis
+                d["trace"] = F.FleetResult(
+                    final=state, t_hat=restack(res.t_hat, axis=1),
+                    counters=restack(res.counters, axis=1))
+            out.append(d)
+        return out
+
+    if planner == "bucketed":
+        by_key = {}
+        for batch, rows in compile_registry_groups(
+                scenarios, policies, seeds, dt=dt, duration_ms=duration_ms,
+                device=device):
+            res = _to_host(F.run_batch(batch, dt=dt, trace=trace))
+            for d in summarize(res, rows):
+                by_key[d["scenario"], d["policy"], d["seed"]] = d
+        from repro_torch.scenarios.registry import names
+        order = tuple(sc if isinstance(sc, str) else sc.name
+                      for sc in scenarios) if scenarios is not None \
+            else names()
+        return [by_key[sc, pol, seed]
+                for sc in order for pol in policies for seed in seeds]
+    if planner != "padded":
+        raise ValueError(f"unknown planner {planner!r}; "
+                         f"choose 'bucketed' or 'padded'")
+
+    batch, rows = compile_registry_batch(scenarios, policies, seeds, dt=dt,
+                                         duration_ms=duration_ms,
+                                         device=device)
+    return summarize(_to_host(F.run_batch(batch, dt=dt, trace=trace)), rows)
+
+
+def fleet_summary_batch(final) -> list[dict[str, float]]:
+    """Per-replica summaries from a ``run_fleet_batch`` final state."""
+    final = _to_host(final)
+    return [fleet_summary(_index(final, r))
+            for r in range(final.qos_utility.shape[0])]
+
+
+def _index(tree, r: int):
+    """Replica ``r`` of a host tree."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_index(v, r) for v in tree))
+    return tree[r]

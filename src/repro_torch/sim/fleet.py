@@ -1,12 +1,18 @@
 """Fleet-scale scheduler simulation (paper §8.6) as one batched PyTorch
 tick program.
 
-Port of ``repro.sim.fleet_jax`` (unsharded, untraced).  The JAX tick is
-written for one edge and vmapped over the fleet; here every
-:class:`EdgeState` leaf carries an explicit leading edge axis ``E`` and
-each tick is one pass of batched tensor operations over the whole fleet,
-so every launch covers every edge.  ``prof``, ``pp``, ``now`` and
-``cloud_up`` are shared; the state and the per-edge signals carry ``E``.
+Port of ``repro.sim.fleet_jax`` (unsharded).  The JAX tick is written for
+one edge and vmapped over the fleet and, in a batch, over replicas; here
+every :class:`EdgeState` leaf carries explicit leading axes — ``[E]`` for
+one fleet, ``[R, E]`` for R replicas of it — and each tick is one pass of
+batched tensor operations over all of them, so every launch covers every
+edge of every replica.  There is one tick function for both: it reduces
+over trailing axes only, and the per-replica values it meets (``now``,
+``cloud_up``, the :class:`PolicyParams` flags, ``min(t_edge)``) are
+per-edge values, 0-d for one fleet and ``[R, 1]`` with a replica axis;
+model tables are ``[M]``, or ``[R, 1, M]`` per replica (a padded,
+heterogeneous batch).  The replicas of a batch never exchange work:
+peer offload selects per replica.
 
 Modeling (identical to the reference, documented there): a fixed time
 step ``dt``; deterministic execution fractions (edge ``edge_frac·t``,
@@ -14,13 +20,23 @@ cloud ``cloud_frac·t̂ + θ(t) + bw-penalty``) scaled by the sampled
 ``exec_jit`` lane; a finite per-edge cloud pool with a depth-aware
 queue-wait estimate; estimator and offer events batched per tick.
 
-Policy flags are runtime 0-d tensors (:class:`PolicyParams`) read only
+Policy flags are runtime tensors (:class:`PolicyParams`) read only
 through ``torch.where``: one tick program serves every policy.  Nothing
 inside a tick synchronises with the host (no ``.item()``, no boolean-mask
 indexing, no branch on a tensor), so a tick can later be captured as a
 CUDA graph.  The only kernel on the path is the masked arg-extremum of
 :mod:`repro_torch.kernels.sched_ops` (stealing, export and peer-offload
 selection), which runs the hand-written CUDA kernel on the card.
+
+Every entry point takes ``trace=`` (:class:`repro_torch.obs.trace.
+TraceSpec`), the flight recorder: read-only taps of the tick emit the
+per-tick decision counters and/or the adapted-t̂ stream beside the final
+state (:class:`FleetResult`).  With it off the tick launches exactly what
+it launched before the recorder existed; with it on the final state is
+bit-identical.  Host aggregation lives in :mod:`repro_torch.obs.metrics`.
+The batch entry points (:func:`run_fleet_batch`, :func:`build_fleet_batch`
+/ :func:`plan_buckets` / :func:`run_batch`) run many scenarios, policies
+and seeds under one set of launches a tick.
 """
 from __future__ import annotations
 
@@ -34,6 +50,9 @@ from repro_torch import resolve_device
 from repro_torch.core import sched as js
 from repro_torch.core import schedulers as _sched
 from repro_torch.kernels import sched_ops
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import (TickCounters, TraceSpec, hist_counts,
+                                   resolve_spec, zero_counters)
 from repro_torch.sim import network
 
 EDGE_CAP = 32
@@ -51,9 +70,13 @@ _FLEET_POLICIES = {
     for name in _FLEET_POLICY_NAMES
 }
 
+_col = js._col
+_I32 = torch.int32
+
 
 class PolicyParams(NamedTuple):
-    """Policy flags as 0-d device tensors (read through ``torch.where``)."""
+    """Policy flags as 0-d device tensors (read through ``torch.where``),
+    ``[R]`` for a heterogeneous batch."""
 
     migration: torch.Tensor        # bool[]
     stealing: torch.Tensor         # bool[]
@@ -149,7 +172,8 @@ class FleetPolicy:
 
 
 class Profiles(NamedTuple):
-    """Array-of-struct model table (M models), shared by every edge."""
+    """Array-of-struct model table (M models), shared by every edge;
+    ``[R, M]`` leaves for a heterogeneous batch."""
 
     t_edge: torch.Tensor
     t_cloud: torch.Tensor
@@ -164,9 +188,14 @@ class Profiles(NamedTuple):
     qoe_window: torch.Tensor
 
     @classmethod
-    def build(cls, models, device="cuda") -> "Profiles":
+    def build(cls, models, device="cuda",
+              pad_to: Optional[int] = None) -> "Profiles":
         """The table of ``models`` (any objects with the
-        :class:`~repro_torch.core.task.ModelProfile` attributes)."""
+        :class:`~repro_torch.core.task.ModelProfile` attributes).
+        ``pad_to`` appends inert models for a padded batch: huge
+        latencies, deadline and window keep ``min(t_edge)`` (the stealing
+        gate) and window expiry untouched, zero utilities keep every
+        masked sum exact."""
         dev = resolve_device(device)
         cols = dict(
             t_edge=[m.t_edge for m in models],
@@ -180,12 +209,17 @@ class Profiles(NamedTuple):
             qoe_alpha=[m.qoe_alpha for m in models],
             qoe_beta=[m.qoe_beta for m in models],
             qoe_window=[m.qoe_window for m in models])
-        return cls(**{k: torch.as_tensor(np.asarray(v, np.float32)).to(dev)
-                      for k, v in cols.items()})
+        width = 0 if pad_to is None else max(pad_to - len(models), 0)
+        pad_val = dict(t_edge=js.POS, t_cloud=js.POS, deadline=js.POS,
+                       qoe_window=js.POS)
+        return cls(**{k: torch.as_tensor(np.asarray(
+            v + [pad_val.get(k, 0.0)] * width, np.float32)).to(dev)
+            for k, v in cols.items()})
 
 
 class EdgeState(NamedTuple):
-    """Per-edge scheduler state; every leaf leads with the edge axis E."""
+    """Per-edge scheduler state; every leaf leads with the edge axis E
+    (``[R, E]`` with a replica axis)."""
 
     eq: js.EdgeQueue
     cq: js.CloudQueue
@@ -215,12 +249,40 @@ class EdgeState(NamedTuple):
     adapt: js.AdaptState         # DEMS-A per-model sliding-window t̂
 
 
+class FleetResult(NamedTuple):
+    """A fleet run with flight-recorder telemetry (``trace=TraceSpec``).
+
+    ``t_hat`` carries ``adapt.current`` out of every tick, ``[T, E, M]``
+    from :func:`run_fleet` and ``[R, T, E, M]`` from the batch entry
+    points; ``counters`` the per-tick :class:`~repro_torch.obs.trace.
+    TickCounters` (leaves ``[T, E, …]`` / ``[R, T, E, …]``).  Streams the
+    :class:`~repro_torch.obs.trace.TraceSpec` did not ask for are
+    ``None``.
+    """
+
+    final: EdgeState
+    t_hat: Optional[torch.Tensor] = None          # f32[(R,) T, E, M]
+    counters: Optional[TickCounters] = None       # [(R,) T, E, …] leaves
+
+
+def _tr_add(tr: TickCounters, **deltas) -> TickCounters:
+    """Accumulate this tick's trace contributions.  Callers tap only
+    when the flight recorder is on, so the untraced tick launches
+    nothing extra."""
+    return tr._replace(**{k: getattr(tr, k) + v for k, v in deltas.items()})
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    """True entries over the last axis, as the counters' int32."""
+    return mask.sum(-1, dtype=_I32)
+
+
 def init_state(prof: Profiles, n_edges: int, adapt_window: int = 10,
                cloud_slots: int = CLOUD_SLOTS,
                total_slots: Optional[int] = None) -> EdgeState:
-    """Fresh stacked fleet state on ``prof``'s device.  ``total_slots``
-    oversizes the busy-until array; slots beyond ``cloud_slots`` stay at
-    +inf so they are never free."""
+    """Fresh stacked fleet state on ``prof``'s device (one replica's
+    ``[M]`` table).  ``total_slots`` oversizes the busy-until array;
+    slots beyond ``cloud_slots`` stay at +inf so they are never free."""
     dev = prof.t_edge.device
     m = prof.t_edge.shape[0]
     total = cloud_slots if total_slots is None else total_slots
@@ -256,11 +318,18 @@ def _add_at(x: torch.Tensor, ids: torch.Tensor, vals) -> torch.Tensor:
                          vals.to(x.dtype).unsqueeze(-1))
 
 
+def _per_edge(pred: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``pred`` (``a``'s leading axes) viewed to broadcast over ``a``'s
+    trailing axes."""
+    return pred.view(pred.shape + (1,) * (a.dim() - pred.dim()))
+
+
 def _tree_where(pred: torch.Tensor, a, b):
-    """Per-edge select between two state trees (``pred``: bool[E])."""
+    """Per-edge select between two state trees (``pred``: bool[E] or
+    bool[R, E])."""
     if isinstance(a, tuple):
         return type(a)(*(_tree_where(pred, x, y) for x, y in zip(a, b)))
-    return torch.where(pred.view(pred.shape + (1,) * (a.dim() - 1)), a, b)
+    return torch.where(_per_edge(pred, a), a, b)
 
 
 def _pool_wait(st: EdgeState, now, busy_sorted=None) -> torch.Tensor:
@@ -279,7 +348,7 @@ def _pool_wait(st: EdgeState, now, busy_sorted=None) -> torch.Tensor:
 def _free_slot_gate(busy_until, now, want) -> torch.Tensor:
     """Admit the first ``n_free`` wanting tasks, in slot order."""
     taken_before = torch.cumsum(want, -1) - want.long()
-    return taken_before < (busy_until <= now).sum(-1, keepdim=True)
+    return taken_before < (busy_until <= _col(now)).sum(-1, keepdim=True)
 
 
 def _occupy_slots(busy_until, now, dispatch, end_time) -> torch.Tensor:
@@ -293,7 +362,7 @@ def _occupy_slots(busy_until, now, dispatch, end_time) -> torch.Tensor:
     end_by_rank = torch.zeros(busy_until.shape[:-1] + (s + 1,),
                               device=busy_until.device).scatter(
         -1, tgt, end_time)[..., :s]
-    free = busy_until <= now
+    free = busy_until <= _col(now)
     frank = torch.cumsum(free, -1) - free.long()
     fill = free & (frank < dispatch.sum(-1, keepdim=True))
     return torch.where(fill, end_by_rank.gather(-1, frank), busy_until)
@@ -303,12 +372,13 @@ def _t_cloud_cur(st: EdgeState, prof: Profiles, pp: PolicyParams, now,
                  busy_sorted=None) -> torch.Tensor:
     """Current cloud-latency estimate t̂ per (edge, model) (§5.4) plus the
     finite-pool queue-wait estimate."""
-    base = torch.where(pp.adaptive, st.adapt.current, prof.t_cloud)
+    base = torch.where(_col(pp.adaptive), st.adapt.current, prof.t_cloud)
     return base + _pool_wait(st, now, busy_sorted).unsqueeze(-1)
 
 
 class FleetSignals(NamedTuple):
-    """Dense per-tick scenario signals driving the fleet simulator."""
+    """Dense per-tick scenario signals driving the fleet simulator (a
+    leading replica axis ``R`` on every field in a batch)."""
 
     times: torch.Tensor       # f32[T]      tick start times [ms]
     theta: torch.Tensor       # f32[T,E]    per-edge added WAN latency θ(t)
@@ -324,10 +394,11 @@ class FleetSignals(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# per-tick logic, batched over the edge axis
+# per-tick logic, batched over the edge (and replica) axes
 # ---------------------------------------------------------------------------
 
-def _resolve_cloud(st: EdgeState, prof: Profiles, pp: PolicyParams, now,
+def _resolve_cloud(st: EdgeState, tr: Optional[TickCounters],
+                   tspec: TraceSpec, prof: Profiles, pp: PolicyParams, now,
                    theta, bw_pen, cloud_frac, cloud_up, link_up, jit_c):
     """Dispatch matured cloud tasks into the finite FaaS pool.
 
@@ -337,42 +408,58 @@ def _resolve_cloud(st: EdgeState, prof: Profiles, pp: PolicyParams, now,
     adapted t̂ and feeds the dispatched tasks' durations to the estimator.
     """
     cq, cqm = st.cq, st.cq_model
-    mature = (cq.valid & (cq.trigger <= now) & cloud_up
+    now_q = _col(now)
+    mature = (cq.valid & (cq.trigger <= now_q) & _col(cloud_up)
               & link_up.unsqueeze(-1))
-    timed_out = cq.valid & ~cq.steal_only & (now - cq.trigger
-                                             > pp.cloud_give_up_ms)
+    timed_out = cq.valid & ~cq.steal_only & (now_q - cq.trigger
+                                             > _col(pp.cloud_give_up_ms))
     run = mature & ~cq.steal_only & ~timed_out
-    t_cloud_q = prof.t_cloud[cqm]
-    fits_a = now + js.take(st.adapt.current, cqm) <= cq.deadline
-    fits_s = ~st.cq_blocked | (now + t_cloud_q <= cq.deadline)
-    fits = torch.where(pp.adaptive, fits_a, fits_s)
+    t_cloud_q = js.take(prof.t_cloud, cqm)
+    fits_a = now_q + js.take(st.adapt.current, cqm) <= cq.deadline
+    fits_s = ~st.cq_blocked | (now_q + t_cloud_q <= cq.deadline)
+    fits = torch.where(_col(pp.adaptive), fits_a, fits_s)
     avail = _free_slot_gate(st.cloud_busy_until, now, run & fits)
     dispatch = run & fits & avail
     skipped = run & ~fits & avail     # popped + JIT-dropped, slot stays free
     act = (cloud_frac * t_cloud_q * js.take(jit_c, cqm)
            + theta.unsqueeze(-1) + bw_pen.unsqueeze(-1))
-    success = dispatch & (now + act <= cq.deadline)
-    util = torch.where(success, prof.gamma_c[cqm],
-                       torch.where(dispatch, -prof.cost_c[cqm], 0.0)).sum(-1)
+    success = dispatch & (now_q + act <= cq.deadline)
+    util = torch.where(success, js.take(prof.gamma_c, cqm),
+                       torch.where(dispatch, -js.take(prof.cost_c, cqm),
+                                   0.0)).sum(-1)
     dropped = mature & cq.steal_only         # not stolen in time (§5.3)
+    if tr is not None:
+        # drops by cause, pool pressure, and the settled tasks' slack and
+        # latency
+        done = now_q + act
+        tr = _tr_add(
+            tr, cloud_dispatch=_count(dispatch),
+            pool_blocked=_count(run & ~avail),
+            drop_infeasible=_count(skipped), drop_unstolen=_count(dropped),
+            drop_timeout=_count(timed_out),
+            slack_hist=hist_counts(cq.deadline - done, success, tspec),
+            latency_hist=hist_counts(
+                done - (cq.deadline - js.take(prof.deadline, cqm)), success,
+                tspec))
     settled = dispatch | skipped | dropped | timed_out
     new_valid = cq.valid & ~settled
     st = st._replace(
         cq=cq._replace(valid=new_valid),
         cloud_busy_until=_occupy_slots(st.cloud_busy_until, now, dispatch,
-                                       now + act),
+                                       now_q + act),
         cq_blocked=(st.cq_blocked | (run & ~avail)) & new_valid,
         n_success=js.segment_add(st.n_success, cqm, success),
         n_miss=js.segment_add(st.n_miss, cqm, dispatch & ~success),
         n_drop=js.segment_add(st.n_drop, cqm,
                               dropped | skipped | timed_out),
         qos_utility=st.qos_utility + util)
-    sent = dispatch & pp.adaptive
+    sent = dispatch & _col(pp.adaptive)
     st = st._replace(adapt=js.adapt_feed_batch(
-        st.adapt, cqm, sent, sent, act, skipped & pp.adaptive, now,
+        st.adapt, cqm, sent, sent, act, skipped & _col(pp.adaptive), now,
         prof.t_cloud, pp.adapt_eps, pp.adapt_cooling_ms,
         max_obs=st.cloud_busy_until.shape[-1]))
-    return _gems_bulk(st, prof, success & pp.gems, settled & pp.gems, cqm)
+    gems = _col(pp.gems)
+    return _gems_bulk(st, prof, success & gems, settled & gems, cqm), tr
 
 
 def _gems_bulk(st: EdgeState, prof: Profiles, success_mask, done_mask,
@@ -383,37 +470,50 @@ def _gems_bulk(st: EdgeState, prof: Profiles, success_mask, done_mask,
         lam_hat=js.segment_add(st.lam_hat, model_ids, success_mask))
 
 
-def _gems_act(st: EdgeState, prof: Profiles, pp: PolicyParams, now, theta,
-              bw_pen, cloud_frac, link_up, jit_c,
-              busy_sorted=None) -> EdgeState:
+def _gems_act(st: EdgeState, tr: Optional[TickCounters], tspec: TraceSpec,
+              prof: Profiles, pp: PolicyParams, now, theta, bw_pen,
+              cloud_frac, link_up, jit_c, busy_sorted=None):
     """Alg. 1: reschedule lagging models' edge tasks into the finite
     cloud pool, close expired windows (GEMS-B adds the winnability gate;
     GEMS-A resolves moves at the actual-duration model)."""
     eq = st.eq
     em = eq.model
+    now_q = _col(now)
+    gems = _col(pp.gems)
+    adaptive = _col(pp.adaptive)
     lag_rate = st.lam_hat / st.lam.clamp(min=1)
     lagging = (st.lam > 0) & (lag_rate < prof.qoe_alpha)
-    lost = pp.gems_budget & ~js.gems_winnable(
+    lost = _col(pp.gems_budget) & ~js.gems_winnable(
         st.lam, st.lam_hat, st.prev_lam, prof.qoe_alpha, now, st.win_end,
         prof.qoe_window)
     proj = js.projected_completions(eq, now, st.busy_rem.clamp(min=0.0))
     doomed = proj > eq.deadline
 
     t_hat = _t_cloud_cur(st, prof, pp, now, busy_sorted)
-    feas = now + js.take(t_hat, em) <= eq.abs_dl
-    gamma_c_q = prof.gamma_c[em]
+    feas = now_q + js.take(t_hat, em) <= eq.abs_dl
+    gamma_c_q = js.take(prof.gamma_c, em)
     cand = (eq.valid & js.take(lagging, em) & (gamma_c_q > 0) & feas
-            & pp.gems & link_up.unsqueeze(-1))
+            & gems & link_up.unsqueeze(-1))
     want = cand & (~js.take(lost, em) | doomed)
     move = want & _free_slot_gate(st.cloud_busy_until, now, want)
-    t_cloud_q = prof.t_cloud[em]
+    t_cloud_q = js.take(prof.t_cloud, em)
     hold = (cloud_frac * t_cloud_q * js.take(jit_c, em)
             + theta.unsqueeze(-1) + bw_pen.unsqueeze(-1))
-    act = torch.where(pp.adaptive, hold, t_cloud_q)
-    success = move & (now + act <= eq.abs_dl)
+    act = torch.where(adaptive, hold, t_cloud_q)
+    success = move & (now_q + act <= eq.abs_dl)
+    if tr is not None:
+        done = now_q + act
+        tr = _tr_add(
+            tr, gems_moved=_count(move),
+            gems_withheld=_count(cand & js.take(lost, em) & ~doomed),
+            slack_hist=hist_counts(eq.abs_dl - done, success, tspec),
+            latency_hist=hist_counts(
+                done - (eq.abs_dl - js.take(prof.deadline, em)), success,
+                tspec))
     util = torch.where(success, gamma_c_q,
-                       torch.where(move, -prof.cost_c[em], 0.0)).sum(-1)
-    fed = move & pp.adaptive
+                       torch.where(move, -js.take(prof.cost_c, em),
+                                   0.0)).sum(-1)
+    fed = move & adaptive
     st = st._replace(adapt=js.adapt_feed_batch(
         st.adapt, em, fed, fed, act, torch.zeros_like(fed), now,
         prof.t_cloud, pp.adapt_eps, pp.adapt_cooling_ms,
@@ -421,14 +521,14 @@ def _gems_act(st: EdgeState, prof: Profiles, pp: PolicyParams, now, theta,
     st = st._replace(
         eq=js.edge_remove(eq, move),
         cloud_busy_until=_occupy_slots(st.cloud_busy_until, now, move,
-                                       now + hold),
+                                       now_q + hold),
         n_success=js.segment_add(st.n_success, em, success),
         n_miss=js.segment_add(st.n_miss, em, move & ~success),
         qos_utility=st.qos_utility + util)
     st = _gems_bulk(st, prof, success, move, em)
 
     # tumbling-window close (Eqn 2)
-    expired = (now > st.win_end) & pp.gems
+    expired = (now_q > st.win_end) & gems
     met = expired & (st.lam > 0) & (st.lam_hat / st.lam.clamp(min=1)
                                     >= prof.qoe_alpha)
     qoe = torch.where(met, prof.qoe_beta, 0.0).sum(-1)
@@ -439,12 +539,12 @@ def _gems_act(st: EdgeState, prof: Profiles, pp: PolicyParams, now, theta,
         win_end=torch.where(expired, st.win_end + prof.qoe_window,
                             st.win_end),
         qoe_utility=st.qoe_utility + qoe,
-        windows_met=st.windows_met + met)
+        windows_met=st.windows_met + met), tr
 
 
 def _offer_cloud_many(st: EdgeState, prof: Profiles, pp: PolicyParams, now,
                       models, deadlines, t_edges, enable, t_cur=None):
-    """Vectorized cloud admission for a ``[E, K]`` batch of offers.
+    """Vectorized cloud admission for a ``[..., K]`` batch of offers.
 
     Accepted offers fill each edge's free cloud-queue slots in ascending
     order — the slots a sequential push loop would pick; every check reads
@@ -452,19 +552,21 @@ def _offer_cloud_many(st: EdgeState, prof: Profiles, pp: PolicyParams, now,
     """
     if t_cur is None:
         t_cur = _t_cloud_cur(st, prof, pp, now)
+    now_q = _col(now)
+    stealing = _col(pp.stealing)
+    use_cloud = _col(pp.use_cloud)
     t_hat = js.take(t_cur, models)
-    feasible = now + t_hat <= deadlines
-    negative = (prof.gamma_c[models] <= 0) & ~pp.cloud_neg_ok
+    feasible = now_q + t_hat <= deadlines
+    negative = (js.take(prof.gamma_c, models) <= 0) & ~_col(pp.cloud_neg_ok)
     trig_steal = torch.where(negative, deadlines - t_edges,
-                             torch.maximum(now, deadlines - t_hat
-                                           - pp.cloud_margin))
+                             torch.maximum(now_q, deadlines - t_hat
+                                           - _col(pp.cloud_margin)))
     accept_steal = enable & feasible & torch.where(negative,
-                                                   trig_steal >= now, True)
+                                                   trig_steal >= now_q, True)
     accept_plain = enable & feasible & ~negative
-    accept = pp.use_cloud & torch.where(pp.stealing, accept_steal,
-                                        accept_plain)
-    trigger = torch.where(pp.stealing, trig_steal, now)
-    steal_only = pp.stealing & negative
+    accept = use_cloud & torch.where(stealing, accept_steal, accept_plain)
+    trigger = torch.where(stealing, trig_steal, now_q)
+    steal_only = stealing & negative
 
     free = ~st.cq.valid
     qc = free.shape[-1]
@@ -490,31 +592,31 @@ def _offer_cloud_many(st: EdgeState, prof: Profiles, pp: PolicyParams, now,
             t_edge=put(st.cq.t_edge, t_edges),
             deadline=put(st.cq.deadline, deadlines),
             steal_only=put(st.cq.steal_only, steal_only),
-            rank=put(st.cq.rank, prof.steal_rank[models])),
+            rank=put(st.cq.rank, js.take(prof.steal_rank, models))),
         cq_model=put(st.cq_model, models),
         cq_blocked=st.cq_blocked & ~fill)
-    skip = enable & ~accept & pp.use_cloud & pp.adaptive
+    skip = enable & ~accept & use_cloud & _col(pp.adaptive)
     st = st._replace(adapt=js.adapt_feed_batch(
         st.adapt, models, None, None, None, skip, now, prof.t_cloud,
         pp.adapt_eps, pp.adapt_cooling_ms, with_obs=False))
     return st, pushed, accept
 
 
-def _route_arrival(st: EdgeState, prof: Profiles, pp: PolicyParams, now,
-                   model, arrive, load_mult, edge_up,
-                   busy_sorted=None) -> EdgeState:
+def _route_arrival(st: EdgeState, tr: Optional[TickCounters],
+                   prof: Profiles, pp: PolicyParams, now, model, arrive,
+                   load_mult, edge_up, busy_sorted=None):
     """Task-scheduler routing for one arriving task per edge (§5.1–5.2,
     §8.2): edge insert by the policy's priority key and feasibility rule
     (EDF/HPF/SJF, SOTA1 deadline buffer, SOTA2 ACT rule, DEM migration),
     else — together with any migration victims — one vectorized cloud
-    offer.  ``model``/``arrive``/``load_mult``/``edge_up`` are ``[E]``;
+    offer.  ``model``/``arrive``/``load_mult``/``edge_up`` are per edge;
     ``busy_sorted`` may pass in the pool's sorted busy-until times."""
     eq, busy = st.eq, st.busy_rem
-    dl_m = prof.deadline[model]
+    dl_m = js.take(prof.deadline, model)
     abs_dl = now + dl_m
-    te = prof.t_edge[model] * load_mult
+    te = js.take(prof.t_edge, model) * load_mult
     key0 = js.edge_priority_key(pp.edge_prio, abs_dl, te,
-                                prof.gamma_e[model])
+                                js.take(prof.gamma_e, model))
     feas0 = js.insert_feasible(eq, now, busy, key0, te, abs_dl)
     proj = js.projected_completions(eq, now, busy)
     victims = js.victim_mask(eq, now, busy, key0, te, proj=proj)
@@ -551,32 +653,42 @@ def _route_arrival(st: EdgeState, prof: Profiles, pp: PolicyParams, now,
     dls = torch.cat([eq.abs_dl, abs_dl.unsqueeze(-1)], -1)
     tes = torch.cat([eq.t_edge, te.unsqueeze(-1)], -1)
     offer = torch.cat([vic, to_cloud.unsqueeze(-1)], -1)
-    st, pushed, _ = _offer_cloud_many(st, prof, pp, now, models, dls, tes,
-                                      offer, t_cur=t_cur)
+    st, pushed, accepted = _offer_cloud_many(st, prof, pp, now, models, dls,
+                                             tes, offer, t_cur=t_cur)
     eq = js.edge_remove(st.eq, vic)
     eq, ok = js.edge_push(eq, key, st.seq, te, sched_dl, model,
                           enable=insert_edge, abs_dl=abs_dl)
     # a full edge queue loses the task: account it as a drop
     lost = insert_edge & ~ok
+    if tr is not None:
+        tr = _tr_add(
+            tr, arrivals=arrive, admit_edge=insert_edge & ok,
+            admit_cloud=_count(pushed), migrated=_count(vic),
+            drop_infeasible=_count(offer & ~accepted),
+            drop_qfull=lost + _count(offer & accepted & ~pushed))
     n_drop = js.segment_add(_add_at(st.n_drop, model, lost), models,
                             offer & ~pushed)
-    return st._replace(eq=eq, seq=st.seq + arrive, n_drop=n_drop)
+    return st._replace(eq=eq, seq=st.seq + arrive, n_drop=n_drop), tr
 
 
-def _edge_execute(st: EdgeState, prof: Profiles, pp: PolicyParams, now, dt,
-                  edge_frac, min_edge_t, jit_e, edge_up) -> EdgeState:
+def _edge_execute(st: EdgeState, tr: Optional[TickCounters],
+                  tspec: TraceSpec, prof: Profiles, pp: PolicyParams, now,
+                  dt, edge_frac, min_edge_t, jit_e, edge_up):
     """Edge executor: JIT drops, stealing, starting the next task, for
     ``SUBSTEPS`` actions a tick.  A crashed edge flushes its queue as
     drops and suspends stealing/starts; the task in flight completes."""
-    m = prof.t_edge.shape[0]
+    m = prof.t_edge.shape[-1]
     m_ids = torch.arange(m, dtype=torch.int32, device=st.seq.device)
+    gems = _col(pp.gems)
 
     flush = st.eq.valid & ~edge_up.unsqueeze(-1)
     st = st._replace(
         eq=js.edge_remove(st.eq, flush),
         n_drop=js.segment_add(st.n_drop, st.eq.model, flush))
-    st = _gems_bulk(st, prof, torch.zeros_like(flush), flush & pp.gems,
+    st = _gems_bulk(st, prof, torch.zeros_like(flush), flush & gems,
                     st.eq.model)
+    if tr is not None:
+        tr = _tr_add(tr, drop_crash=_count(flush))
     # the executor only clears valid bits: queue order stays fixed
     earlier = js.earlier_matrix(st.eq)
 
@@ -597,7 +709,7 @@ def _edge_execute(st: EdgeState, prof: Profiles, pp: PolicyParams, now, dt,
             eq=s.eq._replace(valid=torch.where(do_drop.unsqueeze(-1),
                                                eq_after.valid, s.eq.valid)),
             n_drop=s.n_drop + drop_hit,
-            lam=s.lam + (drop_hit & pp.gems))
+            lam=s.lam + (drop_hit & gems))
 
         idle = idle & ~head_infeasible
         # stealing (§5.3)
@@ -627,11 +739,23 @@ def _edge_execute(st: EdgeState, prof: Profiles, pp: PolicyParams, now, dt,
         start = can_steal | start_head
         act = edge_frac * run_te * js.take(jit_e, run_model)
         success = start & (now + act <= run_dl)
-        util = torch.where(success, prof.gamma_e[run_model],
-                           torch.where(start, -prof.cost_e[run_model], 0.0))
+        util = torch.where(success, js.take(prof.gamma_e, run_model),
+                           torch.where(start,
+                                       -js.take(prof.cost_e, run_model),
+                                       0.0))
+        if tr is not None:
+            done = now + act
+            ok = success.unsqueeze(-1)
+            tr = _tr_add(
+                tr, drop_infeasible=do_drop, edge_exec=start,
+                slack_hist=hist_counts((run_dl - done).unsqueeze(-1), ok,
+                                       tspec),
+                latency_hist=hist_counts(
+                    (done - (run_dl - js.take(prof.deadline, run_model)))
+                    .unsqueeze(-1), ok, tspec))
         run_hit = (m_ids == run_model.unsqueeze(-1)) & start.unsqueeze(-1)
         ok_hit = run_hit & success.unsqueeze(-1)
-        gems_hit = run_hit & pp.gems
+        gems_hit = run_hit & gems
         st = s._replace(
             eq=s.eq._replace(valid=torch.where(start_head.unsqueeze(-1),
                                                eq_after.valid, s.eq.valid)),
@@ -646,38 +770,72 @@ def _edge_execute(st: EdgeState, prof: Profiles, pp: PolicyParams, now, dt,
             lam_hat=s.lam_hat + (gems_hit & ok_hit))
 
     # at most one tick of banked debt; idle edges do not accumulate credit
-    return st._replace(busy_rem=(st.busy_rem - dt).clamp(min=-dt))
+    return st._replace(busy_rem=(st.busy_rem - dt).clamp(min=-dt)), tr
 
 
-def make_step(dt: float, edge_frac: float, cloud_frac: float):
+def make_step(dt: float, edge_frac: float, cloud_frac: float,
+              tspec: TraceSpec = TraceSpec()):
     """The policy-generic fleet tick: ``step(prof, pp, state, inputs)``
     with ``inputs`` one tick's row of :class:`FleetSignals` (``now`` and
-    ``cloud_up`` 0-d, the rest per edge)."""
+    ``cloud_up`` per-edge values: 0-d, or ``[R, 1]`` with a replica
+    axis; the rest per edge).  Returns ``(state, counters)``: with
+    ``tspec.counters`` the second value is this tick's
+    :class:`~repro_torch.obs.trace.TickCounters`, else ``None`` and the
+    tick launches nothing for the recorder."""
 
     def step(prof: Profiles, pp: PolicyParams, st: EdgeState, inputs):
         (now, theta, bw, arrive, order, load_mult, cloud_up, valid,
          exec_jit, edge_up, link_up) = inputs
         bw_pen = network.bandwidth_penalty_ms(bw)
         jit_e, jit_c = exec_jit[..., 0], exec_jit[..., 1]
-        min_edge_t = prof.t_edge.min()
+        m = prof.t_edge.shape[-1]
+        min_edge_t = prof.t_edge.amin(-1)     # padded models sit at +inf
         st0 = st
-        st = _resolve_cloud(st, prof, pp, now, theta, bw_pen, cloud_frac,
-                            cloud_up, link_up, jit_c)
+        tr = zero_counters(m, tspec, valid.shape, device=valid.device) \
+            if tspec.counters else None
+        st, tr = _resolve_cloud(st, tr, tspec, prof, pp, now, theta, bw_pen,
+                                cloud_frac, cloud_up, link_up, jit_c)
         # the pool's busy-until times stay fixed until _gems_act moves
         # tasks, so routing and GEMS share one sort
         busy_sorted = torch.sort(st.cloud_busy_until, dim=-1).values
         # §3.3: tasks of a segment are inserted in randomized order; each
         # insertion's feasibility depends on the earlier ones
-        for i in range(prof.t_edge.shape[0]):
+        for i in range(m):
             mdl = order[..., i]
-            st = _route_arrival(st, prof, pp, now, mdl, js.take(arrive, mdl),
-                                load_mult, edge_up, busy_sorted)
-        st = _edge_execute(st, prof, pp, now, dt, edge_frac, min_edge_t,
-                           jit_e, edge_up)
-        st = _gems_act(st, prof, pp, now, theta, bw_pen, cloud_frac,
-                       link_up, jit_c, busy_sorted)
+            st, tr = _route_arrival(st, tr, prof, pp, now, mdl,
+                                    js.take(arrive, mdl), load_mult, edge_up,
+                                    busy_sorted)
+        st, tr = _edge_execute(st, tr, tspec, prof, pp, now, dt, edge_frac,
+                               min_edge_t, jit_e, edge_up)
+        st, tr = _gems_act(st, tr, tspec, prof, pp, now, theta, bw_pen,
+                           cloud_frac, link_up, jit_c, busy_sorted)
         # padded (tick, edge) cells are exact no-ops
-        return _tree_where(valid, st, st0)
+        st = _tree_where(valid, st, st0)
+        if tr is not None:
+            # event counters zero out on padded cells; outcome counters
+            # are post-revert state deltas (they sum to the final summary
+            # exactly), and the gauges read the (possibly reverted)
+            # end-of-tick state, so the conservation ledger stays exact
+            # through a padded tail
+            tr = tr._replace(**{
+                f: torch.where(_per_edge(valid, getattr(tr, f)),
+                               getattr(tr, f), 0)
+                for f in obs_trace.EVENT_FIELDS})
+            n_slots = st.cloud_busy_until.shape[-1]
+            tr = tr._replace(
+                hit=st.n_success - st0.n_success,
+                miss=st.n_miss - st0.n_miss,
+                drop=st.n_drop - st0.n_drop,
+                stolen=st.n_stolen - st0.n_stolen,
+                qos=st.qos_utility - st0.qos_utility,
+                qoe=st.qoe_utility - st0.qoe_utility,
+                eq_depth=_count(st.eq.valid), cq_depth=_count(st.cq.valid),
+                slots_busy=_count(
+                    (st.cloud_busy_until > _col(now + dt))
+                    & (torch.arange(n_slots, device=valid.device)
+                       < _col(st.n_slots))),
+                valid=valid)
+        return st, tr
 
     return step
 
@@ -695,73 +853,102 @@ def peer_offload(fs: EdgeState, now, slack_ms, max_transfers: int, *,
     among those with an exportable task, selects its worst-slack task
     that is still feasible behind the least-loaded other edge's queue,
     and re-homes it.  ``enable`` / ``transfer_cap`` (runtime) mask rounds
-    off; ``edge_valid`` excludes edges from export and import.
+    off; ``edge_valid`` excludes edges from export and import.  With a
+    replica axis (leaves ``[R, E, …]``; ``now``, ``slack_ms``, ``enable``
+    and ``transfer_cap`` per-edge values ``[R, 1]``) every selection is
+    one row per replica, so replicas never exchange tasks.
     """
-    n_edges = fs.busy_rem.shape[0]
+    n_edges = fs.busy_rem.shape[-1]
     if n_edges < 2 or max_transfers == 0:
         return fs
     dev = fs.busy_rem.device
+    lead = tuple(fs.busy_rem.shape[:-1])      # () or (R,)
     ev = torch.ones(n_edges, dtype=torch.bool, device=dev) \
         if edge_valid is None else edge_valid
     cap = max_transfers if transfer_cap is None else transfer_cap
     edges = torch.arange(n_edges, device=dev)
-    slots = torch.arange(fs.eq.valid.shape[-1], device=dev)
+    n_slots = fs.eq.valid.shape[-1]
+    slots = torch.arange(n_slots, device=dev)
+    # each replica's first row in the flattened (replica, edge) and
+    # (replica, slot) axes
+    base_e = torch.arange(0, lead[0] * n_edges, n_edges, device=dev) \
+        if lead else None
+    base_q = torch.arange(0, lead[0] * n_slots, n_slots, device=dev) \
+        if lead else None
+
+    def flat(idx, base):
+        """One index per replica into the flattened replica axis."""
+        return idx.view(1) if base is None else idx + base
+
+    def at(a, rows):
+        """Rows ``rows`` (flat, one per replica) of ``a [..., E, *rest]``
+        as ``[..., 1, *rest]``."""
+        if not lead:
+            return a.index_select(0, rows)
+        rest = a.shape[len(lead) + 1:]
+        return a.reshape((-1,) + rest).index_select(0, rows).view(
+            lead + (1,) + rest)
 
     for k in range(max_transfers):
         eq = fs.eq
         busy = fs.busy_rem.clamp(min=0.0)
-        slacks = js.queue_slacks(eq, now, busy)                 # [E, Q]
-        min_slack = torch.where(ev, slacks.amin(-1), js.POS)    # [E]
+        slacks = js.queue_slacks(eq, now, busy)                 # [..., E, Q]
+        min_slack = torch.where(ev, slacks.amin(-1), js.POS)    # [..., E]
         load = torch.where(ev, js.queue_load(eq, fs.busy_rem), js.POS)
 
-        # each edge's best destination load: the global minimum, or the
-        # runner-up for that edge itself
-        lead, best = sched_ops.masked_argmin(load, ev)
-        is_lead = edges == lead
-        runner_up = torch.where(is_lead, js.POS, load).amin()
-        dst_load = torch.where(is_lead, runner_up, best)
-        exportable = (eq.valid & (slacks < slack_ms)
+        # each edge's best destination load: the minimum over its
+        # replica's edges, or the runner-up for that edge itself
+        lead_e, best = sched_ops.masked_argmin(load, ev)
+        is_lead = edges == _col(lead_e)
+        runner_up = torch.where(is_lead, js.POS, load).amin(-1)
+        dst_load = torch.where(is_lead, _col(runner_up), _col(best))
+        exportable = (eq.valid & (slacks < _col(slack_ms))
                       & ((now + dst_load).unsqueeze(-1) + eq.t_edge
                          <= eq.deadline)).any(-1)
         over = (min_slack < slack_ms) & exportable & ev
         sidx, _ = sched_ops.masked_argmin(min_slack, over)
         src = sidx.clamp(min=0).long()
-        didx, _ = sched_ops.masked_argmin(load, ev & (edges != src))
+        didx, _ = sched_ops.masked_argmin(load, ev & (edges != _col(src)))
         dst = didx.clamp(min=0).long()
 
-        src1, dst1 = src.view(1), dst.view(1)
-        src_eq = js.EdgeQueue(*(a.index_select(0, src1) for a in eq))
-        vidx = js.export_select(src_eq, now, busy.index_select(0, src1),
-                                load.index_select(0, dst1),
-                                slack_ms).squeeze(0)
-        free = ~eq.valid.index_select(0, dst1).squeeze(0)
-        ok = (over.any() & (sidx >= 0) & (didx >= 0) & (vidx >= 0) & enable
-              & (k < cap) & free.any())
+        src_rows, dst_rows = flat(src, base_e), flat(dst, base_e)
+        src_eq = js.EdgeQueue(*(at(a, src_rows) for a in eq))
+        vidx = js.export_select(src_eq, now, at(busy, src_rows),
+                                at(load, dst_rows), slack_ms).squeeze(-1)
+        free = ~at(eq.valid, dst_rows).squeeze(-2)
+        # ok: per replica, as a per-edge value ([1] or [R, 1])
+        ok = (over.any(-1, keepdim=True) & (_col(sidx) >= 0)
+              & (_col(didx) >= 0) & (_col(vidx) >= 0) & enable & (k < cap)
+              & free.any(-1, keepdim=True))
         vi = vidx.clamp(min=0).long()
-        slot = torch.argmax(free.int())
+        vi_rows = flat(vi, base_q)
+        slot = torch.argmax(free.int(), dim=-1)
+        ok_q = ok.unsqueeze(-1)
 
-        out_hit = ((edges == src).unsqueeze(-1) & (slots == vi)) & ok
-        in_hit = ((edges == dst).unsqueeze(-1) & (slots == slot)) & ok
+        out_hit = ((edges == _col(src)).unsqueeze(-1)
+                   & (slots == vi.view(lead + (1, 1)))) & ok_q
+        in_hit = ((edges == _col(dst)).unsqueeze(-1)
+                  & (slots == slot.view(lead + (1, 1)))) & ok_q
 
         def moved(a, v):
             return torch.where(in_hit, v, a)
 
         def pick(a):
-            return a.index_select(0, src1).squeeze(0).index_select(
-                0, vi.view(1)).squeeze(0)
+            return at(a, src_rows).reshape(-1).index_select(
+                0, vi_rows).view(lead + (1, 1))
 
         fs = fs._replace(
             eq=js.EdgeQueue(
                 valid=(eq.valid & ~out_hit) | in_hit,
                 key=moved(eq.key, pick(eq.key)),
-                seq=moved(eq.seq, fs.seq.index_select(0, dst1).squeeze(0)),
+                seq=moved(eq.seq, at(fs.seq, dst_rows).unsqueeze(-1)),
                 t_edge=moved(eq.t_edge, pick(eq.t_edge)),
                 deadline=moved(eq.deadline, pick(eq.deadline)),
                 abs_dl=moved(eq.abs_dl, pick(eq.abs_dl)),
                 model=moved(eq.model, pick(eq.model))),
-            seq=fs.seq + ((edges == dst) & ok),
-            n_peer_out=fs.n_peer_out + ((edges == src) & ok),
-            n_peer_in=fs.n_peer_in + ((edges == dst) & ok))
+            seq=fs.seq + ((edges == _col(dst)) & ok),
+            n_peer_out=fs.n_peer_out + ((edges == _col(src)) & ok),
+            n_peer_in=fs.n_peer_in + ((edges == _col(dst)) & ok))
     return fs
 
 
@@ -809,9 +996,32 @@ def _resolve_policy(policy) -> FleetPolicy:
         else FleetPolicy.from_name(policy)
 
 
+def _tick_axis(sig: FleetSignals) -> int:
+    """The tick axis of a signal tree: 0, or 1 under a replica axis
+    (``times`` is ``[T]`` or ``[R, T]``)."""
+    return sig.times.dim() - 1
+
+
 def slice_signals(sig: FleetSignals, lo: int, hi: int) -> FleetSignals:
-    """Ticks ``[lo, hi)`` of a signal tree as a window."""
-    return FleetSignals(*(a[lo:hi] for a in sig))
+    """Ticks ``[lo, hi)`` of a signal tree (batched or not) as a window."""
+    idx = (slice(None),) * _tick_axis(sig) + (slice(lo, hi),)
+    return FleetSignals(*(a[idx] for a in sig))
+
+
+def _cat_results(parts: list, axis: int) -> FleetResult:
+    """Chunk results joined on the tick axis (the last chunk's state)."""
+    if len(parts) == 1:
+        return parts[0]
+
+    def cat(xs):
+        return torch.cat(xs, axis)
+
+    first = parts[0]
+    return FleetResult(
+        parts[-1].final,
+        None if first.t_hat is None else cat([p.t_hat for p in parts]),
+        None if first.counters is None else TickCounters(
+            *(cat(xs) for xs in zip(*(p.counters for p in parts)))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -820,21 +1030,28 @@ class FleetProgram:
     stacked state, :meth:`step_chunk` advances it over one signal window,
     :meth:`run` replays a horizon chunk by chunk (bitwise identical for
     any ``chunk_ticks``, since each tick reads only the carried state and
-    its own signal row)."""
+    its own signal row).
+
+    ``trace`` selects the flight-recorder streams.  Signals with a
+    leading replica axis (``[R, T, …]``, state ``[R, E, …]``) run as a
+    batch; profiles and policy flags are then either shared (``[M]`` and
+    0-d) or per replica (``[R, M]`` and ``[R]``, a :class:`FleetBatch`)."""
 
     dt: float = 25.0
     edge_frac: float = 0.62
     cloud_frac: float = 0.80
     coop_rounds: int = 0
+    trace: TraceSpec = TraceSpec()
 
     @classmethod
-    def for_policy(cls, policy, *, dt: float = 25.0, edge_frac: float = 0.62,
+    def for_policy(cls, policy, *, trace: TraceSpec = TraceSpec(),
+                   dt: float = 25.0, edge_frac: float = 0.62,
                    cloud_frac: float = 0.80) -> "FleetProgram":
         """A program whose peer-offload round bound matches ``policy``."""
         pol = _resolve_policy(policy)
         return cls(dt=dt, edge_frac=edge_frac, cloud_frac=cloud_frac,
                    coop_rounds=pol.coop_max_transfers if pol.cooperation
-                   else 0)
+                   else 0, trace=trace)
 
     def init(self, prof: Profiles, policy, n_edges: int,
              cloud_slots: int = CLOUD_SLOTS,
@@ -846,53 +1063,334 @@ class FleetProgram:
 
     @property
     def _step(self):
-        return make_step(self.dt, self.edge_frac, self.cloud_frac)
+        return make_step(self.dt, self.edge_frac, self.cloud_frac,
+                         self.trace)
 
     @torch.inference_mode()
     def step_chunk(self, prof: Profiles, pp: PolicyParams, state: EdgeState,
                    signals: FleetSignals):
-        """Advance ``state`` over one window; returns ``(state, None)``.
-        The launches are enqueued without any wait on the card."""
+        """Advance ``state`` over one window.  Returns ``(state, result)``:
+        ``result`` is the window's :class:`FleetResult` (streams over this
+        window's ticks) when the program's trace is enabled, else
+        ``None``.  The launches are enqueued without any wait on the
+        card."""
         step = self._step
-        for t in range(signals.times.shape[0]):
-            row = tuple(a[t] for a in signals)
-            state = step(prof, pp, state, row)
+        ax = _tick_axis(signals)
+        if ax:
+            # per-replica tables and flags as per-edge values ([R, 1, M],
+            # [R, 1]); shared ones broadcast as they are
+            if prof.t_edge.dim() == 2:
+                prof = Profiles(*(a.unsqueeze(-2) for a in prof))
+            if pp.migration.dim() == 1:
+                pp = PolicyParams(*(a.unsqueeze(-1) for a in pp))
+        t_hats, ticks = [], []
+        for t in range(signals.times.shape[ax]):
+            row = tuple(a.select(ax, t) for a in signals)
+            if ax:
+                row = (row[0].unsqueeze(-1),) + row[1:6] \
+                    + (row[6].unsqueeze(-1),) + row[7:]
+            state, tick = step(prof, pp, state, row)
             if self.coop_rounds:
+                pre_out, pre_in = state.n_peer_out, state.n_peer_in
                 # crashed edges neither export nor import peer work
                 state = peer_offload(
                     state, row[0] + self.dt, pp.coop_slack_ms,
                     self.coop_rounds, enable=pp.cooperation,
                     transfer_cap=pp.coop_transfer_cap,
                     edge_valid=row[7] & row[9])
-        return state, None
+                if tick is not None:
+                    # the exchange runs between ticks; fold its per-edge
+                    # deltas into the tick row
+                    tick = tick._replace(
+                        peer_out=tick.peer_out + state.n_peer_out - pre_out,
+                        peer_in=tick.peer_in + state.n_peer_in - pre_in)
+            if self.trace.t_hat:
+                t_hats.append(state.adapt.current)
+            if tick is not None:
+                ticks.append(tick)
+        if not self.trace.enabled:
+            return state, None
+        return state, FleetResult(
+            state, torch.stack(t_hats, ax) if self.trace.t_hat else None,
+            TickCounters(*(torch.stack(xs, ax) for xs in zip(*ticks)))
+            if self.trace.counters else None)
 
     def run(self, prof: Profiles, pp: PolicyParams, state: EdgeState,
             signals: FleetSignals, chunk_ticks: Optional[int] = None):
-        """Replay the whole horizon, ``chunk_ticks`` ticks per window."""
-        n_ticks = signals.times.shape[0]
+        """Replay the whole horizon, ``chunk_ticks`` ticks per window.
+        Returns the final state, or with the trace enabled a
+        :class:`FleetResult` whose streams join the windows on the tick
+        axis."""
+        ax = _tick_axis(signals)
+        n_ticks = signals.times.shape[ax]
         chunk = n_ticks if chunk_ticks is None else max(1, chunk_ticks)
+        parts = []
         for lo in range(0, n_ticks, chunk):
-            state, _ = self.step_chunk(
+            state, res = self.step_chunk(
                 prof, pp, state,
                 slice_signals(signals, lo, min(lo + chunk, n_ticks)))
-        return state
+            parts.append(res)
+        if not self.trace.enabled:
+            return state
+        return _cat_results(parts, ax)
 
 
 def run_fleet(models, policy, signals: FleetSignals, *, dt: float = 25.0,
               edge_frac: float = 0.62, cloud_frac: float = 0.80,
-              cloud_slots: int = CLOUD_SLOTS,
-              chunk_ticks: Optional[int] = None,
-              device="cuda") -> EdgeState:
+              cloud_slots: int = CLOUD_SLOTS, record_trace: bool = False,
+              trace: Optional[TraceSpec] = None,
+              chunk_ticks: Optional[int] = None, device="cuda"):
     """Run the fleet simulator over scenario signals; returns the final
-    stacked :class:`EdgeState` on ``device``."""
+    stacked :class:`EdgeState` on ``device``.
+
+    ``trace`` turns on the flight recorder and returns a
+    :class:`FleetResult` (``t_hat`` ``[T, E, M]``, counters ``[T, E, …]``;
+    the final state is bit-identical to the untraced run's);
+    ``record_trace=True`` is the older alias for
+    ``TraceSpec(t_hat=True)``."""
     dev = resolve_device(device)
+    tspec = resolve_spec(trace, record_trace)
     pol = _resolve_policy(policy)
     prof = Profiles.build(models, dev)
     signals = FleetSignals(*(a.to(dev) for a in signals))
-    prog = FleetProgram.for_policy(pol, dt=dt, edge_frac=edge_frac,
+    prog = FleetProgram.for_policy(pol, trace=tspec, dt=dt,
+                                   edge_frac=edge_frac,
                                    cloud_frac=cloud_frac)
     state = prog.init(prof, pol, signals.arrive.shape[1], cloud_slots)
     return prog.run(prof, pol.params(dev), state, signals, chunk_ticks)
+
+
+# ---------------------------------------------------------------------------
+# batches: many replicas under one set of launches a tick
+# ---------------------------------------------------------------------------
+
+def _host_signals(sig: FleetSignals) -> FleetSignals:
+    return FleetSignals(*(a.detach().cpu().numpy()
+                          if isinstance(a, torch.Tensor) else np.asarray(a)
+                          for a in sig))
+
+
+def stack_signals(signals: list) -> FleetSignals:
+    """Stack per-run signals over a new leading replica axis.
+
+    All runs must share (n_ticks, n_edges, n_models) — seeds or event
+    variants of one scenario shape, the unit :func:`run_fleet_batch`
+    runs as one batch.  Heterogeneous shapes raise a :class:`ValueError`
+    naming the offending field; use :func:`pad_signals` for a
+    cross-scenario batch.  The stack stays on the runs' device.
+    """
+    for f in FleetSignals._fields:
+        shapes = [tuple(getattr(s, f).shape) for s in signals]
+        if any(sh != shapes[0] for sh in shapes):
+            raise ValueError(
+                f"stack_signals: replica signals disagree on field {f!r} "
+                f"(shapes {shapes}); stack only same-shape replicas "
+                f"(seeds / event variants of one scenario) or use "
+                f"pad_signals for a heterogeneous cross-scenario batch")
+    return FleetSignals(*(torch.stack([torch.as_tensor(x) for x in xs])
+                          for xs in zip(*signals)))
+
+
+def pad_signals(signals: list, dt: float = 25.0, *,
+                device="cuda") -> FleetSignals:
+    """Mask heterogeneous per-run signals to the max shape and stack, on
+    the host, then move the batch to ``device`` once.
+
+    Every replica is padded to the batch's max (ticks, edges, models):
+    padded ticks/edges carry ``valid=False`` (the tick reverts them to
+    exact no-ops), padded models never arrive and their ids are appended
+    to the insertion ``order`` so it stays a permutation; the times run
+    on past a replica's horizon at its own step.
+    """
+    dev = resolve_device(device)
+    sigs = [_host_signals(s) for s in signals]
+    tmax = max(s.arrive.shape[0] for s in sigs)
+    emax = max(s.arrive.shape[1] for s in sigs)
+    mmax = max(s.arrive.shape[2] for s in sigs)
+    padded = []
+    for s in sigs:
+        t, e, m = s.arrive.shape
+        pt, pe = tmax - t, emax - e
+        step = float(s.times[1] - s.times[0]) if t > 1 else dt
+        times = np.concatenate(
+            [s.times, s.times[-1] + step * np.arange(1, pt + 1,
+                                                     dtype=np.float32)])
+        order = np.broadcast_to(np.arange(mmax, dtype=np.int32),
+                                (tmax, emax, mmax)).copy()
+        order[:t, :e, :m] = s.order
+        valid = np.zeros((tmax, emax), dtype=bool)
+        valid[:t, :e] = s.valid
+        padded.append(FleetSignals(
+            times=times.astype(np.float32),
+            theta=np.pad(s.theta, ((0, pt), (0, pe))),
+            bw=np.pad(s.bw, ((0, pt), (0, pe)),
+                      constant_values=network.NOMINAL_BW_MBPS),
+            arrive=np.pad(s.arrive, ((0, pt), (0, pe), (0, mmax - m))),
+            order=order,
+            load_mult=np.pad(s.load_mult, ((0, pt), (0, pe)),
+                             constant_values=1.0),
+            cloud_up=np.pad(s.cloud_up, (0, pt), constant_values=True),
+            valid=valid,
+            # padded cells keep the deterministic ×1.0 multiplier
+            exec_jit=np.pad(s.exec_jit,
+                            ((0, pt), (0, pe), (0, mmax - m), (0, 0)),
+                            constant_values=1.0),
+            # padded cells are healthy (valid=False already no-ops them)
+            edge_up=np.pad(s.edge_up, ((0, pt), (0, pe)),
+                           constant_values=True),
+            link_up=np.pad(s.link_up, ((0, pt), (0, pe)),
+                           constant_values=True)))
+    return FleetSignals(*(torch.from_numpy(np.stack(xs)).to(dev)
+                          for xs in zip(*padded)))
+
+
+def run_fleet_batch(models, policy, signals: FleetSignals, *,
+                    dt: float = 25.0, edge_frac: float = 0.62,
+                    cloud_frac: float = 0.80, cloud_slots: int = CLOUD_SLOTS,
+                    record_trace: bool = False,
+                    trace: Optional[TraceSpec] = None, device="cuda"):
+    """One batch: ``signals`` carry a leading replica axis ``[R, …]``
+    (from :func:`stack_signals`), and every replica's mission runs under
+    one set of launches a tick, with the model table and policy flags
+    shared.
+
+    Returns the stacked final :class:`EdgeState` with leading ``[R, E]``
+    axes; replica ``r`` equals ``run_fleet`` on that run's signals
+    exactly.  ``trace`` (or ``record_trace``) returns a
+    :class:`FleetResult` with replica-leading streams (``t_hat``
+    ``[R, T, E, M]``).  For heterogeneous replicas see
+    :func:`build_fleet_batch` / :func:`run_batch`.
+    """
+    dev = resolve_device(device)
+    tspec = resolve_spec(trace, record_trace)
+    pol = _resolve_policy(policy)
+    prof = Profiles.build(models, dev)
+    signals = FleetSignals(*(a.to(dev) for a in signals))
+    n_rep, n_edges = signals.arrive.shape[0], signals.arrive.shape[2]
+    prog = FleetProgram.for_policy(pol, trace=tspec, dt=dt,
+                                   edge_frac=edge_frac,
+                                   cloud_frac=cloud_frac)
+    state = _stack_tree([prog.init(prof, pol, n_edges, cloud_slots)]
+                        * n_rep)
+    return prog.run(prof, pol.params(dev), state, signals)
+
+
+def _stack_tree(trees: list):
+    """Leaf-wise ``torch.stack`` of equal-structure trees."""
+    if isinstance(trees[0], tuple):
+        return type(trees[0])(*(_stack_tree(list(xs))
+                                for xs in zip(*trees)))
+    return torch.stack(trees)
+
+
+class FleetBatch(NamedTuple):
+    """A heterogeneous sweep as one program's inputs.
+
+    ``profiles``/``params``/``state`` carry a leading replica axis
+    matching ``signals``; ``coop_rounds`` is the static peer-offload
+    bound (max across the batch's policies).
+    """
+
+    profiles: Profiles      # [R, Mp]
+    params: PolicyParams    # [R]
+    state: EdgeState        # [R, E, …]
+    signals: FleetSignals   # [R, T, …]
+    coop_rounds: int
+
+
+def build_fleet_batch(runs, *, dt: float = 25.0,
+                      device="cuda") -> FleetBatch:
+    """Assemble heterogeneous runs into one padded, stackable batch on
+    ``device``.
+
+    ``runs`` is a list of ``(models, policy, signals, cloud_slots)``
+    tuples — one per replica (scenario × policy × seed).  Model tables
+    are padded to the max model count, pool arrays to the max slot
+    count, signals to the max (ticks, edges) shape; policies become
+    per-replica :class:`PolicyParams`.  Policies must agree on
+    ``adapt_window`` (an estimator buffer shape).
+    """
+    dev = resolve_device(device)
+    pols = [_resolve_policy(p) for _, p, _, _ in runs]
+    windows = {p.adapt_window for p in pols}
+    if len(windows) > 1:
+        raise ValueError(
+            f"build_fleet_batch: policies disagree on adapt_window "
+            f"{sorted(windows)} — the estimator buffer is a compiled "
+            f"shape, so one batch must share it")
+    mmax = max(len(models) for models, _, _, _ in runs)
+    smax = max(slots for _, _, _, slots in runs)
+    emax = max(sig.arrive.shape[1] for _, _, sig, _ in runs)
+    profs, states, cache = [], [], {}
+    for (models, _, _, slots), pol in zip(runs, pols):
+        # lanes of the same (pool, window, model table) share one init
+        key = (slots, pol.adapt_window, tuple(models))
+        if key not in cache:
+            prof = Profiles.build(models, dev, pad_to=mmax)
+            cache[key] = (prof, init_state(prof, emax, pol.adapt_window,
+                                           slots, total_slots=smax))
+        prof, state = cache[key]
+        profs.append(prof)
+        states.append(state)
+    return FleetBatch(
+        profiles=_stack_tree(profs),
+        params=_stack_tree([p.params(dev) for p in pols]),
+        state=_stack_tree(states),
+        signals=pad_signals([sig for _, _, sig, _ in runs], dt, device=dev),
+        coop_rounds=max((p.coop_max_transfers for p in pols
+                         if p.cooperation), default=0))
+
+
+def plan_buckets(runs, *, dt: float = 25.0, device="cuda"
+                 ) -> list[tuple[FleetBatch, tuple[int, ...]]]:
+    """Shape-bucketed planner: exact-shape batches, one per bucket.
+
+    Takes the same ``(models, policy, signals, cloud_slots)`` run list
+    as :func:`build_fleet_batch`, but partitions the runs by exact
+    ``(ticks, edges, models, coop_rounds, adapt_window)``: within a
+    bucket stacking is exact, so no replica pays max-shape padding and
+    peer-offload rounds run only in the buckets that need them.
+
+    Returns ``(batch, idxs)`` per bucket, where ``idxs`` maps the
+    bucket's replica lanes back to positions in ``runs``.  Bucket results
+    equal the padded :func:`build_fleet_batch` / :func:`run_batch` run
+    and the per-run :func:`run_fleet` loop bitwise.
+    """
+    buckets: dict = {}
+    for i, run in enumerate(runs):
+        models, policy, sig, _slots = run
+        pol = _resolve_policy(policy)
+        t, e, _m = sig.arrive.shape
+        key = (t, e, len(models),
+               pol.coop_max_transfers if pol.cooperation else 0,
+               pol.adapt_window)
+        bucket = buckets.setdefault(key, ([], []))
+        bucket[0].append(run)
+        bucket[1].append(i)
+    return [(build_fleet_batch(rs, dt=dt, device=device), tuple(idxs))
+            for rs, idxs in buckets.values()]
+
+
+def run_batch(batch: FleetBatch, *, dt: float = 25.0,
+              edge_frac: float = 0.62, cloud_frac: float = 0.80,
+              record_trace: bool = False, trace: Optional[TraceSpec] = None,
+              chunk_ticks: Optional[int] = None):
+    """Run a heterogeneous :class:`FleetBatch` under one set of launches
+    a tick, on the batch's device.
+
+    Every replica — its own scenario shape, policy flags, model table and
+    pool depth — runs in the same tick; per-replica slices of the
+    returned ``[R, E, …]`` state equal the corresponding :func:`run_fleet`
+    call exactly (padding is a no-op by construction).  ``trace`` (or
+    ``record_trace``) returns a :class:`FleetResult` whose streams lead
+    with the replica axis; padded (tick, edge) cells record zero events.
+    ``chunk_ticks`` replays the horizon in windows, bitwise alike.
+    """
+    tspec = resolve_spec(trace, record_trace)
+    prog = FleetProgram(dt=dt, edge_frac=edge_frac, cloud_frac=cloud_frac,
+                        coop_rounds=batch.coop_rounds, trace=tspec)
+    return prog.run(batch.profiles, batch.params, batch.state,
+                    batch.signals, chunk_ticks)
 
 
 def simulate_fleet(models, policy: str, *, n_edges: int,

@@ -58,3 +58,38 @@ def run_pair(models, policy, signals, *, cloud_slots=FJ.CLOUD_SLOTS):
     got = F.run_fleet(models, policy, sig, cloud_slots=cloud_slots,
                       device="cpu")
     return got, want
+
+
+def port_signals(signals, device="cpu"):
+    """JAX ``FleetSignals`` (any leading axes) as the port's, via numpy."""
+    return convert.from_numpy(F.FleetSignals,
+                              jax.tree.map(np.asarray, signals), device)
+
+
+def assert_hist_adjacent(got, want, name="") -> None:
+    """Histograms ``[..., B]`` with equal totals per cell whose
+    differences are moves to an adjacent bin only (the earth mover's
+    distance of each cell equals half its L1 difference)."""
+    d = got.astype(np.int64) - want.astype(np.int64)
+    assert (d.sum(-1) == 0).all(), name
+    emd = np.abs(np.cumsum(d, -1)).sum(-1)
+    assert (2 * emd == np.abs(d).sum(-1)).all(), name
+
+
+def assert_counters_match(got, want, *, hist_adjacent=False) -> None:
+    """``TickCounters`` leaf by leaf: integer and boolean leaves exactly,
+    f32 leaves to RTOL/ATOL; with ``hist_adjacent`` the histograms may
+    differ by adjacent-bin moves (XLA's fused multiply-add under factors
+    other than 1.0)."""
+    got = convert.to_numpy(got)
+    for name, g, w in zip(want._fields, got, want):
+        w = np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, (
+            name, g.dtype, w.dtype, g.shape, w.shape)
+        if w.dtype == np.float32:
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
+                                       err_msg=name)
+        elif hist_adjacent and name.endswith("_hist"):
+            assert_hist_adjacent(g, w, name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
