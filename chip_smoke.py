@@ -6,14 +6,19 @@
 Drives the port (``src/repro_torch``) through its user entry points on
 its three paths: the fleet scheduler — ``simulate_fleet`` / ``run_fleet``
 / ``FleetProgram`` at the paper's §8.6 fleet scale (28 edges, 84 drones)
-and at a 1024-edge metropolis fleet — live DNN serving — the
+and at a 1024-edge metropolis fleet, and the online control plane
+``FleetController`` over it — live DNN serving — the
 ``ServeEngine`` over the three launcher roles at their published sizes,
 and greedy decoding — the hybrid family: zamba2-7b (Mamba2 blocks and
 a shared attention block) served and decoded at its published width and
 depth — the moe family: qwen3-moe-30b-a3b (128 experts, top-8)
 served and decoded at its published width and depth — and head dim 192:
 nemotron-4-340b at its published width.  A served forward on the card
-is a CUDA graph, captured once and replayed.  Its six
+is a CUDA graph, captured once and replayed, and so is a window of fleet
+ticks: ``FleetProgram.step_chunk`` keeps a graph per shape key in its
+program cache, runs a key's first window eagerly (the warm-up) and
+captures it, and replays it for every later window; the kernel's
+launches a replay are counted as its capture recorded them.  Its six
 hand-written ``sm_90a`` kernels (masked arg-extremum, flash attention,
 flash decode, RMSNorm, selective scan, MoE grouped GEMM) are built from
 ``src/repro_torch/kernels/csrc`` at first use, one ``nvcc`` each, all
@@ -56,14 +61,19 @@ Phases, each printed on its own line and each failing the script
    expert, with the rows that no expert owns exactly zero; every bf16
    flash and GEMM case on both bodies (tensor cores and previous), every
    aligned decode case on both bodies;
-3. small parity: the 2-edge golden runs (DEMS-A, GEMS, DEMS-COOP,
-   SOTA2) on the card as one heterogeneous ``run_batch`` (a lane each),
+3. small parity (this and phases 4, 9, 19, 20 on the captured program;
+   each of them prints its graphs' node counts and capture and
+   instantiate seconds, phases 4, 9 and 20 a line a graph, and drops the
+   cached programs after it): the 2-edge golden runs (DEMS-A, GEMS,
+   DEMS-COOP, SOTA2) on the card as one heterogeneous ``run_batch`` (a
+   lane each),
    and alongside it in child processes by ``run_fleet`` each, on the card
    (one child a run) and on the host (two children); every final-state
    leaf equal across the three (a lane cut to its run's models),
    summaries equal to the golden JAX ones;
 4. paper-scale fleet (masked_argext's main path; its launches are read
-   over this phase, every one on the key body): DEMS-A, GEMS and
+   over this phase, replays counted as their captures recorded them,
+   every one on the key body, a graph's too): DEMS-A, GEMS and
    DEMS-COOP, 28 edges × 30 s each, each summary equal to its golden JAX
    entry;
 5. model golden: granite-3-2b at full width, 2 layers, f32 — forward,
@@ -84,10 +94,20 @@ Phases, each printed on its own line and each failing the script
    versions', ``scaled_dot_product_attention``'s and the bounds;
 9. metropolis fleet: DEMS-COOP on 1024 edges, two runs bitwise equal
    (its horizon shrinks to fit the time budget);
-10. sync check: ticks under ``torch.cuda.set_sync_debug_mode("error")``,
-    and one traced window of a padded, heterogeneous ``run_batch`` batch;
-11. profile: CUDA launches per tick, the arg-extremum kernel's time per
-    launch, and the nearest plain PyTorch composition's time;
+10. sync and capture: eager ticks under
+    ``torch.cuda.set_sync_debug_mode("error")``, and one traced window of
+    a padded, heterogeneous ``run_batch`` batch; then 28-edge DEMS-COOP
+    and that batch, traced, without and with ``donate``: every captured
+    window (the first the warm-up and capture, the rest replays, also
+    under the sync check) equal to the eager one bitwise, state and
+    streams;
+11. profile: 5 DEMS-COOP ticks at 28 edges eager and as the replay of
+    their graph alone, in the order eager, captured, captured, eager:
+    device operations a tick equal between the two and to the graph's
+    nodes a tick (within the profiler's dropped records), each one's busy
+    share and ticks/s, then ticks/s and host enqueue time without the
+    profiler, the arg-extremum kernel's time per launch, and the nearest
+    plain PyTorch composition's time;
 12. hybrid golden: zamba2-7b at full width, 8 layers (6 Mamba2, the
     shared block, a 2-layer tail), f32 — forward on S 256, prefill and
     teacher-forced decode against the JAX reference's numbers;
@@ -153,7 +173,17 @@ Phases, each printed on its own line and each failing the script
     seed batch, ``run_fleet_batch`` of 28 edges × 3 drones × 4 seeds,
     DEMS-COOP, traced, every lane against the golden and lane 0 bitwise
     against ``run_fleet`` of seed 0; edge-ticks/s of each beside phase
-    19's, and the traced/untraced ratio of one padded batch.
+    19's, and the traced/untraced ratio of one padded batch;
+21. the online control plane, right after phase 11: (a) phase 19's runs
+    streamed through ``FleetController`` in windows of 16 and of 7
+    ticks, each final state bitwise phase 19's replay; (b) a paper-scale
+    controller (28 edges, windows of 8 ticks, DEMS-COOP, traced) on 30 s
+    of the paper's stream: step-latency p50/p95/p99 and mission over
+    wall time, captured, then eager on its first 5 s; (c) kill and
+    restore: (b)'s checkpoint at 15 s restored into a fresh controller
+    finishes bitwise (b)'s final state; (d) ``python -m
+    repro_torch.launch.serve --backend fleet`` on the card in a child
+    process writes its snapshot.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``
 (phase 19's under its ``scenario_runs`` key),
@@ -188,19 +218,31 @@ GOLDEN_QWEN3MOE = os.path.join(ROOT, "tests", "golden",
 GOLDEN_SWEEP = os.path.join(ROOT, "tests", "golden", "torch_port_sweep.json")
 METRO_EDGES = 1024
 METRO_MS = 60_000.0
+METRO_TICK_FACTOR = 2.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
-# phases 10-18, would pass this budget; the host-bound fleet phases 3-4
-# alone spread 313-465 s between hosts, and the floor keeps the script
-# inside about 770 s on the slowest
+# phases 10-18 and 21 (266 s on an H100, the fleet on the captured
+# program: PERF.md), would pass this budget
 BUDGET_S = 850.0
-RESERVE_S = 440.0
+RESERVE_S = 340.0
 MIN_METRO_MS = 5_000.0
 SYNC_TICKS = 50
+# phase 10: captured windows held to the eager ones, CHECK_WINDOWS of
+# CHECK_TICKS ticks each
+CHECK_TICKS = 10
+CHECK_WINDOWS = 3
+# phase 21: the paper-scale controller's mission, the eager controller's
+# share of it, and the launcher's fleet backend in a child process
+CONTROLLER_MS = 30_000.0
+EAGER_CONTROLLER_MS = 5_000.0
+SERVE_FLEET_S = 3.0
 # the profiler's post-processing takes seconds per traced tick (thousands
 # of kernels each, about 1.7 s a tick on the H100 host), so the profile
-# covers a short steady window
-PROFILE_TICKS = 10
+# covers a short steady window; it drops a record now and then (up to 7
+# of 33,860 in a 10-tick window), so operations a tick may part from the
+# graph's nodes a tick by this share
+PROFILE_TICKS = 5
+PROFILE_SLACK = 1e-3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores, same sheet
 BF16_OPS_PER_S = 989e12          # bf16 dense tensor cores, same sheet
@@ -470,7 +512,8 @@ def phase_scenarios(golden: dict) -> dict:
                           edges=spec.n_edges, ticks_per_s=ticks / card_s,
                           launches=launches,
                           launches_per_tick=launches / ticks,
-                          oracle_s=oracle_s)
+                          oracle_s=oracle_s,
+                          final=[a.cpu() for a in leaves(final)])
         say(f"phase19 {name}: digests == JAX compiler's; summary == golden "
             f"{json.dumps(summ)}; oracle == JAX oracle's; compile "
             f"{compile_s:.4f} s, card {card_s:.3f} s for {ticks} ticks × "
@@ -826,6 +869,480 @@ def phase_sweep(scenario_rows: dict) -> dict:
         f"{time.perf_counter() - t_phase:.1f} s")
     return dict(rates=rates, launches=launches, traced_ratio=ratio,
                 untraced_s=untraced_s)
+
+
+def graph_report(phase: int, detail: bool = False, all_key: bool = False
+                 ) -> dict:
+    """The tick program's CUDA graphs captured since the last report:
+    each graph's node count, capture and instantiate seconds and
+    ``masked_argext`` launches a replay on a line of its own
+    (``detail``), else one summary line.  ``all_key`` fails the phase
+    unless every replay-counted launch is on the key body.  Then every
+    cached program, with its graphs and their memory, is dropped."""
+    import torch
+    from repro_torch.obs import prof
+    from repro_torch.sim import fleet as F
+    graphs = [(p, g) for p in F._PROGRAM_REGISTRY for g in p.graphs.values()]
+    for p, g in graphs:
+        if all_key and g.launches[0] != g.launches[1]:
+            fail(f"phase {phase}: a graph's replay counts {g.launches[0]} "
+                 f"masked_argext launches, {g.launches[1]} on the key body")
+        if detail:
+            say(f"phase{phase} graph: state "
+                f"{tuple(g.inputs[2].busy_rem.shape)}, "
+                f"{g.inputs[3].times.shape[-1]} ticks, coop_rounds "
+                f"{p.coop_rounds}, traced {p.tspec.enabled}, donate "
+                f"{p.donate}: {g.nodes} nodes, capture {g.capture_s:.3f} s,"
+                f" instantiate {g.instantiate_s:.3f} s; masked_argext "
+                f"{g.launches[0]} launches a replay, {g.launches[1]} on the "
+                f"key body")
+    out = dict(graphs=len(graphs), nodes=sum(g.nodes for _, g in graphs),
+               capture_s=sum(g.capture_s for _, g in graphs),
+               instantiate_s=sum(g.instantiate_s for _, g in graphs))
+    say(f"phase{phase} graphs: {out['graphs']} captured, {out['nodes']} "
+        f"nodes, capture {out['capture_s']:.3f} s, instantiate "
+        f"{out['instantiate_s']:.3f} s in all")
+    prof.reset_fleet_programs()
+    torch.cuda.empty_cache()
+    return out
+
+
+def coop_setup(golden: dict, ticks: int, trace=None, donate=False):
+    """Phase 4's DEMS-COOP golden run at 28 edges as a program, its
+    inputs and ``ticks`` ticks of its signals, on the card."""
+    from repro_torch.obs.trace import TraceSpec
+    from repro_torch.sim import fleet as F
+    coop = next(r for r in golden["runs"] if r["name"] == "paper-dems-coop")
+    pol = F.FleetPolicy.from_name(coop["policy"])
+    prog = F.FleetProgram.for_policy(pol, dt=golden["dt"],
+                                     trace=trace or TraceSpec(),
+                                     donate=donate)
+    prof = F.Profiles.build(models_of(coop["models"]), "cuda")
+    sig = golden_signals(golden, coop, "cuda",
+                         duration_ms=ticks * golden["dt"])
+    state = prog.init(prof, pol, coop["n_edges"], golden["cloud_slots"])
+    return prog, prof, pol.params("cuda"), state, sig
+
+
+def phase_sync(golden: dict) -> None:
+    """Phase 10: the tick never waits on the host, and a replay is the
+    eager window bitwise.  The eager tick (``_capture=False``) runs
+    ``SYNC_TICKS`` ticks, and a traced padded batch one window, under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Then 28-edge DEMS-COOP
+    (traced) and the padded batch (traced), each without and with
+    ``donate``, run ``CHECK_WINDOWS`` windows twice in step: eagerly and
+    captured (the first window the warm-up and capture, every later one a
+    replay, under the sync check too); every window's state and streams
+    must be equal bitwise."""
+    import torch
+    from repro_torch.obs.trace import TraceSpec
+    from repro_torch.scenarios.compile import compile_registry_batch
+    from repro_torch.sim import fleet as F
+
+    def no_sync(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return out
+
+    def same(a, b):
+        return all(torch.equal(x, y)
+                   for x, y in zip(F._leaves(a), F._leaves(b)))
+
+    dt = golden["dt"]
+    prog, prof, pp, state, sig = coop_setup(golden, 10 + SYNC_TICKS)
+    state, _ = prog.step_chunk(prof, pp, state, F.slice_signals(sig, 0, 10),
+                               _capture=False)
+    no_sync(lambda: prog.step_chunk(
+        prof, pp, state, F.slice_signals(sig, 10, 10 + SYNC_TICKS),
+        _capture=False))
+    # one traced window of a padded, heterogeneous batch (1-3 edges, 4 and
+    # 6 models, 2 and 16 pool slots, with and without peer offload)
+    batch, _ = compile_registry_batch(
+        ("rush-hour", "cloud-crunch", "brownout"), ("DEMS", "DEMS-COOP"),
+        (0,), dt=dt, duration_ms=2_000.0, device="cuda")
+    bprog = F.FleetProgram(dt=dt, coop_rounds=batch.coop_rounds,
+                           trace=TraceSpec.full())
+    bstate, _ = bprog.step_chunk(batch.profiles, batch.params, batch.state,
+                                 F.slice_signals(batch.signals, 0, 10),
+                                 _capture=False)
+    _, bres = no_sync(lambda: bprog.step_chunk(
+        batch.profiles, batch.params, bstate,
+        F.slice_signals(batch.signals, 10, 10 + SYNC_TICKS),
+        _capture=False))
+    if tuple(bres.counters.valid.shape[:2]) != (
+            batch.signals.times.shape[0], SYNC_TICKS):
+        fail("phase 10: the traced batch window has the wrong shape")
+    say(f"phase10 sync: {SYNC_TICKS} eager DEMS-COOP ticks at 28 edges, and "
+        f"one traced {SYNC_TICKS}-tick window of a padded batch (R "
+        f"{batch.signals.times.shape[0]}, edges "
+        f"{batch.signals.arrive.shape[2]}, models "
+        f"{batch.signals.arrive.shape[3]}), ran under "
+        f"set_sync_debug_mode('error')")
+
+    width = CHECK_TICKS
+    for donate in (False, True):
+        runs = {"28-edge DEMS-COOP": coop_setup(
+            golden, CHECK_WINDOWS * width, TraceSpec.full(), donate)}
+        bp = F.FleetProgram(dt=dt, coop_rounds=batch.coop_rounds,
+                            trace=TraceSpec.full(), donate=donate)
+        runs["padded batch"] = (bp, batch.profiles, batch.params,
+                                batch.state, batch.signals)
+        for what, (p, pr, pa, st, sg) in runs.items():
+            eager = cap = st
+            for w in range(CHECK_WINDOWS):
+                win = F.slice_signals(sg, w * width, (w + 1) * width)
+                eager, want = p.step_chunk(pr, pa, eager, win,
+                                           _capture=False)
+                if w == 0:      # warm-up and capture: outside the check
+                    cap, got = p.step_chunk(pr, pa, cap, win)
+                else:
+                    cap, got = no_sync(
+                        lambda: p.step_chunk(pr, pa, cap, win))
+                if not (same(eager, cap) and same(want, got)):
+                    fail(f"phase 10 {what} donate={donate}: window {w} "
+                         f"captured differs from eager")
+            if donate and not any(
+                    all(a.data_ptr() == b.data_ptr() for a, b in
+                        zip(F._leaves(cap), F._leaves(g.inputs[2])))
+                    for g in p._program.graphs.values()):
+                fail(f"phase 10 {what}: the donated carry is not the "
+                     f"graph's own state buffers")
+    say(f"phase10 capture: 28-edge DEMS-COOP and the padded batch, traced, "
+        f"without and with donate: {CHECK_WINDOWS} windows of {width} ticks "
+        f"each (the first the warm-up and capture, then replays under "
+        f"set_sync_debug_mode('error')) equal to the eager windows bitwise, "
+        f"final state and every stream")
+    # two donated streams of one shape interleaved on one graph: a from
+    # the fresh state over windows 0, 1, 2, ..., b from the fresh state
+    # over windows 1, 2, 3, ...; every window's result, and the state the
+    # other stream still holds, equal the eager windows bitwise
+    p, pr, pa, fresh, sg = coop_setup(golden, (CHECK_WINDOWS + 2) * width,
+                                      TraceSpec.full(), donate=True)
+    cap = {"a": fresh, "b": fresh}
+    eager = dict(cap)
+    nxt = {"a": 0, "b": 1}
+    order = "aababba"
+    for s in order:
+        win = F.slice_signals(sg, nxt[s] * width, (nxt[s] + 1) * width)
+        nxt[s] += 1
+        eager[s], want = p.step_chunk(pr, pa, eager[s], win, _capture=False)
+        cap[s], got = p.step_chunk(pr, pa, cap[s], win)
+        if not (same(want, got) and all(same(eager[k], cap[k])
+                                        for k in "ab")):
+            fail(f"phase 10: interleaved donated streams differ from the "
+                 f"eager windows after stream {s}'s window {nxt[s] - 1}")
+    say(f"phase10 donate: two donated 28-edge DEMS-COOP streams of "
+        f"{width}-tick windows interleaved on one graph (order {order}), "
+        f"each window and the other stream's held state equal to the "
+        f"eager windows bitwise")
+    graph_report(10, detail=True)
+
+
+def phase_profile(golden: dict, compo_ms: float) -> dict:
+    """Phase 11: ``PROFILE_TICKS`` DEMS-COOP ticks at 28 edges under
+    ``torch.profiler``, eagerly (``_capture=False``) and as the replay of
+    their window's graph, in the order eager, captured, captured, eager.
+    A replayed window's inputs are copied into the graph's buffers before
+    the profile starts, so it holds the graph's nodes alone.  Device
+    operations a tick (kernels and copies: a copy inside the tick is a
+    ``Memcpy`` record eagerly and a node of the graph) must be equal
+    between the two and to the graph's nodes a tick, within
+    ``PROFILE_SLACK`` of them (the profiler drops a record now and then).
+    Every run must show ``masked_argext`` records, all of the key body,
+    as many as the launches counted (the eager run's counters, the
+    graph's replay accounting), less at most the records the profiler
+    dropped in that run.  Each run's device busy share and ticks/s; then,
+    without the profiler, ``step_chunk`` over ``2·PROFILE_TICKS``-tick
+    windows in the same order: ticks/s and the host ms until it
+    returned; and a replay's host ms with the profiles and params the
+    last replay copied in (skipped) and with new ones (copied)."""
+    import torch
+    from repro_torch.kernels import sched_ops
+    from repro_torch.sim import fleet as F
+    from torch.profiler import ProfilerActivity, profile
+    n = PROFILE_TICKS
+    prog, prof, pp, state, sig = coop_setup(golden, 10 + 31 * n)
+    state, _ = prog.step_chunk(prof, pp, state, F.slice_signals(sig, 0, 10),
+                               _capture=False)
+    lo = 10
+    for width in (n, 2 * n):   # warm-up and capture of both window shapes
+        state, _ = prog.step_chunk(prof, pp, state,
+                                   F.slice_signals(sig, lo, lo + width))
+        lo += width
+    graph = next(g for g in prog._program.graphs.values()
+                 if g.inputs[3].times.shape[0] == n)
+    torch.cuda.synchronize()
+    order = ("eager", "captured", "captured", "eager")
+    runs = []
+    for mode in order:
+        win = F.slice_signals(sig, lo, lo + n)
+        lo += n
+        before = sched_ops.launch_counts()
+        if mode == "captured":
+            with torch.inference_mode():
+                for a, b in zip(F._leaves(graph.inputs),
+                                F._leaves((prof, pp, state, win))):
+                    a.copy_(b)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pr:
+            t0 = time.perf_counter()
+            if mode == "captured":
+                graph.graph.replay()
+            else:
+                state, _ = prog.step_chunk(prof, pp, state, win,
+                                           _capture=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if mode == "captured":
+            with torch.inference_mode():
+                state = F._map(torch.clone, graph.outputs[0])
+            launches, key = graph.launches
+        else:
+            launches, key = (a - b for a, b in
+                             zip(sched_ops.launch_counts(), before))
+        dev_ev = [e for e in pr.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [e for e in dev_ev if "masked_argext" in e.name]
+        dropped = max(0, graph.nodes - len(dev_ev))
+        if not ours:
+            fail(f"phase 11 {mode}: the profile shows no masked_argext "
+                 f"kernel in the tick")
+        if key != launches or any("masked_argext_key" not in e.name
+                                  for e in ours):
+            fail(f"phase 11 {mode}: masked_argext off the key body")
+        if not 0 <= launches - len(ours) <= dropped:
+            fail(f"phase 11 {mode}: {len(ours)} masked_argext records "
+                 f"against {launches} launches counted ({dropped} records "
+                 f"dropped)")
+        busy_us = sum(e.time_range.elapsed_us() for e in dev_ev)
+        runs.append(dict(
+            mode=mode, ops_per_tick=len(dev_ev) / n,
+            busy_ms=busy_us / 1e3, wall_ms=wall * 1e3,
+            busy_share=busy_us / 1e6 / wall, ticks_per_s=n / wall,
+            argext_per_tick=launches / n, argext_records=len(ours) / n,
+            argext_us=sum(e.time_range.elapsed_us() for e in ours)
+            / max(len(ours), 1)))
+    nodes = graph.nodes / n
+    off = [r["ops_per_tick"] for r in runs
+           if abs(r["ops_per_tick"] - nodes) > PROFILE_SLACK * nodes]
+    if off:
+        fail(f"phase 11: device operations a tick "
+             f"{[r['ops_per_tick'] for r in runs]} (eager and replayed) "
+             f"differ from the graph's {nodes} nodes a tick")
+    plain, enqueue = [], []
+    for mode in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = prog.step_chunk(prof, pp, state,
+                                   F.slice_signals(sig, lo, lo + 2 * n),
+                                   _capture=mode == "captured")
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        plain.append(2 * n / (time.perf_counter() - t0))
+        lo += 2 * n
+    for r in runs:
+        say(f"phase11 profile {r['mode']} ({n} DEMS-COOP ticks, 28 edges): "
+            f"{r['ops_per_tick']:.1f} device operations per tick (the "
+            f"graph: {nodes:.1f} nodes a tick), masked_argext "
+            f"{r['argext_per_tick']:.1f} launches per tick counted, "
+            f"{r['argext_records']:.1f} records per tick at "
+            f"{r['argext_us']:.3f} us per launch; device busy "
+            f"{r['busy_ms']:.2f} ms of {r['wall_ms']:.2f} ms wall "
+            f"({r['busy_share']:.3f}); {r['ticks_per_s']:.2f} ticks/s")
+    say(f"phase11 without the profiler, {2 * n}-tick windows, ticks/s in "
+        f"the order {', '.join(order)}: "
+        f"{', '.join(f'{v:.2f}' for v in plain)} (host ms until "
+        f"step_chunk returned: {', '.join(f'{v:.2f}' for v in enqueue)});"
+        f" torch.max(where) on (28, 64): {compo_ms * 1e3:.3f} us")
+    # a replay's host time with the profiles and params copied in anew
+    # (new objects every window) and skipped (the objects the last
+    # replay copied, unchanged): the median of a kind's last 3 windows
+    host = {"skipped": [], "copied": []}
+    for kind in ("skipped", "copied", "copied", "skipped"):
+        ms = []
+        for _ in range(4):
+            ins = (prof, pp) if kind == "skipped" else (
+                F._map(torch.clone, prof), F._map(torch.clone, pp))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = prog.step_chunk(*ins, state,
+                                       F.slice_signals(sig, lo, lo + n))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            lo += n
+        host[kind].append(sorted(ms[1:])[1])
+    say(f"phase11 replay host ms until step_chunk returned, {n}-tick "
+        f"windows, profiles and params ({len(F._leaves((prof, pp)))} "
+        f"leaves) skipped: {', '.join(f'{v:.3f}' for v in host['skipped'])}"
+        f"; copied: {', '.join(f'{v:.3f}' for v in host['copied'])} (order "
+        f"skipped, copied, copied, skipped)")
+    graph_report(11)
+    return dict(runs=runs, plain=plain, enqueue_ms=enqueue, host_ms=host)
+
+
+def paper_events(golden: dict, duration_ms: float) -> list:
+    """The paper's steady stream as controller telemetry: 3 drones an
+    edge at 28 edges, each segment (1 s, a random phase a drone) a task of
+    every ACTIVE model, as ``(t_ms, edge, model)`` in time order."""
+    import numpy as np
+    coop = next(r for r in golden["runs"] if r["name"] == "paper-dems-coop")
+    m = len(models_of(coop["models"]))
+    rng = np.random.default_rng(golden["seed"])
+    ev = []
+    for e in range(coop["n_edges"]):
+        for _ in range(golden["drones_per_edge"]):
+            for t in np.arange(rng.uniform(0, 1000.0), duration_ms, 1000.0):
+                ev += [(float(t), e, k) for k in range(m)]
+    return sorted(ev)
+
+
+def drive(ctl, events: list, lo_ms: float, hi_ms: float,
+          checkpoint_at=None) -> float:
+    """Submit ``events`` in ``[lo_ms, hi_ms)`` a poll cadence (one
+    window) at a time and poll after each; checkpoint at
+    ``checkpoint_at``; flush.  Returns the host seconds."""
+    cadence = ctl.window_ticks * ctl.dt
+    i = next((k for k, ev in enumerate(events) if ev[0] >= lo_ms),
+             len(events))
+    t0 = time.perf_counter()
+    now = lo_ms
+    while now < hi_ms:
+        now = min(now + cadence, hi_ms)
+        while i < len(events) and events[i][0] < now:
+            ctl.submit(*events[i])
+            i += 1
+        ctl.poll(now)
+        if checkpoint_at is not None and now == checkpoint_at:
+            if ctl.builder.pending_ticks:
+                fail("phase 21: telemetry spilled past the checkpoint tick")
+            ctl.checkpoint()
+    ctl.close()
+    return time.perf_counter() - t0
+
+
+def phase_controller(golden: dict, scenarios: dict) -> dict:
+    """Phase 21: the online control plane on the card.  (a) Phase 19's
+    registry-scenario runs streamed through ``FleetController`` in windows
+    of 16 and of 7 ticks, each final state bitwise phase 19's replay (held
+    to the JAX goldens there).  (b) A paper-scale controller, 28 edges,
+    ``window_ticks`` 8, DEMS-COOP, traced, on ``CONTROLLER_MS`` of the
+    paper's stream: step-latency p50/p95/p99 (the first window, warm-up
+    and capture, left out) and mission time over wall time, then the
+    eager path (``_capture=False``) on the first ``EAGER_CONTROLLER_MS``
+    of the same stream.  (c) Kill and restore: (b) checkpoints at half
+    time; a fresh controller restores, takes the stream from there and
+    finishes bitwise (b)'s final state.  (d) ``python -m
+    repro_torch.launch.serve --backend fleet`` on the card in a child
+    process; its snapshot must be written."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.scenarios.runner import stream_scenario_fleet
+    from repro_torch.serve.controller import FleetController
+    dt = golden["dt"]
+    t_phase = time.perf_counter()
+    n_streams = 0
+    for entry in golden["scenario_runs"]:
+        spec = scenario_spec(entry)
+        want = scenarios["runs"][entry["name"]]["final"]
+        for window in (16, 7):
+            ctl = stream_scenario_fleet(spec, entry["policy"], dt=dt,
+                                        window_ticks=window, device="cuda")
+            if not all(torch.equal(a.cpu(), b)
+                       for a, b in zip(leaves(ctl.state), want)):
+                fail(f"phase 21 {entry['name']} window {window}: streamed "
+                     f"state differs from phase 19's replay")
+            n_streams += 1
+    stream_s = time.perf_counter() - t_phase
+    say(f"phase21 streaming: {n_streams} runs (phase 19's {n_streams // 2} "
+        f"at windows of 16 and 7 ticks) through FleetController, each "
+        f"final state == phase 19's replay bitwise; {stream_s:.1f} s")
+    graph_report(21)
+
+    coop = next(r for r in golden["runs"] if r["name"] == "paper-dems-coop")
+    models = models_of(coop["models"])
+    events = paper_events(golden, CONTROLLER_MS)
+    half = CONTROLLER_MS / 2
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck")
+
+        def controller(capture=True):
+            return FleetController(
+                models, coop["policy"], n_edges=coop["n_edges"], dt=dt,
+                window_ticks=8, cloud_slots=golden["cloud_slots"],
+                checkpoint_path=path, checkpoint_every=10**9,
+                device="cuda", _capture=capture)
+
+        def pcts(ctl):
+            a = np.asarray(ctl.step_latencies_ms[1:])
+            return {f"p{q}": float(np.percentile(a, q)) for q in (50, 95, 99)}
+
+        for capture, horizon in ((True, CONTROLLER_MS),
+                                 (False, EAGER_CONTROLLER_MS)):
+            ctl = controller(capture)
+            wall = drive(ctl, events, 0.0, horizon,
+                         checkpoint_at=half if capture else None)
+            snap = ctl.metrics_snapshot()
+            key = "captured" if capture else "eager"
+            out[key] = dict(step_ms=pcts(ctl), mission_s=horizon / 1e3,
+                            wall_s=wall, ratio=horizon / 1e3 / wall,
+                            windows=ctl.windows_run,
+                            ingest_ms=snap["ingest_to_decision_ms"],
+                            completed=snap["completed"],
+                            decisions=len(ctl.decisions))
+            if capture:
+                full = ctl
+            say(f"phase21 controller {key}: 28 edges DEMS-COOP, windows of "
+                f"8 ticks, {horizon / 1e3:.0f} s of mission in {wall:.2f} s "
+                f"(mission/wall {horizon / 1e3 / wall:.3f}); step latency ms "
+                f"(first window left out) "
+                f"{json.dumps({k: round(v, 3) for k, v in out[key]['step_ms'].items()})}; "
+                f"ingest to decision ms {json.dumps(snap['ingest_to_decision_ms'])}; "
+                f"{ctl.windows_run} windows, {len(ctl.decisions)} decision "
+                f"records, completed {snap['completed']}")
+        restored = controller()
+        tick = restored.restore()
+        if tick != int(half / dt):
+            fail(f"phase 21: restored tick {tick} != {int(half / dt)}")
+        drive(restored, events, half, CONTROLLER_MS)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(leaves(restored.state), leaves(full.state))):
+            fail("phase 21: the restored controller's final state differs "
+                 "from the uninterrupted run's")
+        say(f"phase21 kill and restore: checkpoint at tick {tick} of the "
+            f"captured run, a fresh controller restored from it and fed "
+            f"the stream from there: final state == the uninterrupted "
+            f"run's bitwise")
+        snap_path = os.path.join(tmp, "snapshot.json")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--backend",
+             "fleet", "--device", "cuda", "--duration",
+             str(SERVE_FLEET_S), "--edges", "2", "--snapshot-out",
+             snap_path], cwd=ROOT, capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, PYTHONPATH=SRC))
+        if res.returncode != 0 or not os.path.isfile(snap_path):
+            fail(f"phase 21: launch.serve --backend fleet failed "
+                 f"(exit {res.returncode}): {res.stderr[-2000:]}")
+        snap = json.load(open(snap_path))
+        if snap["now_ms"] != SERVE_FLEET_S * 1e3 or not snap["windows_run"]:
+            fail(f"phase 21: the launcher's snapshot is off: {snap}")
+        say(f"phase21 launch.serve --backend fleet --device cuda, "
+            f"{SERVE_FLEET_S} s of mission, in a child process: snapshot "
+            f"written ({len(snap)} keys; completed {snap['completed']}, "
+            f"windows {snap['windows_run']}, step latency ms "
+            f"{json.dumps(snap['step_latency_ms'])}); child "
+            f"{time.perf_counter() - t0:.1f} s")
+    out["graphs"] = graph_report(21)
+    say(f"phase21 done in {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def states_equal(a, b) -> bool:
@@ -2736,6 +3253,7 @@ def main() -> int:
 
     # ---- phase 3: small parity, card vs host vs golden ------------------
     phase_small(golden)
+    graph_report(3)
 
     # ---- phase 4: paper-scale fleet (the main path) ---------------------
     sched_ops.reset_count()
@@ -2766,15 +3284,18 @@ def main() -> int:
         fail(f"phase 4: {sched_ops.key_launch_count} of {launches} "
              f"masked_argext launches on the key body")
     say(f"phase4 launches: masked_argext {launches}, every one on the key "
-        f"body")
+        f"body (first windows eager, the rest replays of their graphs)")
+    graph_report(4, detail=True, all_key=True)
 
     # ---- phase 19: registry scenarios through the port alone ----------
     # before phase 9, whose budgeted horizon absorbs its time
     scenarios = phase_scenarios(golden)
+    graph_report(19)
 
     # ---- phase 20: the traced, batched sweep through the port alone ----
     # before phase 9 too, for the same reason
     sweep = phase_sweep(scenarios)
+    graph_report(20, detail=True, all_key=True)
 
     # ---- phases 5-8: the serve path and its kernels ----------------------
     phase_golden(dev, GOLDEN_MODEL, 5)
@@ -2790,10 +3311,12 @@ def main() -> int:
 
     # ---- phase 9: metropolis fleet -------------------------------------
     coop = next(r for r in golden["runs"] if r["name"] == "paper-dems-coop")
-    # launch-bound: a 1024-edge tick costs about what a 28-edge one does;
-    # fit two runs, whole seconds of horizon, into what the budget leaves
-    tick_s = paper["paper-dems-coop"]["wall_s"] * golden["dt"] / coop[
-        "duration_ms"]
+    # phase 4's wall a tick (its first windows' warm-up and capture
+    # included) times METRO_TICK_FACTOR bounds a replayed 1024-edge tick
+    # (PERF.md §5); fit two runs, whole seconds of horizon, into what the
+    # budget leaves
+    tick_s = METRO_TICK_FACTOR * paper["paper-dems-coop"]["wall_s"] \
+        * golden["dt"] / coop["duration_ms"]
     left = BUDGET_S - RESERVE_S - (time.perf_counter() - T_START)
     fit_ms = 1000.0 * int(left / (2.0 * tick_s) * golden["dt"] / 1000.0)
     metro_ms = min(METRO_MS, max(MIN_METRO_MS, fit_ms))
@@ -2822,84 +3345,16 @@ def main() -> int:
         f"{metro[0][1]:.2f} s, {metro[1][1]:.2f} s); max memory allocated "
         f"{metro[0][2]} B")
 
-    # ---- phase 10: the tick never waits on the host ---------------------
-    models = models_of(coop["models"])
-    prof = F.Profiles.build(models, dev)
-    pol = F.FleetPolicy.from_name(coop["policy"])
-    pp = pol.params(dev)
-    prog = F.FleetProgram.for_policy(pol, dt=golden["dt"])
-    sig = signals_of(coop, "cuda", duration_ms=(SYNC_TICKS + PROFILE_TICKS
-                                                + 20) * golden["dt"])
-    state = prog.init(prof, pol, coop["n_edges"], golden["cloud_slots"])
-    state, _ = prog.step_chunk(prof, pp, state, F.slice_signals(sig, 0, 10))
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        state, _ = prog.step_chunk(prof, pp, state,
-                                   F.slice_signals(sig, 10, 10 + SYNC_TICKS))
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    # one traced window of a padded, heterogeneous batch (1-3 edges, 4 and
-    # 6 models, 2 and 16 pool slots, with and without peer offload)
-    from repro_torch.obs.trace import TraceSpec
-    from repro_torch.scenarios.compile import compile_registry_batch
-    batch, _ = compile_registry_batch(
-        ("rush-hour", "cloud-crunch", "brownout"), ("DEMS", "DEMS-COOP"),
-        (0,), dt=golden["dt"], duration_ms=2_000.0, device="cuda")
-    bprog = F.FleetProgram(dt=golden["dt"], coop_rounds=batch.coop_rounds,
-                           trace=TraceSpec.full())
-    bstate, _ = bprog.step_chunk(batch.profiles, batch.params, batch.state,
-                                 F.slice_signals(batch.signals, 0, 10))
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        bstate, bres = bprog.step_chunk(
-            batch.profiles, batch.params, bstate,
-            F.slice_signals(batch.signals, 10, 10 + SYNC_TICKS))
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    if tuple(bres.counters.valid.shape[:2]) != (
-            batch.signals.times.shape[0], SYNC_TICKS):
-        fail("phase 10: the traced batch window has the wrong shape")
-    say(f"phase10 sync: {SYNC_TICKS} DEMS-COOP ticks at {coop['n_edges']} "
-        f"edges, and one traced {SYNC_TICKS}-tick window of a padded batch "
-        f"(R {batch.signals.times.shape[0]}, edges "
-        f"{batch.signals.arrive.shape[2]}, models "
-        f"{batch.signals.arrive.shape[3]}), ran under "
-        f"set_sync_debug_mode('error')")
-    del batch, bstate, bres
+    graph_report(9, detail=True)
 
-    # ---- phase 11: profile ---------------------------------------------
-    from torch.profiler import ProfilerActivity, profile
-    lo = 10 + SYNC_TICKS
-    before = sched_ops.launch_count
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof_run:
-        t0 = time.perf_counter()
-        state, _ = prog.step_chunk(prof, pp, state,
-                                   F.slice_signals(sig, lo,
-                                                   lo + PROFILE_TICKS))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    tick_launches = sched_ops.launch_count - before
-    kernels = [ev for ev in prof_run.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA]
-    n_dev = len(kernels)
-    busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
-    ours = [ev for ev in kernels if "masked_argext" in ev.name]
-    ours_us = sum(ev.time_range.elapsed_us() for ev in ours) / max(
-        len(ours), 1)
-    if n_dev and not ours:
-        fail("profile shows no masked_argext kernel in the tick")
-    say(f"phase11 profile ({PROFILE_TICKS} DEMS-COOP ticks, "
-        f"{coop['n_edges']} edges): {n_dev / PROFILE_TICKS:.1f} device "
-        f"kernels per tick, masked_argext {tick_launches / PROFILE_TICKS:.1f}"
-        f" launches per tick at {ours_us:.3f} us per launch; device busy "
-        f"{busy_us / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall "
-        f"({busy_us / 1e6 / wall:.3f}); torch.max(where) on (28, 64): "
-        f"{compo_ms * 1e3:.3f} us")
+    # ---- phase 10: the tick never waits on the host; replay == eager ----
+    phase_sync(golden)
+
+    # ---- phase 11: profile, eager and replayed -------------------------
+    phase_profile(golden, compo_ms)
+
+    # ---- phase 21: the online control plane ----------------------------
+    phase_controller(golden, scenarios)
 
     # ---- phases 12-14: the hybrid path and its kernels -----------------
     torch.cuda.empty_cache()

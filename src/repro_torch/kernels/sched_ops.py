@@ -43,6 +43,21 @@ def reset_count() -> None:
     launch_count = key_launch_count = 0
 
 
+def launch_counts() -> tuple[int, int]:
+    """``(launch_count, key_launch_count)``."""
+    return launch_count, key_launch_count
+
+
+def add_launches(n: int, key: int) -> None:
+    """Count ``n`` launches, ``key`` of them on KEY, that no wrapper call
+    issued: a CUDA graph's replay of the launches its capture recorded
+    (:class:`repro_torch.sim.fleet.TickProgram`; a capture launches
+    nothing and takes its counts back)."""
+    global launch_count, key_launch_count
+    launch_count += n
+    key_launch_count += key
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
     fn = lib.masked_argext_launch

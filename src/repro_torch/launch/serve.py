@@ -13,13 +13,22 @@ their norms through the hand-written flash-attention and RMSNorm
 kernels, and ``--device cpu`` runs everything on the host.
 ``build_roles(full_size=True)`` serves them at their published widths
 and depths in bf16 (``chip_smoke.py`` does).
-``--backend fleet`` (the compiled online control plane) is not ported
-yet.
+
+``--backend fleet`` schedules the same frame stream, from the same
+measured profiles, on the online control plane
+(:class:`repro_torch.serve.controller.FleetController`, on ``--device``)
+window by window, with per-tick decision records, flight-recorder tails
+and checkpointed crash restart (``--checkpoint``); ``--snapshot-out``
+writes the final ``metrics_snapshot()`` as JSON.  The first SIGINT or
+SIGTERM drains: the stream stops at the next poll, buffered ticks are
+stepped, the final checkpoint and snapshot are written.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import signal
 import time
 
 import numpy as np
@@ -89,6 +98,47 @@ def build_roles(cloud_concurrency: int = 4, *, device="cuda",
     return models, fps
 
 
+def serve_fleet(args, models: dict, fps: dict) -> dict:
+    """``--backend fleet``: the frame stream through a
+    :class:`~repro_torch.serve.controller.FleetController`; returns the
+    final snapshot."""
+    from repro_torch.serve.controller import FleetController, drive_stream
+    ctl = FleetController(
+        [m.profile for m in models.values()], args.policy,
+        n_edges=args.edges, cloud_slots=args.cloud_concurrency,
+        checkpoint_path=args.checkpoint, device=args.device)
+    # graceful shutdown: the first SIGINT/SIGTERM stops the stream at the
+    # next poll; drive_stream still flushes buffered ticks and writes the
+    # final checkpoint, and the snapshot is written as on a normal exit.
+    # A second signal interrupts hard.
+    interrupted = []
+
+    def _graceful(signum, frame):
+        if interrupted:
+            raise KeyboardInterrupt
+        interrupted.append(signum)
+        print(f"signal {signum}: draining — final checkpoint and snapshot "
+              f"on the way (repeat to force-quit)", flush=True)
+
+    previous = {s: signal.signal(s, _graceful)
+                for s in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        snap = drive_stream(ctl, fps, args.duration * 1e3,
+                            stop=lambda: bool(interrupted))
+    finally:
+        for s, h in previous.items():
+            signal.signal(s, h)
+    if args.snapshot_out:
+        with open(args.snapshot_out, "w") as f:
+            json.dump(snap, f, indent=2, default=float)
+    print(json.dumps(
+        {k: snap[k] for k in ("policy", "completed", "missed", "dropped",
+                              "completion_rate", "windows_run",
+                              "step_latency_ms")},
+        indent=2, default=float), flush=True)
+    return snap
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--policy", default="GEMS", choices=list(ALL_POLICIES))
@@ -97,7 +147,13 @@ def main(argv=None) -> None:
     ap.add_argument("--backend", default="thread",
                     choices=("thread", "fleet"),
                     help="thread = ServeEngine with live forward passes; "
-                         "fleet = the compiled FleetController (not ported)")
+                         "fleet = the FleetController tick program")
+    ap.add_argument("--edges", type=int, default=2,
+                    help="[fleet] number of edges in the fleet")
+    ap.add_argument("--checkpoint", default=None,
+                    help="[fleet] checkpoint path stem for crash restart")
+    ap.add_argument("--snapshot-out", default=None,
+                    help="[fleet] write the final metrics_snapshot() JSON")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attn-impl", default="ref", choices=("ref", "kernel"),
                     help="kernel = every op of the models' path that has a "
@@ -106,13 +162,12 @@ def main(argv=None) -> None:
                          "plain PyTorch.  CPU tensors take the plain "
                          "versions either way")
     args = ap.parse_args(argv)
-    if args.backend == "fleet":
-        raise NotImplementedError(
-            "--backend fleet needs the online control plane "
-            "(FleetController), ROADMAP queue 1; use --backend thread")
 
     models, fps = build_roles(args.cloud_concurrency, device=args.device,
                               attn_impl=args.attn_impl)
+    if args.backend == "fleet":
+        serve_fleet(args, models, fps)
+        return
     engine = ServeEngine(make_policy(args.policy), models,
                          cloud_concurrency=args.cloud_concurrency)
     result = run_stream(engine, fps, args.duration * 1e3)

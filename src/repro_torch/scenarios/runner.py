@@ -1,5 +1,5 @@
 """Drive a scenario through either simulator and merge results (a copy
-of ``repro.scenarios.runner`` without its streaming runners).
+of ``repro.scenarios.runner``).
 
 ``run_scenario_oracle`` runs one discrete-event :class:`Simulator` per
 edge site (each with its own θ trace, outage windows and speed-scaled
@@ -8,6 +8,9 @@ and merges the per-edge :class:`Results` on the host.
 ``run_scenario_fleet`` lowers the same spec to dense tick signals on a
 device and runs the port's fleet tick program, optionally with the
 flight recorder; ``fleet_summary`` reads its final stacked state.
+``stream_scenario_fleet`` feeds the same signals window by window
+through the online :class:`~repro_torch.serve.controller.FleetController`,
+and ``assert_streaming_equivalence`` holds the two bitwise.
 ``run_scenario_fleet_batch`` runs one scenario over many seeds as one
 batch, and ``run_registry_sweep`` scenarios × policies × seeds as
 exact-shape buckets or one padded batch.
@@ -179,6 +182,61 @@ def run_scenario_fleet(spec: ScenarioSpec, policy, *, dt: float = 25.0,
                        record_trace=record_trace, trace=trace, device=device)
 
 
+def stream_scenario_fleet(spec: ScenarioSpec, policy, *, dt: float = 25.0,
+                          window_ticks: int = 16, edge_frac: float = 0.62,
+                          cloud_frac: float = 0.80, trace=None,
+                          device="cuda"):
+    """The scenario through the *online* control plane, window by window.
+
+    Compiles the same dense signals as :func:`run_scenario_fleet`, then
+    feeds them through a
+    :class:`repro_torch.serve.controller.FleetController` on ``device``
+    in ``window_ticks`` chunks via its replay bridge
+    (:meth:`~repro_torch.serve.controller.FleetController.step_signals`).
+    Returns the controller; its ``state`` is the streamed final
+    ``EdgeState``.
+    """
+    from repro_torch.obs.trace import TraceSpec
+    from repro_torch.serve.controller import FleetController
+
+    sig = compile_fleet(spec, dt, device=device)
+    ctl = FleetController(
+        spec.models, policy, n_edges=spec.n_edges, dt=dt,
+        window_ticks=window_ticks, cloud_slots=spec.cloud_concurrency,
+        edge_frac=edge_frac, cloud_frac=cloud_frac,
+        trace=TraceSpec() if trace is None else trace, device=device)
+    n_ticks = int(sig.times.shape[0])
+    for lo in range(0, n_ticks, window_ticks):
+        ctl.step_signals(F.slice_signals(sig, lo, min(lo + window_ticks,
+                                                      n_ticks)))
+    return ctl
+
+
+def assert_streaming_equivalence(spec: ScenarioSpec, policy, *,
+                                 dt: float = 25.0, window_ticks: int = 16,
+                                 device="cuda") -> dict[str, float]:
+    """Replay-vs-streaming bitwise check (the equivalence test hook).
+
+    Runs the scenario both ways — one :func:`run_scenario_fleet` replay
+    call and a :class:`~repro_torch.serve.controller.FleetController`
+    stepping the identical signals window by window — and raises
+    ``AssertionError`` naming the diverging ``EdgeState`` fields unless
+    every leaf is bit for bit equal.  Returns the (shared) summary.
+    """
+    ref = run_scenario_fleet(spec, policy, dt=dt, device=device)
+    ctl = stream_scenario_fleet(spec, policy, dt=dt,
+                                window_ticks=window_ticks, device=device)
+    bad = [name for name, a, b in zip(F.EdgeState._fields, ref, ctl.state)
+           if not all(torch.equal(x, y)
+                      for x, y in zip(F._leaves(a), F._leaves(b)))]
+    if bad:
+        raise AssertionError(
+            f"streaming EdgeState diverged from replay in fields {bad} "
+            f"({spec.name!r}, policy {policy!r}, "
+            f"window_ticks={window_ticks})")
+    return fleet_summary(ctl.state)
+
+
 def run_scenario_fleet_batch(spec: ScenarioSpec, policy,
                              seeds: tuple[int, ...], *, dt: float = 25.0,
                              edge_frac: float = 0.62,
@@ -213,7 +271,7 @@ def _to_host(tree):
 def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
                        dt: float = 25.0, duration_ms: float | None = None,
                        trace=None, planner: str = "padded",
-                       device="cuda") -> list[dict]:
+                       donate: bool = False, device="cuda") -> list[dict]:
     """Scenarios × policies × seeds as batches on ``device``.
 
     ``planner`` picks the lowering; both give bitwise-identical rows:
@@ -242,7 +300,9 @@ def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
     re-stacked to that run's own ``[T, E, …]`` layout (lanes of the
     edge-flattened lowering concatenated back along the edge axis; under
     the padded planner the model axis stays padded to the batch maximum,
-    and padded models never count).
+    and padded models never count).  ``donate=True`` updates each
+    batch's carry in place (:class:`repro_torch.sim.fleet.FleetProgram`),
+    bitwise alike.
     """
     traced = trace is not None and trace.enabled
 
@@ -279,7 +339,8 @@ def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
         for batch, rows in compile_registry_groups(
                 scenarios, policies, seeds, dt=dt, duration_ms=duration_ms,
                 device=device):
-            res = _to_host(F.run_batch(batch, dt=dt, trace=trace))
+            res = _to_host(F.run_batch(batch, dt=dt, trace=trace,
+                                         donate=donate))
             for d in summarize(res, rows):
                 by_key[d["scenario"], d["policy"], d["seed"]] = d
         from repro_torch.scenarios.registry import names
@@ -295,7 +356,8 @@ def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
     batch, rows = compile_registry_batch(scenarios, policies, seeds, dt=dt,
                                          duration_ms=duration_ms,
                                          device=device)
-    return summarize(_to_host(F.run_batch(batch, dt=dt, trace=trace)), rows)
+    return summarize(_to_host(F.run_batch(batch, dt=dt, trace=trace,
+                                         donate=donate)), rows)
 
 
 def fleet_summary_batch(final) -> list[dict[str, float]]:

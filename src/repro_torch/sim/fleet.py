@@ -23,10 +23,14 @@ queue-wait estimate; estimator and offer events batched per tick.
 Policy flags are runtime tensors (:class:`PolicyParams`) read only
 through ``torch.where``: one tick program serves every policy.  Nothing
 inside a tick synchronises with the host (no ``.item()``, no boolean-mask
-indexing, no branch on a tensor), so a tick can later be captured as a
-CUDA graph.  The only kernel on the path is the masked arg-extremum of
-:mod:`repro_torch.kernels.sched_ops` (stealing, export and peer-offload
-selection), which runs the hand-written CUDA kernel on the card.
+indexing, no branch on a tensor), so on the card a window of ticks runs
+as a CUDA graph: :func:`_fleet_program` keeps one program per set of
+statics in a bounded LRU (the reference's jit cache), and each program a
+graph per shape key, captured on the key's first window and replayed on
+every later one (:class:`TickProgram`).  The only kernel on the path is
+the masked arg-extremum of :mod:`repro_torch.kernels.sched_ops`
+(stealing, export and peer-offload selection), which runs the
+hand-written CUDA kernel on the card, inside the graphs.
 
 Every entry point takes ``trace=`` (:class:`repro_torch.obs.trace.
 TraceSpec`), the flight recorder: read-only taps of the tick emit the
@@ -40,7 +44,11 @@ and seeds under one set of launches a tick.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 import dataclasses
+import time
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -1024,57 +1032,145 @@ def _cat_results(parts: list, axis: int) -> FleetResult:
             *(cat(xs) for xs in zip(*(p.counters for p in parts)))))
 
 
-@dataclasses.dataclass(frozen=True)
-class FleetProgram:
-    """The tick program as a step-wise API: :meth:`init` builds the
-    stacked state, :meth:`step_chunk` advances it over one signal window,
-    :meth:`run` replays a horizon chunk by chunk (bitwise identical for
-    any ``chunk_ticks``, since each tick reads only the carried state and
-    its own signal row).
+# ---------------------------------------------------------------------------
+# tick programs: a bounded cache over the statics, a CUDA graph a shape key
+# ---------------------------------------------------------------------------
 
-    ``trace`` selects the flight-recorder streams.  Signals with a
-    leading replica axis (``[R, T, …]``, state ``[R, E, …]``) run as a
-    batch; profiles and policy flags are then either shared (``[M]`` and
-    0-d) or per replica (``[R, M]`` and ``[R]``, a :class:`FleetBatch`)."""
+# every live program, for the capture accounting of
+# repro_torch.obs.prof.fleet_compile_stats: a program records one shape
+# key per distinct input shape, and policies are runtime data, so running
+# more policies through it adds none
+_PROGRAM_REGISTRY: list = []
 
-    dt: float = 25.0
-    edge_frac: float = 0.62
-    cloud_frac: float = 0.80
-    coop_rounds: int = 0
-    trace: TraceSpec = TraceSpec()
+# The program cache is bounded: the shape-bucketed sweep planner keys one
+# program layout per bucket, and a long-lived process must not keep
+# programs (and their graphs' memory pools) without bound.  LRU order;
+# an evicted program drops its graphs and leaves _PROGRAM_REGISTRY.
+FLEET_PROGRAM_CACHE_CAPACITY = 32
+_PROGRAM_CACHE: collections.OrderedDict = collections.OrderedDict()
+_PROGRAM_EVICTIONS = 0
 
-    @classmethod
-    def for_policy(cls, policy, *, trace: TraceSpec = TraceSpec(),
-                   dt: float = 25.0, edge_frac: float = 0.62,
-                   cloud_frac: float = 0.80) -> "FleetProgram":
-        """A program whose peer-offload round bound matches ``policy``."""
-        pol = _resolve_policy(policy)
-        return cls(dt=dt, edge_frac=edge_frac, cloud_frac=cloud_frac,
-                   coop_rounds=pol.coop_max_transfers if pol.cooperation
-                   else 0, trace=trace)
+# the window FleetProgram.run replays when no chunk_ticks is given.  A
+# graph records every launch of its window (about 3,400 nodes a 28-edge
+# DEMS-COOP tick), so a 12,000-tick horizon cannot be one graph; and a
+# new shape key pays an eager window, a capture and an instantiation
+# that grow with the window, while the replayed rate did not grow from
+# 40 ticks to 100 (PERF.md §6).  20 ticks divide the horizons the
+# repository runs (8, 10, 15, 30 s).
+RUN_WINDOW_TICKS = 20
 
-    def init(self, prof: Profiles, policy, n_edges: int,
-             cloud_slots: int = CLOUD_SLOTS,
-             total_slots: Optional[int] = None) -> EdgeState:
-        """Fresh stacked fleet state on ``prof``'s device."""
-        pol = _resolve_policy(policy)
-        return init_state(prof, n_edges, pol.adapt_window, cloud_slots,
-                          total_slots=total_slots)
+# graph captures since import and their host seconds, instantiation
+# included (repro_torch.obs.prof.CompileCounter reads the difference)
+_CAPTURES = [0, 0.0]
 
-    @property
-    def _step(self):
-        return make_step(self.dt, self.edge_frac, self.cloud_frac,
-                         self.trace)
 
-    @torch.inference_mode()
-    def step_chunk(self, prof: Profiles, pp: PolicyParams, state: EdgeState,
-                   signals: FleetSignals):
-        """Advance ``state`` over one window.  Returns ``(state, result)``:
-        ``result`` is the window's :class:`FleetResult` (streams over this
-        window's ticks) when the program's trace is enabled, else
-        ``None``.  The launches are enqueued without any wait on the
-        card."""
-        step = self._step
+def _leaves(tree) -> list:
+    """The tensor leaves of a NamedTuple tree, in field order (``None``
+    streams have none)."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _map(fn, tree):
+    """``fn`` on every leaf of a NamedTuple tree (``None`` stays)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map(fn, v) for v in tree))
+    return fn(tree)
+
+
+def _shape_key(*trees) -> tuple:
+    """Shape, dtype and device of every leaf: what a jit traces anew on."""
+    return tuple((tuple(a.shape), a.dtype, a.device)
+                 for t in trees for a in _leaves(t))
+
+
+def _version(a: torch.Tensor):
+    """``a``'s version counter, ``None`` for an inference tensor (which
+    keeps none)."""
+    try:
+        return a._version
+    except RuntimeError:
+        return None
+
+
+def _graph_nodes(graph) -> int:
+    """The node count of a captured (kept) graph (the CUDA driver API's
+    ``cuGraphGetNodes``)."""
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured window: the graph, the static buffers it reads
+    (``inputs``: profiles, params, state, signals) and writes
+    (``outputs``: state, t̂ stream, counters), the ``masked_argext``
+    launches a replay makes (all, KEY) and what the capture cost.
+
+    ``held`` are weak references to the state leaves the last donated
+    replay handed out (aliases of the state buffers, so a stream that
+    passes them back in is known by identity); ``last`` the profiles and
+    params leaves the last replay copied in, with their version counters
+    (held strongly, so an identity cannot be reused)."""
+
+    graph: object
+    inputs: tuple
+    outputs: tuple
+    launches: tuple
+    nodes: int
+    capture_s: float
+    instantiate_s: float
+    held: list = dataclasses.field(default_factory=list)
+    last: list = dataclasses.field(default_factory=list)
+
+
+class TickProgram:
+    """An entry of the program cache: the window body of one set of
+    statics (``dt``, the execution fractions, ``coop_rounds``, the trace
+    spec, ``donate``) and, on the card, a CUDA graph of it per shape key,
+    as a jit wrapper keeps a trace per input shape.
+
+    A shape key's first window runs eagerly on a side stream: that is
+    the warm-up capture needs (the kernels built, every lazy
+    initialisation done), and its result is the window's.  The window is
+    then captured, and every later window of that key is a replay: each
+    input leaf copied into the graph's static buffer (one ``copy_`` a
+    leaf), the graph replayed, the outputs cloned out of its memory (the
+    state only without ``donate``; with it the graph has written the new
+    carry back into its own state buffers).  Leaves a replay need not
+    copy are skipped: a profiles or params leaf that is the tensor the
+    last replay copied, unchanged since (its version counter), and,
+    donated, the state that replay handed out.  A donated replay hands
+    out aliases of the state buffers; when another stream's state
+    arrives while a caller still holds them, they first become that
+    caller's own copy, so donated streams of one shape stay apart.  A
+    replay adds the launches its capture recorded to the kernel's
+    counts.  A capture or replay that fails raises.  CPU tensors run the
+    body eagerly and record their shape key alike."""
+
+    def __init__(self, dt: float, edge_frac: float, cloud_frac: float,
+                 coop_rounds: int, tspec: TraceSpec, donate: bool):
+        self.dt, self.coop_rounds = dt, coop_rounds
+        self.tspec, self.donate = tspec, donate
+        self.step = make_step(dt, edge_frac, cloud_frac, tspec)
+        self.shape_keys: set = set()
+        self.graphs: dict = {}
+
+    def window(self, prof: Profiles, pp: PolicyParams, state: EdgeState,
+               signals: FleetSignals):
+        """The body: ``state`` advanced over ``signals``.  Returns
+        ``(state, t_hat, counters)``, the streams stacked on the tick
+        axis or ``None``."""
+        step = self.step
         ax = _tick_axis(signals)
         if ax:
             # per-replica tables and flags as per-edge values ([R, 1, M],
@@ -1104,42 +1200,275 @@ class FleetProgram:
                     tick = tick._replace(
                         peer_out=tick.peer_out + state.n_peer_out - pre_out,
                         peer_in=tick.peer_in + state.n_peer_in - pre_in)
-            if self.trace.t_hat:
+            if self.tspec.t_hat:
                 t_hats.append(state.adapt.current)
             if tick is not None:
                 ticks.append(tick)
+        return (state,
+                torch.stack(t_hats, ax) if self.tspec.t_hat else None,
+                TickCounters(*(torch.stack(xs, ax) for xs in zip(*ticks)))
+                if self.tspec.counters else None)
+
+    def record(self, inputs: tuple):
+        """What a graph records: the body on the static ``inputs`` and,
+        with ``donate``, the new carry written back into the static
+        state buffers (a new leaf sharing memory with an input is cloned
+        before any write-back, so no write reads an overwritten leaf).
+        Returns the outputs."""
+        state, t_hat, counters = self.window(*inputs)
+        if self.donate:
+            held = {a.untyped_storage().data_ptr()
+                    for a in _leaves(inputs[2])}
+            new = [b.clone() if b.untyped_storage().data_ptr() in held
+                   else b for b in _leaves(state)]
+            for a, b in zip(_leaves(inputs[2]), new):
+                a.copy_(b)
+            state = inputs[2]
+        return state, t_hat, counters
+
+    def note(self, *trees) -> None:
+        """Record the shape key of ``trees`` (what a jit traces anew on)."""
+        self.shape_keys.add(_shape_key(*trees))
+
+    def __call__(self, prof, pp, state, signals, capture: bool = True,
+                 note: bool = True):
+        key = _shape_key(prof, pp, state, signals)
+        if note:
+            self.shape_keys.add(key)
+        if state.busy_rem.device.type != "cuda" or not capture:
+            return self.window(prof, pp, state, signals)
+        g = self.graphs.get(key)
+        if g is None:
+            return self._first(key, prof, pp, state, signals)
+        return self._replay(g, prof, pp, state, signals)
+
+    def _first(self, key, prof, pp, state, signals):
+        dev = state.busy_rem.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.window(prof, pp, state, signals)
+        main.wait_stream(side)
+        for a in _leaves(out):
+            a.record_stream(main)
+        self.graphs[key] = self._capture(prof, pp, state, signals)
+        return out
+
+    def _capture(self, prof, pp, state, signals) -> _Graph:
+        inputs = tuple(_map(torch.clone, t)
+                       for t in (prof, pp, state, signals))
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = sched_ops.launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                outputs = self.record(inputs)
+        finally:
+            # the capture launched nothing: its counts come back once per
+            # replay
+            launches = tuple(a - b for a, b in zip(sched_ops.launch_counts(),
+                                                   before))
+            sched_ops.add_launches(*(-n for n in launches))
+        capture_s = time.perf_counter() - t0
+        nodes = _graph_nodes(graph)
+        t0 = time.perf_counter()
+        graph.instantiate()
+        instantiate_s = time.perf_counter() - t0
+        _CAPTURES[0] += 1
+        _CAPTURES[1] += capture_s + instantiate_s
+        return _Graph(graph, inputs, outputs, launches, nodes, capture_s,
+                      instantiate_s)
+
+    def _replay(self, g: _Graph, prof, pp, state, signals):
+        s_prof, s_pp, s_state, s_sig = g.inputs
+        fixed = [(b, _version(b)) for b in _leaves((prof, pp))]
+        last = g.last or [(None, None)] * len(fixed)
+        copies = [(a, b) for a, (b, v), (b0, v0) in zip(
+            _leaves((s_prof, s_pp)), fixed, last)
+            if not (b is b0 and v is not None and v == v0)]
+        copies += zip(_leaves(s_sig), _leaves(signals))
+        held = [r() for r in g.held]
+        if not (self.donate and held and all(
+                a is b for a, b in zip(held, _leaves(state)))):
+            # another stream's state: the carry the buffers hold becomes
+            # its holder's own copy before it is overwritten
+            for a in held:
+                if a is not None:
+                    a.set_(a.clone())
+            copies += zip(_leaves(s_state), _leaves(state))
+        for a, b in copies:
+            a.copy_(b)
+        g.last = fixed
+        g.graph.replay()
+        sched_ops.add_launches(*g.launches)
+        out_state, t_hat, counters = g.outputs
+        if self.donate:
+            out_state = _map(lambda a: a.new_empty(0).set_(a), out_state)
+            g.held = [weakref.ref(a) for a in _leaves(out_state)]
+        else:
+            out_state = _map(torch.clone, out_state)
+        return out_state, _map(torch.clone, t_hat), _map(torch.clone,
+                                                         counters)
+
+
+def _fleet_program(dt: float, edge_frac: float, cloud_frac: float,
+                   coop_rounds: int, tspec: TraceSpec,
+                   donate: bool = False) -> TickProgram:
+    """The cached :class:`TickProgram` of these statics.
+
+    ``coop_rounds`` is the static peer-offload round bound (0 leaves
+    cooperation out of the window); per-replica runtime caps mask rounds
+    within it.  ``tspec`` selects the flight-recorder streams and is part
+    of the key, so the trace-off program records exactly the untraced
+    launches.  ``donate`` keeps the carry in the graph's own state
+    buffers: a donated window consumes the state passed in
+    (:class:`FleetProgram`)."""
+    global _PROGRAM_EVICTIONS
+    key = (dt, edge_frac, cloud_frac, coop_rounds, tspec, donate)
+    prog = _PROGRAM_CACHE.get(key)
+    if prog is not None:
+        _PROGRAM_CACHE.move_to_end(key)
+        return prog
+    prog = TickProgram(*key)
+    _PROGRAM_CACHE[key] = prog
+    _PROGRAM_REGISTRY.append(prog)
+    while len(_PROGRAM_CACHE) > FLEET_PROGRAM_CACHE_CAPACITY:
+        _, evicted = _PROGRAM_CACHE.popitem(last=False)
+        _PROGRAM_EVICTIONS += 1
+        evicted.graphs.clear()
+        try:
+            _PROGRAM_REGISTRY.remove(evicted)
+        except ValueError:  # already dropped by reset_fleet_programs
+            pass
+    return prog
+
+
+def _program_cache_clear() -> None:
+    for prog in _PROGRAM_CACHE.values():
+        prog.graphs.clear()
+    _PROGRAM_CACHE.clear()
+
+
+# the reference's management surface: callers clear the cache through
+# the function object
+_fleet_program.cache_clear = _program_cache_clear
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetProgram:
+    """The tick program as a step-wise API: :meth:`init` builds the
+    stacked state, :meth:`step_chunk` advances it over one signal window,
+    :meth:`run` replays a horizon window by window (bitwise identical for
+    any ``chunk_ticks``, since each tick reads only the carried state and
+    its own signal row).
+
+    ``trace`` selects the flight-recorder streams.  Signals with a
+    leading replica axis (``[R, T, …]``, state ``[R, E, …]``) run as a
+    batch; profiles and policy flags are then either shared (``[M]`` and
+    0-d) or per replica (``[R, M]`` and ``[R]``, a :class:`FleetBatch`).
+
+    The window runs through the :func:`_fleet_program` cache: programs
+    with equal statics share one :class:`TickProgram`, and on the card a
+    window is a CUDA-graph replay, one graph a shape key.
+
+    ``donate=True`` keeps the carry in the graph's own state buffers,
+    updated in place: a donated :meth:`step_chunk` returns aliases of
+    those buffers, and the next donated window that is given them back
+    copies no state in.  Another stream's window of the same shape first
+    turns the aliases still held into their holder's own copy, so
+    donated streams stay apart as in the reference.  :meth:`run` hands
+    the caller its own copy of the final state, so the caller's initial
+    state and the result both survive."""
+
+    dt: float = 25.0
+    edge_frac: float = 0.62
+    cloud_frac: float = 0.80
+    coop_rounds: int = 0
+    trace: TraceSpec = TraceSpec()
+    donate: bool = False
+
+    @classmethod
+    def for_policy(cls, policy, *, trace: TraceSpec = TraceSpec(),
+                   dt: float = 25.0, edge_frac: float = 0.62,
+                   cloud_frac: float = 0.80,
+                   donate: bool = False) -> "FleetProgram":
+        """A program whose peer-offload round bound matches ``policy``."""
+        pol = _resolve_policy(policy)
+        return cls(dt=dt, edge_frac=edge_frac, cloud_frac=cloud_frac,
+                   coop_rounds=pol.coop_max_transfers if pol.cooperation
+                   else 0, trace=trace, donate=donate)
+
+    def init(self, prof: Profiles, policy, n_edges: int,
+             cloud_slots: int = CLOUD_SLOTS,
+             total_slots: Optional[int] = None) -> EdgeState:
+        """Fresh stacked fleet state on ``prof``'s device."""
+        pol = _resolve_policy(policy)
+        return init_state(prof, n_edges, pol.adapt_window, cloud_slots,
+                          total_slots=total_slots)
+
+    @property
+    def _program(self) -> TickProgram:
+        return _fleet_program(self.dt, self.edge_frac, self.cloud_frac,
+                              self.coop_rounds, self.trace, self.donate)
+
+    @torch.inference_mode()
+    def step_chunk(self, prof: Profiles, pp: PolicyParams, state: EdgeState,
+                   signals: FleetSignals, *, _capture: bool = True):
+        """Advance ``state`` over one window.  Returns ``(state, result)``:
+        ``result`` is the window's :class:`FleetResult` (streams over this
+        window's ticks) when the program's trace is enabled, else
+        ``None``.  On the card the window is a CUDA-graph replay; the
+        launches are enqueued without any wait on the card.
+        ``_capture=False`` runs the body eagerly on the card as well
+        (only ``chip_smoke.py`` and ``tools/tick_ab.py`` pass it, to time
+        the eager path beside the replayed one)."""
+        return self._step(prof, pp, state, signals, _capture)
+
+    def _step(self, prof, pp, state, signals, capture=True, note=True):
+        state, t_hat, counters = self._program(prof, pp, state, signals,
+                                               capture, note)
         if not self.trace.enabled:
             return state, None
-        return state, FleetResult(
-            state, torch.stack(t_hats, ax) if self.trace.t_hat else None,
-            TickCounters(*(torch.stack(xs, ax) for xs in zip(*ticks)))
-            if self.trace.counters else None)
+        return state, FleetResult(state, t_hat, counters)
 
     def run(self, prof: Profiles, pp: PolicyParams, state: EdgeState,
             signals: FleetSignals, chunk_ticks: Optional[int] = None):
-        """Replay the whole horizon, ``chunk_ticks`` ticks per window.
-        Returns the final state, or with the trace enabled a
-        :class:`FleetResult` whose streams join the windows on the tick
-        axis."""
+        """Replay the whole horizon, ``chunk_ticks`` ticks per window
+        (``RUN_WINDOW_TICKS`` when not given).  Returns the final state,
+        or with the trace enabled a :class:`FleetResult` whose streams
+        join the windows on the tick axis."""
         ax = _tick_axis(signals)
         n_ticks = signals.times.shape[ax]
-        chunk = n_ticks if chunk_ticks is None else max(1, chunk_ticks)
+        whole = chunk_ticks is None
+        if whole:
+            # the reference traces the whole horizon once: its shape key
+            # is the run's, whatever windows replay it
+            self._program.note(prof, pp, state, signals)
+        chunk = RUN_WINDOW_TICKS if whole else max(1, chunk_ticks)
         parts = []
-        for lo in range(0, n_ticks, chunk):
-            state, res = self.step_chunk(
-                prof, pp, state,
-                slice_signals(signals, lo, min(lo + chunk, n_ticks)))
-            parts.append(res)
+        with torch.inference_mode():
+            for lo in range(0, n_ticks, chunk):
+                state, res = self._step(
+                    prof, pp, state,
+                    slice_signals(signals, lo, min(lo + chunk, n_ticks)),
+                    note=not whole)
+                parts.append(res)
+            if self.donate:
+                # the carry lives in the program's buffers: the caller
+                # gets its own copy
+                state = _map(torch.clone, state)
         if not self.trace.enabled:
             return state
-        return _cat_results(parts, ax)
+        return _cat_results(parts, ax)._replace(final=state)
 
 
 def run_fleet(models, policy, signals: FleetSignals, *, dt: float = 25.0,
               edge_frac: float = 0.62, cloud_frac: float = 0.80,
               cloud_slots: int = CLOUD_SLOTS, record_trace: bool = False,
               trace: Optional[TraceSpec] = None,
-              chunk_ticks: Optional[int] = None, device="cuda"):
+              chunk_ticks: Optional[int] = None, donate: bool = False,
+              device="cuda"):
     """Run the fleet simulator over scenario signals; returns the final
     stacked :class:`EdgeState` on ``device``.
 
@@ -1147,7 +1476,9 @@ def run_fleet(models, policy, signals: FleetSignals, *, dt: float = 25.0,
     :class:`FleetResult` (``t_hat`` ``[T, E, M]``, counters ``[T, E, …]``;
     the final state is bit-identical to the untraced run's);
     ``record_trace=True`` is the older alias for
-    ``TraceSpec(t_hat=True)``."""
+    ``TraceSpec(t_hat=True)``.  ``chunk_ticks`` sets the window (bitwise
+    alike for any value); ``donate=True`` updates the carry in place
+    (:class:`FleetProgram`), same results bitwise."""
     dev = resolve_device(device)
     tspec = resolve_spec(trace, record_trace)
     pol = _resolve_policy(policy)
@@ -1155,7 +1486,7 @@ def run_fleet(models, policy, signals: FleetSignals, *, dt: float = 25.0,
     signals = FleetSignals(*(a.to(dev) for a in signals))
     prog = FleetProgram.for_policy(pol, trace=tspec, dt=dt,
                                    edge_frac=edge_frac,
-                                   cloud_frac=cloud_frac)
+                                   cloud_frac=cloud_frac, donate=donate)
     state = prog.init(prof, pol, signals.arrive.shape[1], cloud_slots)
     return prog.run(prof, pol.params(dev), state, signals, chunk_ticks)
 
@@ -1248,7 +1579,8 @@ def run_fleet_batch(models, policy, signals: FleetSignals, *,
                     dt: float = 25.0, edge_frac: float = 0.62,
                     cloud_frac: float = 0.80, cloud_slots: int = CLOUD_SLOTS,
                     record_trace: bool = False,
-                    trace: Optional[TraceSpec] = None, device="cuda"):
+                    trace: Optional[TraceSpec] = None, donate: bool = False,
+                    device="cuda"):
     """One batch: ``signals`` carry a leading replica axis ``[R, …]``
     (from :func:`stack_signals`), and every replica's mission runs under
     one set of launches a tick, with the model table and policy flags
@@ -1259,7 +1591,8 @@ def run_fleet_batch(models, policy, signals: FleetSignals, *,
     exactly.  ``trace`` (or ``record_trace``) returns a
     :class:`FleetResult` with replica-leading streams (``t_hat``
     ``[R, T, E, M]``).  For heterogeneous replicas see
-    :func:`build_fleet_batch` / :func:`run_batch`.
+    :func:`build_fleet_batch` / :func:`run_batch`.  ``donate`` as in
+    :func:`run_fleet`.
     """
     dev = resolve_device(device)
     tspec = resolve_spec(trace, record_trace)
@@ -1269,7 +1602,7 @@ def run_fleet_batch(models, policy, signals: FleetSignals, *,
     n_rep, n_edges = signals.arrive.shape[0], signals.arrive.shape[2]
     prog = FleetProgram.for_policy(pol, trace=tspec, dt=dt,
                                    edge_frac=edge_frac,
-                                   cloud_frac=cloud_frac)
+                                   cloud_frac=cloud_frac, donate=donate)
     state = _stack_tree([prog.init(prof, pol, n_edges, cloud_slots)]
                         * n_rep)
     return prog.run(prof, pol.params(dev), state, signals)
@@ -1374,7 +1707,7 @@ def plan_buckets(runs, *, dt: float = 25.0, device="cuda"
 def run_batch(batch: FleetBatch, *, dt: float = 25.0,
               edge_frac: float = 0.62, cloud_frac: float = 0.80,
               record_trace: bool = False, trace: Optional[TraceSpec] = None,
-              chunk_ticks: Optional[int] = None):
+              donate: bool = False, chunk_ticks: Optional[int] = None):
     """Run a heterogeneous :class:`FleetBatch` under one set of launches
     a tick, on the batch's device.
 
@@ -1384,11 +1717,14 @@ def run_batch(batch: FleetBatch, *, dt: float = 25.0,
     call exactly (padding is a no-op by construction).  ``trace`` (or
     ``record_trace``) returns a :class:`FleetResult` whose streams lead
     with the replica axis; padded (tick, edge) cells record zero events.
-    ``chunk_ticks`` replays the horizon in windows, bitwise alike.
+    ``chunk_ticks`` replays the horizon in windows and ``donate=True``
+    updates the carry in place (``batch.state`` itself survives), both
+    bitwise alike.
     """
     tspec = resolve_spec(trace, record_trace)
     prog = FleetProgram(dt=dt, edge_frac=edge_frac, cloud_frac=cloud_frac,
-                        coop_rounds=batch.coop_rounds, trace=tspec)
+                        coop_rounds=batch.coop_rounds, trace=tspec,
+                        donate=donate)
     return prog.run(batch.profiles, batch.params, batch.state,
                     batch.signals, chunk_ticks)
 

@@ -95,8 +95,12 @@ def test_launcher_builds_roles_and_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     for role in ("HV:", "DEV:", "BP:", "DEMS"):
         assert role in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch.main(["--device", "cpu", "--backend", "fleet"])
+    launch.main(["--device", "cpu", "--backend", "fleet", "--duration",
+                 "1", "--policy", "DEMS"])
+    out = capsys.readouterr().out
+    for key in ("HV:", '"policy": "DEMS"', '"windows_run": 5',
+                "step_latency_ms"):
+        assert key in out
     cfg = launch.role_config("granite-3-2b", full_size=True,
                              attn_impl="kernel")
     assert (cfg.d_model, cfg.n_layers, cfg.dtype) == (2048, 40, "bfloat16")

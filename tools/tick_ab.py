@@ -2,8 +2,10 @@
 
 Times the untraced tick (and this tree's traced one) of phase 4's
 heaviest run, DEMS-COOP at 28 edges × 3 drones on the ACTIVE models,
-through ``FleetProgram.step_chunk``, and counts the PyTorch operations a
-tick dispatches (every ATen call, views included, and the views alone):
+through ``FleetProgram.step_chunk`` (on the card a CUDA-graph replay
+where the tree captures one; a tree that does also times its eager path,
+``_capture=False``), and counts the PyTorch operations a tick dispatches
+(every ATen call, views included, and the views alone):
 
     python3 tools/tick_ab.py --other DIR            # on a card
     python3 tools/tick_ab.py --other DIR --device cpu --ticks 20 --windows 1
@@ -86,25 +88,41 @@ def count_ops(F, traced: bool, ticks: int) -> dict:
                 non_view_per_tick=(mode.all - mode.views) / ticks)
 
 
+def can_capture(F) -> bool:
+    """Whether the tree's ``step_chunk`` takes ``_capture``."""
+    import inspect
+    return "_capture" in inspect.signature(
+        F.FleetProgram.step_chunk).parameters
+
+
 def time_ticks(F, device: str, traced: bool, ticks: int,
-               windows: int) -> list:
-    """Ticks/s of each of ``windows`` windows of ``ticks`` ticks."""
+               windows: int, eager: bool = False) -> list:
+    """Ticks/s of each of ``windows`` windows of ``ticks`` ticks, after an
+    untimed one of the same width (a new window shape's first window is
+    the warm-up and capture of its graph); ``eager`` passes
+    ``_capture=False``."""
     import torch
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
-    prog, prof, pp, sig, state = _setup(F, device, traced, ticks * windows)
+    kw = {"_capture": False} if eager else {}
+    prog, prof, pp, sig, state = _setup(F, device, traced,
+                                        ticks * (windows + 1))
     state, _ = prog.step_chunk(prof, pp, state,
-                               F.slice_signals(sig, 0, WARM_TICKS))
+                               F.slice_signals(sig, 0, WARM_TICKS), **kw)
+    state, _ = prog.step_chunk(
+        prof, pp, state, F.slice_signals(sig, WARM_TICKS,
+                                         WARM_TICKS + ticks), **kw)
     rates = []
-    for w in range(windows):
+    for w in range(1, windows + 1):
         lo = WARM_TICKS + w * ticks
         sync()
         t0 = time.perf_counter()
         state, _ = prog.step_chunk(prof, pp, state,
-                                   F.slice_signals(sig, lo, lo + ticks))
+                                   F.slice_signals(sig, lo, lo + ticks),
+                                   **kw)
         sync()
         rates.append(ticks / (time.perf_counter() - t0))
     return rates
@@ -122,6 +140,10 @@ def worker(args) -> dict:
     out = dict(tree=args.tree)
     out["untraced_ticks_per_s"] = time_ticks(F, args.device, False,
                                              args.ticks, args.windows)
+    if can_capture(F):
+        out["eager_ticks_per_s"] = time_ticks(F, args.device, False,
+                                              args.ticks, args.windows,
+                                              eager=True)
     out["untraced_ops"] = count_ops(F, False, args.count)
     if args.traced:
         out["traced_ticks_per_s"] = time_ticks(F, args.device, True,
