@@ -12,8 +12,10 @@ and at a 1024-edge metropolis fleet, and the online control plane
 and greedy decoding — the hybrid family: zamba2-7b (Mamba2 blocks and
 a shared attention block) served and decoded at its published width and
 depth — the moe family: qwen3-moe-30b-a3b (128 experts, top-8)
-served and decoded at its published width and depth — and head dim 192:
-nemotron-4-340b at its published width.  A served forward on the card
+served and decoded at its published width and depth — head dim 192:
+nemotron-4-340b at its published width — the encdec family:
+whisper-medium served and decoded at its published width and depth —
+and the trainer: granite-3-2b trained at its published size.  A served forward on the card
 is a CUDA graph, captured once and replayed, and so is a window of fleet
 ticks: ``FleetProgram.step_chunk`` keeps a graph per shape key in its
 program cache, runs a key's first window eagerly (the warm-up) and
@@ -183,14 +185,41 @@ Phases, each printed on its own line and each failing the script
     restore: (b)'s checkpoint at 15 s restored into a fresh controller
     finishes bitwise (b)'s final state; (d) ``python -m
     repro_torch.launch.serve --backend fleet`` on the card in a child
-    process writes its snapshot.
+    process writes its snapshot;
+22. encdec golden, after phase 18: whisper-medium at full width (d 1024,
+    16 heads, hd 64, d_ff 4096, vocab 51865, 1,500 frames), 2 encoder and
+    2 decoder layers, f32, on ``"kernel"`` — forward on (B 2, S 64) over
+    frames N(0, 1) from the file's seed, a 48-token prefill and 8
+    teacher-forced decode steps against the JAX reference's ``"ref"``
+    numbers (its ``"pallas"`` route cannot take 1,500 frames);
+23. encdec serve and decode (every model kernel's launches are read over
+    this phase and must equal the path's exactly: 48 flash and 122
+    rmsnorm a forward, 24 flash decode and 73 rmsnorm a step):
+    whisper-medium at 24 + 24 layers, bf16, ``"kernel"`` —
+    ``ServableModel.from_arch`` with its zero frames (a CUDA graph) with
+    ``probe_p95``, a 5 s GEMS stream, then a 48-token prompt over random
+    frames and 16 greedy steps against ``"ref"`` and f32; flash attention
+    at the encoder's (1, 16, 1500, 64) non-causal shape and flash decode
+    at (B 8, W 448, length 440) timed as in phase 8;
+24. the trainer, on ``"ref"`` (no model kernel may launch): (a)
+    granite-3-2b at full width, 2 layers, f32, 4 AdamW steps at B 2 × S
+    64 against ``tests/golden/torch_port_train.json`` (the step-0 loss
+    and gradient norm within 1e-5 relative, later losses and the final
+    parameters' sums within 1e-3); (c) the same loss on ``"kernel"``
+    with parameters that require grad raises the dispatch's forward-only
+    error; (b) ``train`` as ``python -m repro_torch.launch.train --full``
+    runs it: granite-3-2b at its published size, 10 steps at B 8 × S 128,
+    every loss finite and the last below the first, step time p50,
+    tokens/s and peak memory.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``
 (phase 19's under its ``scenario_runs`` key),
 ``tests/golden/torch_port_sweep.json`` (phase 20's),
 ``tests/golden/torch_port_model.json``,
-``tests/golden/torch_port_zamba2.json`` and
-``tests/golden/torch_port_qwen3moe.json`` (JAX results written by
+``tests/golden/torch_port_zamba2.json``,
+``tests/golden/torch_port_qwen3moe.json``,
+``tests/golden/torch_port_whisper.json`` and
+``tests/golden/torch_port_train.json`` (JAX results written by
 ``tests/golden/regen_torch_port_{summaries,model,sweep}.py``); the script
 imports nothing of the JAX package.  Its last two lines are the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.
@@ -198,6 +227,7 @@ imports nothing of the JAX package.  Its last two lines are the
 import dataclasses
 import itertools
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -216,15 +246,19 @@ GOLDEN_ZAMBA2 = os.path.join(ROOT, "tests", "golden",
 GOLDEN_QWEN3MOE = os.path.join(ROOT, "tests", "golden",
                                "torch_port_qwen3moe.json")
 GOLDEN_SWEEP = os.path.join(ROOT, "tests", "golden", "torch_port_sweep.json")
+GOLDEN_WHISPER = os.path.join(ROOT, "tests", "golden",
+                              "torch_port_whisper.json")
+GOLDEN_TRAIN = os.path.join(ROOT, "tests", "golden", "torch_port_train.json")
 METRO_EDGES = 1024
 METRO_MS = 60_000.0
 METRO_TICK_FACTOR = 2.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
 # phases 10-18 and 21 (266 s on an H100, the fleet on the captured
-# program: PERF.md), would pass this budget
+# program: PERF.md) and 22-24 (about 90 s, the encdec family and the
+# trainer), would pass this budget
 BUDGET_S = 850.0
-RESERVE_S = 340.0
+RESERVE_S = 430.0
 MIN_METRO_MS = 5_000.0
 SYNC_TICKS = 50
 # phase 10: captured windows held to the eager ones, CHECK_WINDOWS of
@@ -316,6 +350,29 @@ QWEN3MOE = dict(ZAMBA2, batch=8, prompt=128, max_seq=160, steps=32,
 # 2e-2, bounds the relative RMS of the logit difference.
 NEMOTRON = dict(layers=2, seq=64, steps=8, seed=18)
 NEMOTRON_TOL = 2e-2
+# phase 23: whisper-medium (24 + 24 layers, bf16) served as one role as
+# zamba2 is, at (B 1, S 64) beside its 1,500 zero frames, for 5 s; then
+# decoded from a 48-token prompt over random frames for 16 greedy steps
+# against "ref" and f32; the yardsticks of phase 7
+WHISPER = dict(ZAMBA2, serve_ms=5_000.0, prompt=48, max_seq=64, steps=16,
+               seed=23)
+# phase 24: the trainer.  (a) the training golden: the step-0 loss and
+# gradient norm within TRAIN_TOL relative (f32, TF32 off: the card and
+# the host's XLA sum in other orders, ~1e-7 relative), each later loss
+# within TRAIN_STEP_TOL (AdamW's normalised step turns that rounding
+# into a step of up to lr where a gradient is near zero, and the steps
+# after it see those weights); each final leaf's sum of squares within
+# TRAIN_STEP_TOL relative, its sum within TRAIN_STEP_TOL of its L2 norm
+# times sqrt(numel) (a sum of values of either sign has no scale of its
+# own).  (b) launch/train's --full path: granite-3-2b at its published
+# size (bf16 parameters, f32 moments, remat) for 10 steps at B 8 × S 128,
+# at lr 3e-4 (AdamW's own default): the launcher's default of 3e-3 is
+# sized for the reduced variants, and at 40 layers its first steps
+# overshoot (the loss went 11.21 → 10.43 → 12.16 and ended at 12.71
+# after 10 steps on the H100; PERF.md)
+TRAIN_TOL = 1e-5
+TRAIN_STEP_TOL = 1e-3
+TRAIN_FULL = dict(arch="granite-3-2b", steps=10, batch=8, seq=128, lr=3e-4)
 # phase 19: a fleet summary's float fields against the JAX one, the
 # parity tolerance of tests/_torch_parity.py (XLA on the host fuses a
 # product and a sum into one multiply-add where the port rounds twice,
@@ -1595,10 +1652,23 @@ def path_launches(cfg, forwards: int = 0, prefills: int = 0,
     """The launches of each model kernel that ``forwards`` forward
     passes, ``prefills`` prefills and ``steps`` decode steps of a model
     under ``attn_impl="kernel"`` make: every norm, every ``forward``
-    attention layer, every decode attention layer on a contiguous cache,
+    attention layer (and the encdec encoder's in ``prefill``), every
+    decode attention layer on a contiguous cache,
     every Mamba2 scan in ``forward`` and ``prefill``, and every expert
     product of the moe family (3 a layer for silu experts, 2 for gelu)
     in all three."""
+    if cfg.family == "encdec":
+        # the encoder (flash, 2 norms a layer, enc_norm) runs in forward
+        # and prefill; the decoder's self-attention takes flash in forward
+        # only (prefill's is plain) and flash decode in a step; its
+        # cross-attention is plain; 3 norms a decoder layer, and the final
+        enc, dec = cfg.enc_layers, cfg.n_layers
+        norms = 3 * dec + 1
+        return {"flash_attention": (enc + dec) * forwards + enc * prefills,
+                "decode_attention": dec * steps,
+                "rmsnorm": (2 * enc + 1 + norms) * (forwards + prefills)
+                + norms * steps,
+                "ssm_scan": 0, "moe_gemm": 0}
     if cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.attn_every
         attn, norms, scans = groups, cfg.n_layers + 2 * groups + 1, \
@@ -1664,23 +1734,33 @@ def check_tc(what: str, launches: dict, tc: dict, bf16: bool) -> None:
 
 def phase_golden(dev, path: str, phase: int) -> None:
     """A model golden file (phase 5: granite-3-2b, 2 layers; phase 12:
-    zamba2-7b, 8 layers; phase 15: qwen3-moe-30b-a3b, 2 layers), at full
-    width in f32 with weights from the
-    file's numpy seed, against the JAX reference's numbers; the kernel
+    zamba2-7b, 8 layers; phase 15: qwen3-moe-30b-a3b, 2 layers; phase
+    22: whisper-medium, 2 + 2 layers, with frames N(0, 1) from the file's
+    numpy seed), at full width in f32 with weights from the
+    file's numpy seed, against the JAX reference's numbers (its route
+    named in the file), run on ``"kernel"``; the kernel
     launches of the run must be exactly the path's."""
+    import numpy as np
     import torch
     from repro_torch import convert
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models.model import Model
     gold = json.load(open(path))
+    depth = {k: gold[k] for k in ("n_layers", "enc_layers") if k in gold}
     cfg = dataclasses.replace(
-        ARCHS[gold["arch"]], n_layers=gold["n_layers"], dtype=gold["dtype"],
-        param_dtype=gold["dtype"], attn_impl="kernel")
+        ARCHS[gold["arch"]], dtype=gold["dtype"], param_dtype=gold["dtype"],
+        attn_impl="kernel", **depth)
     t0 = time.perf_counter()
     params = convert.params_from_numpy(
         cfg, convert.random_numpy_params(cfg, gold["weight_seed"]), dev)
     model = Model(cfg, dev)
     tokens = torch.tensor(gold["tokens"], dtype=torch.long, device=dev)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.from_numpy(np.random.default_rng(
+            gold["frame_seed"]).standard_normal(
+                (gold["batch"], cfg.n_frames, cfg.d_model),
+                dtype=np.float32)).to(dev)
     reset_model_counts()
     worst = dict(value=0.0, checksum=0.0)
 
@@ -1695,7 +1775,7 @@ def phase_golden(dev, path: str, phase: int) -> None:
             fail(f"golden {what}: top-{len(ids)} logits differ from the JAX "
                  f"reference by {err} (tolerance {GOLD_TOL})")
 
-    logits = model.forward(params, {"tokens": tokens})[0].cpu()
+    logits = model.forward(params, {"tokens": tokens, **extra})[0].cpu()
     for e in gold["forward"]:
         row = logits[e["b"], e["pos"]]
         check_top(row, e["ids"], e["values"], f"forward b{e['b']} "
@@ -1706,8 +1786,8 @@ def phase_golden(dev, path: str, phase: int) -> None:
             fail(f"golden forward b{e['b']} pos {e['pos']}: checksum off "
                  f"by {err} (tolerance {GOLD_SUM_TOL})")
     prompt = gold["prompt"]
-    last, cache = model.prefill(params, {"tokens": tokens[:, :prompt]},
-                                gold["max_seq"])
+    last, cache = model.prefill(params, {"tokens": tokens[:, :prompt],
+                                         **extra}, gold["max_seq"])
     last = last[:, 0].cpu()
     for b, e in enumerate(gold["prefill"]):
         check_top(last[b], e["ids"], e["values"], f"prefill b{b}")
@@ -1734,9 +1814,11 @@ def phase_golden(dev, path: str, phase: int) -> None:
     check_tc(f"golden {gold['arch']} (f32)", launches, tc_counts(),
              bf16=False)
     say(f"phase{phase} golden {gold['arch']} full width × "
-        f"{gold['n_layers']} layers f32: forward (B {gold['batch']}, S "
-        f"{gold['seq']}), prefill {prompt} + {len(gold['decode'])} "
-        f"teacher-forced decode steps == JAX golden; max |Δ top logit| "
+        f"{json.dumps(depth)} layers f32 on 'kernel': forward (B "
+        f"{gold['batch']}, S {gold['seq']}"
+        f"{', frames ' + str(cfg.n_frames) if extra else ''}), prefill "
+        f"{prompt} + {len(gold['decode'])} teacher-forced decode steps == "
+        f"JAX golden ({gold['attn_impl']!r}); max |Δ top logit| "
         f"{worst['value']:.3e} (tol {GOLD_TOL}), max |Δ checksum| "
         f"{worst['checksum']:.3e} (tol {GOLD_SUM_TOL}); kernel launches "
         f"{json.dumps(launches)} (= the path's, none on the tensor "
@@ -1844,8 +1926,9 @@ def phase_serve(dev) -> dict:
 
 
 def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
-                         max_seq: int) -> dict:
-    """Prefill ``prompt`` and decode ``steps`` greedy tokens with ``cfg``
+                         max_seq: int, extra=None) -> dict:
+    """Prefill ``prompt`` (with ``extra``'s inputs: an encdec model's
+    frames) and decode ``steps`` greedy tokens with ``cfg``
     (``attn_impl="kernel"``, bf16), then feed the same tokens through the
     plain bf16 path and an f32 copy of the model on both routes: the RMS
     of the logit differences over the RMS of the plain f32 logits (kr
@@ -1856,12 +1939,13 @@ def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
     import torch
     from repro_torch.models.model import Model
     b, p = prompt.shape
+    batch = {"tokens": prompt, **(extra or {})}
     mk = Model(cfg, dev)
     mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
     reset_model_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, cache_k = mk.prefill(params, {"tokens": prompt}, max_seq)
+    last, cache_k = mk.prefill(params, batch, max_seq)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     cache_r = {k: v.clone() for k, v in cache_k.items()}
@@ -1885,8 +1969,8 @@ def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
     pf = {k: ({kk: vv.float() for kk, vv in v.items()}
               if isinstance(v, dict) else v.float())
           for k, v in params.items()}
-    _, cache_f = mf.prefill(pf, {"tokens": prompt}, max_seq)
-    _, cache_ff = mff.prefill(pf, {"tokens": prompt}, max_seq)
+    _, cache_f = mf.prefill(pf, batch, max_seq)
+    _, cache_ff = mff.prefill(pf, batch, max_seq)
     sq = dict(kr=0.0, kf=0.0, rf=0.0, ff=0.0, f=0.0)
     mx = 0.0
     for t in range(steps):
@@ -2213,6 +2297,40 @@ def decode_row(dev, b, h, kv, w, hd, n) -> dict:
     return row
 
 
+def flash_row(dev, b, h, kv, s, hd, causal: bool = True) -> dict:
+    """Flash attention in bf16 at (B, H, KV, S, hd), causal or not, on
+    the model's transposed (B,S,H,hd) views: device ms per call of the
+    kernel, of its previous CUDA-core bf16 body (``_route=CORE``), of the
+    plain version and of ``scaled_dot_product_attention`` (timed only),
+    beside the bound (q, k and v read once, out written once; the
+    products of the pairs the mask keeps at the tensor cores' rate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    bf = torch.bfloat16
+    q = torch.randn(b, s, h, hd, device=dev, dtype=bf).transpose(1, 2)
+    k = torch.randn(b, s, kv, hd, device=dev, dtype=bf).transpose(1, 2)
+    v = torch.randn(b, s, kv, hd, device=dev, dtype=bf).transpose(1, 2)
+    iters = 20 if s > 128 else 200
+    row = {name: graph_ms(fn, iters=iters) for name, fn in (
+        ("kernel", lambda: FA.cuda_flash_attention(q, k, v, causal=causal)),
+        ("previous", lambda: FA.cuda_flash_attention(
+            q, k, v, causal=causal, _route=FA.CORE)),
+        ("plain", lambda: ref.ref_attention(q, k, v, causal=causal)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)))}
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    pairs = s * (s + 1) // 2 if causal else s * s
+    row["bound"], row["bound_by"] = _bound(nbytes, 4 * hd * b * h * pairs,
+                                           BF16_OPS_PER_S)
+    row["profile_us"] = _prof_us(
+        lambda: FA.cuda_flash_attention(q, k, v, causal=causal),
+        "flash_tc_kernel")
+    return row
+
+
 def phase_times(dev) -> dict:
     """Phase 8: device ms per call (CUDA-graph replay) of each attention
     kernel at the serve and decode shapes (granite, starcoder2,
@@ -2224,39 +2342,15 @@ def phase_times(dev) -> dict:
     CORE``), flash decode's earlier one-block-per-(b, h) body
     (``_route=PREVIOUS``).  Phase 14 adds the zamba2 shapes (hd 112) and
     the RMSNorm and selective-scan kernels through :func:`kernel_times`."""
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref
-    bf = torch.bfloat16
     out = {}
     floor = floor_ms()
 
-    for key, (b, h, kv, s, hd) in (("flash serve granite", (1, 32, 8, 64, 64)),
-                                   ("flash serve starcoder2",
-                                    (1, 24, 2, 64, 128)),
-                                   ("flash B8 S512", (8, 32, 8, 512, 64)),
-                                   ("flash serve nemotron",
-                                    (1, 96, 8, 64, 192))):
-        q = torch.randn(b, s, h, hd, device=dev, dtype=bf).transpose(1, 2)
-        k = torch.randn(b, s, kv, hd, device=dev, dtype=bf).transpose(1, 2)
-        v = torch.randn(b, s, kv, hd, device=dev, dtype=bf).transpose(1, 2)
-        iters = 20 if s > 128 else 200
-        row = {name: graph_ms(fn, iters=iters) for name, fn in (
-            ("kernel", lambda: FA.cuda_flash_attention(q, k, v)),
-            ("previous", lambda: FA.cuda_flash_attention(
-                q, k, v, _route=FA.CORE)),
-            ("plain", lambda: ref.ref_attention(q, k, v)),
-            ("library", lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)))}
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4 * hd * b * h * s * (s + 1) // 2     # causal pairs only
-        row["bound"], row["bound_by"] = _bound(nbytes, flops, BF16_OPS_PER_S)
-        row["profile_us"] = _prof_us(
-            lambda: FA.cuda_flash_attention(q, k, v), "flash_tc_kernel")
-        row["floor"] = floor
-        out[key] = row
+    for key, shape in (("flash serve granite", (1, 32, 8, 64, 64)),
+                       ("flash serve starcoder2", (1, 24, 2, 64, 128)),
+                       ("flash B8 S512", (8, 32, 8, 512, 64)),
+                       ("flash serve nemotron", (1, 96, 8, 64, 192))):
+        out[key] = flash_row(dev, *shape)
+        out[key]["floor"] = floor
 
     for key, shape in (("decode B8 W1024 L576", (8, 32, 8, 1024, 64, 576)),
                        ("decode starcoder2 B8 W1024 L576",
@@ -2970,6 +3064,210 @@ def phase_nemotron(dev) -> dict:
     return launches
 
 
+def phase_whisper(dev) -> dict:
+    """Phase 23, the encdec path at published width and depth
+    (whisper-medium, 24 + 24 layers, bf16, ``attn_impl="kernel"``):
+    served as one role by :func:`serve_one_role` (``from_arch`` gives it
+    its 1,500 zero frames; one forward is one ``GraphForward``), then a
+    48-token prompt over random frames and greedy decoding held against
+    the plain and f32 paths.  Every model kernel's launches over the
+    phase must equal the path's exactly; then flash attention at the
+    encoder's (1, 16, 1500, 64) non-causal shape and flash decode at
+    whisper's published decoder context (B 8, W 448, length 440) are
+    timed as phase 8 times the others.  Returns the launches and the
+    timed rows."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(ARCHS["whisper-medium"], attn_impl="kernel")
+    z = WHISPER
+    torch.cuda.synchronize()
+    reset_model_counts()
+    forwards = serve_one_role(dev, cfg, z, "WHISPER", 23)
+    serve_counts, serve_tc = model_counts(), tc_counts()
+    gen = torch.Generator(device=dev).manual_seed(z["seed"])
+    params = Model(cfg, dev).init(gen)
+    prompt = torch.randint(0, cfg.vocab, (1, z["prompt"]), generator=gen,
+                           device=dev)
+    frames = torch.randn((1, cfg.n_frames, cfg.d_model), generator=gen,
+                         device=dev)
+    r = greedy_vs_yardsticks(dev, cfg, params, prompt, z["steps"],
+                             z["max_seq"], extra={"frames": frames})
+    launches = {k: serve_counts[k] + r["launches"][k] for k in serve_counts}
+    check_launches("encdec whisper-medium serve + decode", launches,
+                   path_launches(cfg, forwards=forwards, prefills=1,
+                                 steps=z["steps"]))
+    check_tc("encdec whisper-medium serve + decode", launches,
+             {k: serve_tc[k] + r["tc"][k] for k in serve_tc}, bf16=True)
+    say(f"phase23 decode whisper-medium bf16 (frames {cfg.n_frames}) "
+        f"{decode_line(r, 1, z['prompt'], z['steps'])}")
+    say(f"phase23 launches over the phase: {json.dumps(launches)} = "
+        f"{forwards} eager forwards and captures, 1 prefill, {z['steps']} "
+        f"steps × the path's per-call counts (a forward "
+        f"{json.dumps(path_launches(cfg, forwards=1))}, a step "
+        f"{json.dumps(path_launches(cfg, steps=1))}); every flash launch "
+        f"on the tensor cores, every rmsnorm launch on the REGS body")
+    del params, prompt, frames
+    torch.cuda.empty_cache()
+    floor = floor_ms()
+    rows = {"flash whisper encoder (1,16,1500,64) non-causal":
+            flash_row(dev, 1, 16, 16, cfg.n_frames, cfg.hd, causal=False),
+            "decode whisper B8 W448 L440": decode_row(dev, 8, 16, 16, 448,
+                                                      cfg.hd, 440)}
+    for row in rows.values():
+        row["floor"] = floor
+    say_times(23, rows)
+    return dict(launches=launches, times=rows)
+
+
+def phase_train(dev) -> None:
+    """Phase 24, the trainer (the ``"ref"`` route, as the JAX package
+    trains; no kernel launches): (a) granite-3-2b at full width, 2
+    layers, f32, B 2 × S 64, from the golden's numpy weights and
+    ``FastSyntheticLM`` batches, ``make_train_step`` for its steps,
+    against ``tests/golden/torch_port_train.json``; (b) ``train`` as
+    ``launch/train.py --full`` runs it, granite-3-2b at its published
+    size (40 layers, bf16 parameters, f32 moments, remat), 10 steps at
+    B 8 × S 128: every loss finite and the last below the first, step
+    time p50, tokens/s and peak memory; (c) the same loss on the kernel
+    route with parameters that require grad raises the dispatch's
+    forward-only error."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.pipeline import FastSyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import batch_tensors, make_train_step, train
+    from repro_torch.train.optimizer import AdamW, tree_leaves
+    gold = json.load(open(GOLDEN_TRAIN))
+    cfg = dataclasses.replace(
+        ARCHS[gold["arch"]], n_layers=gold["n_layers"], dtype=gold["dtype"],
+        param_dtype=gold["dtype"], attn_impl="ref")
+    reset_model_counts()
+    t0 = time.perf_counter()
+    params = convert.params_from_numpy(
+        cfg, convert.random_numpy_params(cfg, gold["weight_seed"]), dev)
+    model = Model(cfg, dev)
+    opt = AdamW(lr=gold["lr"])
+    state = opt.init(params)
+    data = FastSyntheticLM(vocab=cfg.vocab, seq_len=gold["seq"],
+                           batch=gold["batch"],
+                           seed=gold["data_seed"]).batches()
+    batches = [batch_tensors(cfg, next(data), dev)
+               for _ in range(gold["steps"])]
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    grads = torch.autograd.grad(model.loss(params, batches[0]), leaves)
+    norm = float(sum(g.double().square().sum() for g in grads)) ** 0.5
+    del grads
+    step = make_train_step(model, opt)
+    losses = []
+    for b in batches:
+        loss, params, state = step(params, state, b)
+        losses.append(float(loss))
+
+    def rel(got, want):
+        return abs(got - want) / abs(want)
+    errs = dict(loss0=rel(losses[0], gold["losses"][0]),
+                grad_norm=rel(norm, gold["grad_norm"]),
+                later=max(rel(a, b) for a, b in zip(losses[1:],
+                                                    gold["losses"][1:])))
+    sums = {}
+    for group, sub in params.items():
+        for name, t in (sub.items() if isinstance(sub, dict)
+                        else [(None, sub)]):
+            a = t.detach().double()
+            want = gold["param_sums"][f"{group}.{name}" if name else group]
+            scale = (want["sumsq"] * want["numel"]) ** 0.5
+            sums[f"{group}.{name}" if name else group] = (
+                rel(float(a.square().sum()), want["sumsq"]),
+                abs(float(a.sum()) - want["sum"]) / scale)
+    errs["sumsq"] = max(v[0] for v in sums.values())
+    errs["sum"] = max(v[1] for v in sums.values())
+    if not (errs["loss0"] <= TRAIN_TOL and errs["grad_norm"] <= TRAIN_TOL
+            and errs["later"] <= TRAIN_STEP_TOL
+            and errs["sumsq"] <= TRAIN_STEP_TOL
+            and errs["sum"] <= TRAIN_STEP_TOL):
+        fail(f"train golden: relative errors {json.dumps(errs)} (want "
+             f"loss0 and grad_norm ≤ {TRAIN_TOL}, the rest ≤ "
+             f"{TRAIN_STEP_TOL}); losses {losses} vs {gold['losses']}")
+    say(f"phase24 (a) train golden {gold['arch']} full width × "
+        f"{gold['n_layers']} layers f32 'ref', B {gold['batch']} × S "
+        f"{gold['seq']}, {gold['steps']} AdamW steps: losses {losses} "
+        f"(JAX {gold['losses']}), step-0 gradient norm {norm} (JAX "
+        f"{gold['grad_norm']}); relative errors {json.dumps(errs)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) on the kernel route the loss refuses autograd
+    mk = Model(dataclasses.replace(cfg, attn_impl="kernel"), dev)
+    refused = ""
+    try:
+        mk.loss(params, batches[0])
+    except RuntimeError as e:
+        refused = str(e)
+    if "forward-only" not in refused:
+        fail(f"phase 24 (c): a loss on the kernel route with parameters "
+             f"that require grad did not raise the forward-only error "
+             f"({refused!r})")
+    with torch.no_grad():
+        fwd = mk.forward(params, batches[0])[0]
+    if not bool(torch.isfinite(fwd[..., :cfg.vocab]).all()):
+        fail("phase 24 (c): the kernel route's forward under no_grad is "
+             "not finite")
+    kernel_launches = model_counts()
+    reset_model_counts()
+    del params, state, batches, model, mk, fwd, step, leaves
+    torch.cuda.empty_cache()
+
+    # (b) launch/train's --full path at published size
+    z = TRAIN_FULL
+    full = ARCHS[z["arch"]]
+    stamps = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses = train(full, steps=z["steps"], batch=z["batch"],
+                          seq_len=z["seq"], lr=z["lr"], log_every=1,
+                          log=lambda _: stamps.append(time.perf_counter()),
+                          device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    # one more step of the trained state under the profiler: device
+    # kernels and busy share of a step
+    fstep = make_train_step(Model(full, dev), AdamW(lr=z["lr"]))
+    fb = batch_tensors(full, next(FastSyntheticLM(
+        vocab=full.vocab, seq_len=z["seq"], batch=z["batch"],
+        seed=1).batches()), dev)
+    n_k, busy, step_wall = profile_call(
+        lambda: fstep(state.params, state.opt_state, fb))
+    del state, fstep, fb
+    step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    p50 = step_s[len(step_s) // 2]
+    finite = all(math.isfinite(x) for x in losses)
+    train_launches = model_counts()
+    say(f"phase24 (c) the kernel route refused autograd: {refused!r}; its "
+        f"forward under no_grad finite, launches {json.dumps(kernel_launches)}")
+    say(f"phase24 (b) train {z['arch']} --full ({full.param_count()} "
+        f"parameters, {full.n_layers} layers, {full.param_dtype} parameters,"
+        f" f32 moments, remat {full.remat}) {z['steps']} steps at B "
+        f"{z['batch']} × S {z['seq']}, lr {z['lr']}, on 'ref': losses "
+        f"{losses}; step time "
+        f"p50 {p50 * 1e3:.1f} ms (steps 2-{z['steps']}: "
+        f"{[round(x * 1e3, 1) for x in step_s]} ms sorted), "
+        f"{z['batch'] * z['seq'] / p50:.1f} tokens/s, first step "
+        f"(with init) {(stamps[0] - t0) * 1e3:.1f} ms, wall {wall:.1f} s; "
+        f"peak memory {peak} B; profile of one more step: {n_k} device "
+        f"kernels, busy {busy:.3f} ms of {step_wall:.3f} ms wall "
+        f"({busy / step_wall:.3f}); model kernel launches "
+        f"{json.dumps(train_launches)}")
+    if not (finite and losses[-1] < losses[0]):
+        fail(f"phase 24 (b): {z['arch']} --full losses {losses}: want all "
+             f"finite and the last below the first")
+    if any(train_launches.values()):
+        fail(f"phase 24: the training path launched model kernels "
+             f"{json.dumps(train_launches)}")
+
+
 def moe_times(dev) -> dict:
     """Phase 17: ``moe_gemm`` at the qwen3-moe path's shapes, bf16, as
     phase 8 times the others — serve (B 1, S 64: C 6, 768 rows) for
@@ -3072,7 +3370,8 @@ def main() -> int:
     if not (os.path.isdir(os.path.join(SRC, "repro_torch"))
             and all(os.path.isfile(f)
                     for f in (GOLDEN, GOLDEN_MODEL, GOLDEN_ZAMBA2,
-                              GOLDEN_QWEN3MOE, GOLDEN_SWEEP))):
+                              GOLDEN_QWEN3MOE, GOLDEN_SWEEP, GOLDEN_WHISPER,
+                              GOLDEN_TRAIN))):
         fail("run from a checkout of the repository: src/repro_torch and "
              "the golden files are missing")
     sys.path.insert(0, SRC)
@@ -3381,6 +3680,17 @@ def main() -> int:
     phase_nemotron(dev)
     say(f"phases 1-18 done in {time.perf_counter() - T_START:.1f} s")
 
+    # ---- phases 22-24: the encdec family and the trainer ---------------
+    torch.cuda.empty_cache()
+    phase_golden(dev, GOLDEN_WHISPER, 22)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    whisper = phase_whisper(dev)["launches"]
+    torch.cuda.empty_cache()
+    phase_train(dev)
+    torch.cuda.empty_cache()
+    say(f"phases 1-24 done in {time.perf_counter() - T_START:.1f} s")
+
     flash_t = times["flash serve granite"]
     decode_t = times["decode B8 W1024 L576"]
     rms_t = ktimes["rmsnorm (64, 3584)"]
@@ -3400,6 +3710,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": serve_launches,
+        "encdec_launches": whisper["flash_attention"],
         "max_abs_err": max(att_err["flash_attention"].values()),
         "ms": flash_t["kernel"], "previous_ms": flash_t["previous"],
         "floor_ms": flash_t["floor"], "plain_ms": flash_t["plain"],
@@ -3409,6 +3720,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:24",
         "launches": decode_launches,
+        "encdec_launches": whisper["decode_attention"],
         "max_abs_err": max(att_err["decode_attention"].values()),
         "ms": decode_t["kernel"], "previous_ms": decode_t["previous"],
         "floor_ms": decode_t["floor"], "plain_ms": decode_t["plain"],
@@ -3418,6 +3730,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:22",
         "launches": hybrid["rmsnorm"],
+        "encdec_launches": whisper["rmsnorm"],
         "max_abs_err": max(ns_err["rmsnorm"].values()),
         "ms": rms_t["kernel"], "previous_ms": rms_t["previous"],
         "floor_ms": rms_t["floor"], "plain_ms": rms_t["plain"],

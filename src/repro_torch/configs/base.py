@@ -6,9 +6,12 @@ or ``"kernel"`` (every op of the model's path that has a hand-written
 kernel: flash attention, flash decode, RMSNorm, the Mamba2 selective
 scan and the MoE expert GEMMs), where the JAX package says ``"pallas"``;
 :func:`repro_torch.convert.arch_from_fields` maps one to the other.
-Fields that steer JAX-only machinery (``remat``, ``remat_policy``,
-``unroll_layers``, ``opt_decode``) are kept so that a config converts
-field for field, and do nothing in the port.  ``moe_groups`` is honoured:
+``remat`` is honoured in training: with ``remat_policy="full"`` each
+block whose parameters require grad is recomputed in the backward pass
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``; no
+number changes), and ``"dots"`` raises (not ported).  Fields that steer
+JAX-only machinery (``unroll_layers``, ``opt_decode``) are kept so that
+a config converts field for field, and do nothing in the port.  ``moe_groups`` is honoured:
 MoE dispatch and its capacity are per group, so it changes results.
 ``expert_split > 1`` (the JAX package's split-expert parameter layout
 for a model-parallel axis) is refused by the MoE model with a

@@ -1,11 +1,12 @@
-"""Model assembly: the ``dense``, ``vlm``, ``moe``, ``ssm`` (xLSTM) and
-``hybrid`` (Zamba2) families.
+"""Model assembly: the ``dense``, ``vlm``, ``moe``, ``encdec`` (whisper),
+``ssm`` (xLSTM) and ``hybrid`` (Zamba2) families.
 
 Port of ``repro.models.model``.  One :class:`Model` per
 :class:`~repro_torch.configs.base.ArchConfig` exposes:
 
 * ``init(generator)``          → parameter dict (blocks stacked per layer)
 * ``forward(params, batch)``   → (logits, aux), full sequence
+* ``loss(params, batch)``      → scalar LM loss (+ the moe router aux)
 * ``init_cache(batch, max_seq)`` → decode cache dict
 * ``prefill(params, batch, max_seq)`` → (last logits, cache)
 * ``decode_step(params, cache, token, pos)`` → (logits, cache)
@@ -22,14 +23,27 @@ through the selective-scan kernel, and the moe family's expert products
 (in ``forward``, ``prefill`` and ``decode_step``) through the grouped-GEMM
 kernel.  ``prefill``'s attention is plain in either case, as the JAX
 package's is; the hybrid's decode update has no kernel, as in the JAX
+package.  The encdec family's encoder (non-causal blocks over
+``batch["frames"]``) takes the flash kernel in ``forward`` and
+``prefill``; its cross-attention is plain on every route, and its
+decoder self-attention decodes through flash decode, as in the JAX
 package.  ``forward`` returns the moe family's router aux loss summed
 over layers as ``aux`` (zero for the other families).
+
+The kernel route is forward-only (``kernels/ops.py``), as the JAX
+package's ``"pallas"`` route is: ``loss`` is differentiated on ``"ref"``.
+With ``cfg.remat`` (policy ``"full"``), a block whose parameters or
+input require grad is recomputed in the backward pass
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``); it
+changes no number, and a forward that needs no gradient (a served one)
+runs its blocks directly.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -41,24 +55,19 @@ from repro_torch.models import xlstm as XL
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# families of the JAX package not ported yet, with their ROADMAP item
-_NOT_PORTED = {
-    "encdec": "ROADMAP queue 1: the encdec family (whisper encoder and "
-              "cross-attention)",
-}
 
 
 # ---------------------------------------------------------------------------
 # parameter tables:  name → shape
 # ---------------------------------------------------------------------------
 
-def _attn_defs(cfg: ArchConfig) -> dict:
+def _attn_defs(cfg: ArchConfig, prefix: str = "") -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
          "wo": (h, hd, d)}
     if cfg.qkv_bias:
         p.update({"bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd)})
-    return p
+    return {prefix + name: shape for name, shape in p.items()}
 
 
 def _mlp_defs(cfg: ArchConfig) -> dict:
@@ -103,10 +112,19 @@ def _slstm_block_defs(cfg: ArchConfig) -> dict:
             "b_rec": (h, 4 * pd), "w_out": (d, d)}
 
 
+def _encdec_dec_defs(cfg: ArchConfig) -> dict:
+    """A whisper decoder block: self-attention, cross-attention (the
+    ``x_`` projections) and the MLP, each behind its own norm."""
+    return {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,),
+            "ln3": (cfg.d_model,), **_attn_defs(cfg),
+            **_attn_defs(cfg, prefix="x_"), **_mlp_defs(cfg)}
+
+
 def init_constant(name: str):
     """The constant a parameter starts at in the JAX ``Model.init`` scheme
     (1 for norms and D skips, 0 for biases and ``a_log``), or None for a
-    matrix drawn at random."""
+    matrix drawn at random.  The reference's rule matches names only, so
+    the encdec family's ``enc_norm.scale`` is drawn at random, as there."""
     if name.startswith(("ln", "d_skip")):
         return 1.0
     if name in ("dt_bias", "a_log") or name.startswith("b"):
@@ -120,10 +138,6 @@ def _layer(stacked: dict, i: int) -> dict:
 
 class Model:
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                f"({_NOT_PORTED[cfg.family]})")
         if cfg.family == "moe":
             MOE.check_split(cfg)
         if cfg.attn_impl not in ("ref", "kernel"):
@@ -148,6 +162,10 @@ class Model:
             return lay
         if cfg.family == "moe":
             return {"blocks": (_moe_block_defs(cfg), cfg.n_layers)}
+        if cfg.family == "encdec":       # whisper
+            return {"enc_blocks": (_dense_block_defs(cfg), cfg.enc_layers),
+                    "enc_norm": ({"scale": (cfg.d_model,)}, None),
+                    "blocks": (_encdec_dec_defs(cfg), cfg.n_layers)}
         if cfg.family == "hybrid":       # Zamba2
             g, tail = self._zamba_groups()
             lay = {"mamba": (_mamba_block_defs(cfg), g * cfg.attn_every),
@@ -225,11 +243,61 @@ class Model:
             return MOE.moe_mlp(p, self.cfg, x)[0]
         return L.mlp(p, self.cfg, x)
 
-    def _dense_block(self, p, x):
+    def _block(self, fn, p: dict, x, *rest):
+        """``fn(p, x, *rest)``, one block; under ``cfg.remat`` recomputed
+        in the backward pass when its parameters or input require grad
+        (a forward that takes no gradient runs it directly)."""
         cfg = self.cfg
-        h = L.attention_block(p, cfg, self._norm(x, p["ln1"]))
+        if not (cfg.remat and torch.is_grad_enabled() and (
+                x.requires_grad or any(t.requires_grad for t in p.values()))):
+            return fn(p, x, *rest)
+        if cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not "
+                f"ported (ROADMAP queue 1 item 13); the port recomputes "
+                f"whole blocks (remat_policy='full')")
+        return checkpoint(fn, p, x, *rest, use_reentrant=False)
+
+    def _dense_block(self, p, x, causal: bool = True, window=None):
+        cfg = self.cfg
+        h = L.attention_block(p, cfg, self._norm(x, p["ln1"]),
+                              causal=causal, window=window)
         x = x + h
         return x + L.mlp(p, cfg, self._norm(x, p["ln2"]))
+
+    def _encoder_block(self, p, x):
+        """A whisper encoder block: non-causal, no band."""
+        return self._dense_block(p, x, causal=False, window=0)
+
+    def _decdec_block(self, p, x, enc):
+        """A whisper decoder block: causal self-attention, cross-attention
+        to the encoder's output ``enc``, the MLP."""
+        cfg = self.cfg
+        x = x + L.attention_block(p, cfg, self._norm(x, p["ln1"]))
+        x = x + self._cross_attend(p, self._norm(x, p["ln2"]),
+                                   *self._cross_kv(p, enc))
+        return x + L.mlp(p, cfg, self._norm(x, p["ln3"]))
+
+    def _cross_kv(self, p, enc):
+        """The cross-attention's K/V of the encoder's output ``enc``."""
+        return (torch.einsum("bfd,dhk->bfhk", enc, p["x_wk"]),
+                torch.einsum("bfd,dhk->bfhk", enc, p["x_wv"]))
+
+    def _cross_attend(self, p, x, k, v):
+        """Cross-attention of normed x to the encoder's K/V: plain on
+        every route, as in the JAX package."""
+        q = torch.einsum("bsd,dhk->bshk", x, p["x_wq"])
+        out = L.attend(q, k, v, causal=False, window=0)
+        return torch.einsum("bshk,hkd->bsd", out, p["x_wo"])
+
+    def _encode(self, params, frames):
+        """The encoder over the stub frontend's ``frames`` (B, F, D),
+        then ``enc_norm``."""
+        x = frames.to(self.dtype)
+        for i in range(self.cfg.enc_layers):
+            x = self._block(self._encoder_block,
+                            _layer(params["enc_blocks"], i), x)
+        return self._norm(x, params["enc_norm"]["scale"])
 
     def _moe_block(self, p, x):
         """Pre-norm attention + MoE block; returns (x + y, router aux)."""
@@ -275,16 +343,38 @@ class Model:
         elif cfg.family == "moe":
             x = self.embed_tokens(params, batch["tokens"])
             for i in range(cfg.n_layers):
-                x, a = self._moe_block(_layer(params["blocks"], i), x)
+                x, a = self._block(self._moe_block,
+                                   _layer(params["blocks"], i), x)
                 aux = aux + a
+        elif cfg.family == "encdec":
+            enc = self._encode(params, batch["frames"])
+            x = self.embed_tokens(params, batch["tokens"])
+            for i in range(cfg.n_layers):
+                x = self._block(self._decdec_block,
+                                _layer(params["blocks"], i), x, enc)
         else:
             x = self._embed_inputs(params, batch)
             for i in range(cfg.n_layers):
-                x = self._dense_block(_layer(params["blocks"], i), x)
+                x = self._block(self._dense_block,
+                                _layer(params["blocks"], i), x)
             if cfg.family == "vlm":
                 x = x[:, cfg.n_image_tokens:]
         x = self._norm(x, params["final_norm"])
         return self.unembed(params, x), aux
+
+    # -- loss -------------------------------------------------------------
+    def loss(self, params, batch):
+        """Mean next-token NLL over the labels ``>= 0`` (the f32
+        log-softmax of the logits), plus the forward's aux."""
+        logits, aux = self.forward(params, batch)
+        labels = batch["labels"].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        # a negative label indexes from the end, as jnp.take_along_axis
+        # does, and is masked out below
+        idx = torch.where(labels < 0, labels + logp.shape[-1], labels)
+        nll = -torch.gather(logp, -1, idx[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0) + aux
 
     def _xlstm_groups(self):
         g = self.cfg.n_layers // self.cfg.slstm_every
@@ -296,13 +386,17 @@ class Model:
         g, per = self._xlstm_groups()
         for gi in range(g):
             for j in range(per):
-                p = _layer(params["mlstm"], gi * per + j)
-                y, _ = XL.mlstm_parallel(p, cfg, self._norm(x, p["ln"]))
-                x = x + y
-            sp = _layer(params["slstm"], gi)
-            y, _ = XL.slstm_scan(sp, cfg, self._norm(x, sp["ln"]))
-            x = x + y
+                x = self._block(self._mlstm_block,
+                                _layer(params["mlstm"], gi * per + j), x)
+            x = self._block(self._slstm_block, _layer(params["slstm"], gi),
+                            x)
         return x
+
+    def _mlstm_block(self, p, x):
+        return x + XL.mlstm_parallel(p, self.cfg, self._norm(x, p["ln"]))[0]
+
+    def _slstm_block(self, p, x):
+        return x + XL.slstm_scan(p, self.cfg, self._norm(x, p["ln"]))[0]
 
     def _zamba_groups(self):
         """(groups of ``attn_every`` Mamba2 layers, each followed by the
@@ -319,12 +413,17 @@ class Model:
         g, tail = self._zamba_groups()
         for gi in range(g):
             for j in range(cfg.attn_every):
-                x, _ = self._mamba_block(
+                x = self._block(
+                    self._mamba_residual,
                     _layer(params["mamba"], gi * cfg.attn_every + j), x)
-            x = self._dense_block(params["shared_attn"], x)
+            x = self._block(self._dense_block, params["shared_attn"], x)
         for i in range(tail):
-            x, _ = self._mamba_block(_layer(params["mamba_tail"], i), x)
+            x = self._block(self._mamba_residual,
+                            _layer(params["mamba_tail"], i), x)
         return x
+
+    def _mamba_residual(self, p, x):
+        return self._mamba_block(p, x)[0]
 
     # ======================================================================
     # decoding
@@ -334,6 +433,14 @@ class Model:
         if cfg.family in ("dense", "vlm", "moe"):
             return L.init_kv_cache(cfg, cfg.n_layers, batch_size, max_seq,
                                    dt, dev)
+        if cfg.family == "encdec":
+            cache = L.init_kv_cache(cfg, cfg.n_layers, batch_size, max_seq,
+                                    dt, dev)
+            cache["xk"] = torch.zeros((cfg.n_layers, batch_size,
+                                       cfg.n_frames, cfg.n_kv_heads, cfg.hd),
+                                      dtype=dt, device=dev)
+            cache["xv"] = torch.zeros_like(cache["xk"])
+            return cache
         if cfg.family == "hybrid":
             g, tail = self._zamba_groups()
             ssm = (batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
@@ -373,6 +480,10 @@ class Model:
             x = self._xlstm_decode(params, cache, x)
         elif cfg.family == "hybrid":
             x = self._zamba_decode(params, cache, x, pos)
+        elif cfg.family == "encdec":
+            for i in range(cfg.n_layers):
+                x = self._decode_decdec_block(_layer(params["blocks"], i), x,
+                                              cache, i, pos)
         else:
             for i in range(cfg.n_layers):
                 x = self._decode_attn_block(_layer(params["blocks"], i), x,
@@ -385,6 +496,18 @@ class Model:
         """Pre-norm attention block against one layer's cache view."""
         x = self._decode_self_attn(p, x, ck, cv, pos)
         return x + self._ffn(p, self._norm(x, p["ln2"]))
+
+    def _decode_decdec_block(self, p, x, cache, i: int, pos: int):
+        """A whisper decoder block at one position: self-attention against
+        cache layer ``i``, cross-attention (plain) to the encoder's K/V
+        that ``prefill`` stored there, the MLP."""
+        x = self._decode_self_attn(p, x, cache["k"][i], cache["v"][i], pos)
+        q = torch.einsum("bsd,dhk->bshk", self._norm(x, p["ln2"]),
+                         p["x_wq"])
+        xk, xv = cache["xk"][i], cache["xv"][i]
+        out = L.decode_attend(q, xk, xv, pos=xk.shape[1] - 1, window=0)
+        x = x + torch.einsum("bshk,hkd->bsd", out, p["x_wo"])
+        return x + L.mlp(p, self.cfg, self._norm(x, p["ln3"]))
 
     def _decode_self_attn(self, p, x, ck, cv, pos: int):
         """Self-attention sublayer against one layer's cache view (written
@@ -473,6 +596,8 @@ class Model:
             return self._xlstm_prefill(params, tokens, cache)
         if cfg.family == "hybrid":
             return self._zamba_prefill(params, tokens, cache)
+        enc = self._encode(params, batch["frames"]) \
+            if cfg.family == "encdec" else None
         x = self._embed_inputs(params, batch)
         s_total = x.shape[1]
         positions = torch.arange(s_total, device=x.device).expand(
@@ -480,7 +605,7 @@ class Model:
         slots = self._cache_slots(s_total, cache["k"].shape[2], x.device)
         for i in range(cfg.n_layers):
             x = self._prefill_attn_block(_layer(params["blocks"], i), x,
-                                         positions, cache, i, slots)
+                                         positions, cache, i, slots, enc)
         if cfg.family == "vlm":
             x = x[:, cfg.n_image_tokens:]
         x = self._norm(x, params["final_norm"])
@@ -495,14 +620,23 @@ class Model:
             return torch.arange(s - take, s, device=device) % w
         return torch.arange(take, device=device)
 
-    def _prefill_attn_block(self, p, x, positions, cache, i: int, slots):
+    def _prefill_attn_block(self, p, x, positions, cache, i: int, slots,
+                            enc=None):
         """Pre-norm attention block over the prompt (plain attention),
-        writing its last K/V rows into cache layer ``i`` at ``slots``."""
+        writing its last K/V rows into cache layer ``i`` at ``slots``; a
+        whisper decoder block (``enc`` given) cross-attends to ``enc``
+        and stores that layer's cross K/V in the cache too."""
         cfg = self.cfg
         q, k, v = L.qkv_proj(p, cfg, self._norm(x, p["ln1"]), positions)
         out = L.attend_auto(q, k, v, causal=True, window=cfg.sliding_window)
         x = x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
-        x = x + self._ffn(p, self._norm(x, p["ln2"]))
+        if enc is None:
+            x = x + self._ffn(p, self._norm(x, p["ln2"]))
+        else:
+            xk, xv = self._cross_kv(p, enc)
+            x = x + self._cross_attend(p, self._norm(x, p["ln2"]), xk, xv)
+            x = x + L.mlp(p, cfg, self._norm(x, p["ln3"]))
+            cache["xk"][i], cache["xv"][i] = xk, xv
         s, take = x.shape[1], len(slots)
         cache["k"][i][:, slots] = k[:, s - take:]
         cache["v"][i][:, slots] = v[:, s - take:]

@@ -131,6 +131,9 @@ class ServableModel:
         tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                                device=dev)
         b = {"tokens": tokens}
+        if cfg.family == "encdec":
+            b["frames"] = torch.zeros((batch, cfg.n_frames, cfg.d_model),
+                                      device=dev)
         if cfg.family == "vlm":
             b["patches"] = torch.zeros((batch, cfg.n_image_tokens,
                                         cfg.d_model), device=dev)

@@ -1,1 +1,1 @@
-"""Training-side utilities of the port (so far the checkpoint format)."""
+"""Training: the checkpoint format, AdamW and the train loop."""

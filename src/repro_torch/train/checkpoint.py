@@ -49,8 +49,12 @@ def _unflatten(like, it):
 
 
 def _numpy(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
+    """A leaf as numpy; numpy has no bfloat16, so a bf16 tensor is
+    written as the float32 of its values (exact)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def save(path: str, tree) -> None:

@@ -1,10 +1,12 @@
 """The port's golden files: the JAX ``fleet_summary`` of every fleet run
 ``chip_smoke.py`` drives on the card (``tests/golden/
 torch_port_summaries.json``, written by ``regen_torch_port_summaries.py``),
-and the JAX model numbers it holds the full-width granite, zamba2 and
-qwen3-moe models to (``torch_port_model.json``, ``torch_port_zamba2.json``,
-``torch_port_qwen3moe.json``, written by ``regen_torch_port_model.py``;
-each file must hold what its generator defines).
+and the JAX model numbers it holds the full-width granite, zamba2,
+qwen3-moe and whisper models and the trainer to (``torch_port_model.json``,
+``torch_port_zamba2.json``, ``torch_port_qwen3moe.json``,
+``torch_port_whisper.json``, ``torch_port_train.json``, written by
+``regen_torch_port_model.py``; each file must hold what its generator
+defines).
 
 The small 2-edge entries are re-run here through JAX and through the CPU
 port: both must reproduce the file exactly, and the port's final state
@@ -171,27 +173,32 @@ def test_small_run_jax_and_port_reproduce_golden(run):
         assert run["summary"]["peer_offloaded"] > 0
 
 
-@pytest.mark.parametrize("fname", ["torch_port_model.json",
-                                   "torch_port_zamba2.json",
-                                   "torch_port_qwen3moe.json"])
+MODEL_GOLDENS = ["torch_port_model.json", "torch_port_zamba2.json",
+                 "torch_port_qwen3moe.json", "torch_port_whisper.json"]
+
+
+@pytest.mark.parametrize("fname", MODEL_GOLDENS)
 def test_model_golden_file_matches_its_generator(fname):
     """The model golden file holds the entry its generator defines (the
     spec's fields, tokens of its shape, a forward row per batch row and
     position, the prefill's top-k, and a greedy decode chain that feeds
     each step the previous step's top-1), and its config builds a port
-    model with the kernel route."""
+    model on the route the entry names (the JAX ``"pallas"`` is the
+    port's ``"kernel"``; whisper's golden is JAX ``"ref"``, whose
+    ``"pallas"`` route cannot take 1,500 frames)."""
     from repro_torch.models.model import Model
     regen = _regen_module("regen_torch_port_model")
-    assert set(regen.GOLDENS) == {"torch_port_model.json",
-                                  "torch_port_zamba2.json",
-                                  "torch_port_qwen3moe.json"}
+    assert set(regen.GOLDENS) == set(MODEL_GOLDENS)
     spec = regen.GOLDENS[fname]
     gold = json.loads((GOLDEN_DIR / fname).read_text())
     assert set(gold) == set(spec) | {"tokens", "forward", "prefill",
                                      "decode"}
     assert {k: gold[k] for k in spec} == spec
     cfg = regen.config(spec)
-    assert cfg.attn_impl == "kernel" and cfg.n_layers == spec["n_layers"]
+    assert spec["attn_impl"] == ("ref" if cfg.family == "encdec"
+                                 else "pallas")
+    assert cfg.attn_impl == {"pallas": "kernel", "ref": "ref"}[
+        spec["attn_impl"]] and cfg.n_layers == spec["n_layers"]
     Model(cfg, "cpu").param_shapes()
     tokens = gold["tokens"]
     assert len(tokens) == spec["batch"]
@@ -206,3 +213,31 @@ def test_model_golden_file_matches_its_generator(fname):
     for step in gold["decode"]:
         assert step["fed"] == fed
         fed = step["top1"]
+
+
+def test_train_golden_file_matches_its_generator():
+    """The training golden holds the entry its generator defines: a loss
+    a step, step 0's gradient norm, and the f64 sum and sum of squares of
+    every final parameter leaf of the port's parameter tree, on the
+    ``"ref"`` route."""
+    import math
+
+    from repro_torch.models.model import Model
+    regen = _regen_module("regen_torch_port_model")
+    assert set(regen.TRAIN_GOLDENS) == {"torch_port_train.json"}
+    spec = regen.TRAIN_GOLDENS["torch_port_train.json"]
+    gold = json.loads((GOLDEN_DIR / "torch_port_train.json").read_text())
+    assert set(gold) == set(spec) | {"losses", "grad_norm", "param_sums"}
+    assert {k: gold[k] for k in spec} == spec
+    cfg = regen.config(spec)
+    assert cfg.attn_impl == "ref" and spec["attn_impl"] == "ref"
+    assert len(gold["losses"]) == spec["steps"] and gold["grad_norm"] > 0
+    shapes = Model(cfg, "cpu").param_shapes()
+    paths = sorted(f"{g}.{n}" if isinstance(v, dict) else g
+                   for g, v in shapes.items()
+                   for n in (v if isinstance(v, dict) else [None]))
+    assert sorted(gold["param_sums"]) == paths
+    for path, entry in gold["param_sums"].items():
+        group, _, name = path.partition(".")
+        shape = shapes[group][name] if name else shapes[group]
+        assert entry["numel"] == math.prod(shape) and entry["sumsq"] > 0

@@ -1,6 +1,7 @@
 """The port's model zoo (dense, vlm, xLSTM and hybrid families) against
-the JAX package (the moe family's tests, in ``test_torch_moe.py``, use
-this file's ``_check_model``).
+the JAX package (the moe and encdec families' tests, in
+``test_torch_moe.py`` and ``test_torch_encdec.py``, use this file's
+``_check_model``).
 
 The same weights — a numpy tree from ``repro_torch.convert.
 random_numpy_params``, its norm scales and biases perturbed so that they
@@ -83,6 +84,11 @@ def _check_model(cfg, seed=0, tol=TOL):
             (B, cfg.n_image_tokens, cfg.d_model), dtype=np.float32)
         batch_j["patches"] = jnp.asarray(patches)
         batch_t["patches"] = torch.from_numpy(patches)
+    if cfg.family == "encdec":
+        frames = np.random.default_rng(seed + 3).standard_normal(
+            (B, cfg.n_frames, cfg.d_model), dtype=np.float32)
+        batch_j["frames"] = jnp.asarray(frames)
+        batch_t["frames"] = torch.from_numpy(frames)
     want, want_aux = jm.forward(jp, batch_j)
     got, aux = tm.forward(tp, batch_t)
     assert got.shape == (B, S, tm.vpad) and aux.dtype == torch.float32
@@ -228,12 +234,6 @@ def test_configs_match_the_reference():
         assert (convert.arch_from_fields(JARCHS[name]) == cfg)
     pallas = dataclasses.replace(JARCHS["granite-3-2b"], attn_impl="pallas")
     assert convert.arch_from_fields(pallas).attn_impl == "kernel"
-
-
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_unported_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(reduced(ARCHS[arch]), "cpu")
 
 
 def test_model_init_from_a_generator():
