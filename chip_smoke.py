@@ -210,7 +210,37 @@ Phases, each printed on its own line and each failing the script
     error; (b) ``train`` as ``python -m repro_torch.launch.train --full``
     runs it: granite-3-2b at its published size, 10 steps at B 8 × S 128,
     every loss finite and the last below the first, step time p50,
-    tokens/s and peak memory.
+    tokens/s and peak memory;
+25. the fleet under a mesh at world size 1 (``make_host_mesh()``: one
+    ``nccl`` rank, a ``(1, 1)`` mesh): phase 20's 28-edge × 4-seed
+    ``run_fleet_batch`` and its padded ``run_batch`` under a ``(1, 1)``
+    ``("replica", "edge")`` mesh, ``run_registry_sweep(mesh="auto")`` and
+    the paper-scale DEMS-COOP ``run_fleet(mesh=)``, each bitwise equal to
+    the unsharded call (phase 20's golden-checked results, phase 4's
+    golden summary); the mesh runs capture no graph of their own and
+    launch what the unsharded runs launch (a size-1 axis splits nothing);
+26. ``opt_decode``: qwen2-72b at published width, 2 layers, bf16,
+    ``"kernel"``, B 8 from a 512-token prefill, 16 greedy steps under
+    ``sharding_rules(host mesh)``, the sharded flash-decode against the
+    base step (the decode kernel) on the same tokens: layer 0's cache
+    bitwise (its inputs are the same), every layer's and the logits
+    within ``OPT_DECODE_TOL`` of the base's; base and opt step times;
+27. ``expert_split``: grok-1-314b at published width, 2 layers, bf16
+    (about 16 GB of weights), ``"kernel"``: a (B 1, S 64) forward and a
+    prefill with ``expert_split=2`` on the same weights rearranged,
+    against ``expert_split=1`` within ``MOE_TOL["bfloat16"]``;
+    ``moe_gemm``'s launches are read over the phase and must equal the
+    path's (2 a layer unsplit, 3 split: one up launch a split on the
+    strided view, one down); ``moe_gemm`` timed at grok's split and
+    unsplit shapes beside ``torch.bmm`` and the byte bound;
+28. remat ``"dots"``: phase 24 (b)'s configuration (granite-3-2b, 40
+    layers, B 8 × S 128, lr 3e-4) trained under ``"dots"``: losses equal
+    to (b)'s under ``"full"``, step p50, tokens/s and peak memory beside
+    (b)'s;
+29. the dry run: ``python -m repro_torch.launch.dryrun --arch
+    granite-3-2b --shape train_4k --mesh single`` and ``--shape
+    decode_32k``, each combo and its roofline ok (fake ranks; they pass
+    on the host), the terms and the bottleneck printed.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``
 (phase 19's under its ``scenario_runs`` key),
@@ -224,6 +254,7 @@ The expected numbers come from ``tests/golden/torch_port_summaries.json``
 imports nothing of the JAX package.  Its last two lines are the
 ``kernels`` JSON record and ``{"ok": true, "device": {...}}``.
 """
+import atexit
 import dataclasses
 import itertools
 import json
@@ -233,6 +264,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -255,10 +287,12 @@ METRO_TICK_FACTOR = 2.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
 # phases 10-18 and 21 (266 s on an H100, the fleet on the captured
-# program: PERF.md) and 22-24 (about 90 s, the encdec family and the
-# trainer), would pass this budget
+# program: PERF.md), 22-24 (about 90 s, the encdec family and the
+# trainer) and 25-29 (about 120 s: the mesh runs, opt_decode, the split
+# experts, remat "dots", and what the dry run's children take past
+# them), would pass this budget
 BUDGET_S = 850.0
-RESERVE_S = 430.0
+RESERVE_S = 550.0
 MIN_METRO_MS = 5_000.0
 SYNC_TICKS = 50
 # phase 10: captured windows held to the eager ones, CHECK_WINDOWS of
@@ -373,6 +407,22 @@ WHISPER = dict(ZAMBA2, serve_ms=5_000.0, prompt=48, max_seq=64, steps=16,
 TRAIN_TOL = 1e-5
 TRAIN_STEP_TOL = 1e-3
 TRAIN_FULL = dict(arch="granite-3-2b", steps=10, batch=8, seq=128, lr=3e-4)
+# phase 26: opt_decode on qwen2-72b; the logits of the sharded
+# flash-decode against the base step's, relative to the base's largest
+# (bf16: the two attentions round apart, and layer 1 inherits it); then
+# an f32 copy held to the JAX test's limits, |Δ| <= tol + tol·|want|
+# (logits 2e-3, cache 1e-5), which a step that lost a key would miss
+OPT_DECODE = dict(arch="qwen2-72b", layers=2, batch=8, prompt=512,
+                  steps=16, seed=26)
+OPT_DECODE_TOL = 2e-2
+OPT_DECODE_F32_TOL = {"logits": 2e-3, "cache": 1e-5}
+# phase 27: the split-expert layout on grok-1-314b
+SPLIT = dict(arch="grok-1-314b", layers=2, split=2, seq=64, seed=27)
+# phase 28: remat "dots" losses against "full" (bitwise expected)
+DOTS_TOL = 1e-6
+# phase 29: the dry run's combos (fake ranks; host work only)
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_TIMEOUT_S = 300
 # phase 19: a fleet summary's float fields against the JAX one, the
 # parity tolerance of tests/_torch_parity.py (XLA on the host fuses a
 # product and a sum into one multiply-add where the port rounds twice,
@@ -857,7 +907,7 @@ def phase_sweep(scenario_rows: dict) -> dict:
                 for a, b in zip(plain, traced)):
             fail(f"phase 20 {br.scenario} {br.policy}: the untraced final "
                  f"state differs from the traced one's")
-    del batch, plain
+    del batch
     # the paper-width seed batch, lane 0 against run_fleet of its seed
     sb = gold["seed_batch"]
     models = [task.TABLE1[n] for n in task.ACTIVE]
@@ -925,7 +975,8 @@ def phase_sweep(scenario_rows: dict) -> dict:
         f"traced (traced/untraced {ratio:.3f}); phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return dict(rates=rates, launches=launches, traced_ratio=ratio,
-                untraced_s=untraced_s)
+                untraced_s=untraced_s, padded_rows=rows["padded"],
+                padded_plain=plain, seed_batch=res)
 
 
 def graph_report(phase: int, detail: bool = False, all_key: bool = False
@@ -2724,9 +2775,11 @@ def check_moe_gemm(dev) -> tuple[dict, int]:
     (128, 2048→768), and for the tensor-core route's row tiles, uniform
     offsets with 1, 6, 16, 17, 81 and 130 rows an expert and ragged ones
     mixing 0 to 130, at the path's D/F and at a D and F off the 64 × 128
-    tile (200 → 136).  Every bf16 case also runs the previous CUDA-core
-    route (``_route=CORE``, key "bfloat16 previous").  Rows that no expert
-    owns must be exactly zero.  Returns ({dtype: max |err|}, case
+    tile (200 → 136), and the split-expert layout's strided views (split
+    j of a weight viewed (E, s, D, F), on the vector width and off it).
+    Every bf16 case also runs the previous CUDA-core route (``_route=CORE``,
+    key "bfloat16 previous").  Rows that no expert owns must be exactly
+    zero.  Returns ({dtype: max |err|}, case
     count)."""
     import torch
     from repro_torch.kernels import moe_gemm as MG
@@ -2808,6 +2861,31 @@ def check_moe_gemm(dev) -> tuple[dict, int]:
                      f"[16, 150)")
             check(key, "uncovered rows", got, want, slice(16, 150))
         cases += 1
+        # split j of a weight viewed (E, s, D, F): the split-expert
+        # layout's up projections, read in place at the view's expert
+        # stride s·D·F (the wrapper copies nothing: each (D, F) block is
+        # whole); on the vector width and off it, and every bf16 view on
+        # both bodies
+        for (t, d, f, e), sp, j in (((256, 64, 128, 4), 2, 1),
+                                    ((203, 72, 40, 5), 4, 2),
+                                    ((77, 33, 17, 3), 2, 1),
+                                    ((336, 768, 1024, 8), 2, 1)):
+            x = torch.randn(t, d, generator=gen, device=dev).to(td)
+            w = (torch.randn(e, sp, d, f, generator=gen, device=dev)
+                 / d ** 0.5).to(td)[:, j]
+            if w.stride() != (sp * d * f, f, 1):
+                fail(f"moe_gemm strided {(t, d, f, e)}: the view's strides "
+                     f"{w.stride()} are not a split's")
+            off = ragged(t, e)
+            want = ref.ref_moe_gemm(x.float(), w.float(), off)
+            what = (t, d, f, e, f"split {j} of {sp}")
+            routes = [(dname, ops.moe_gemm(x, w, off))]
+            if dname == "bfloat16":
+                routes.append(("bfloat16 previous",
+                               MG.cuda_moe_gemm(x, w, off, _route=MG.CORE)))
+            for key, got in routes:
+                check(key, what, got, want)
+            cases += 1
     return errs, cases
 
 
@@ -3120,7 +3198,7 @@ def phase_whisper(dev) -> dict:
     return dict(launches=launches, times=rows)
 
 
-def phase_train(dev) -> None:
+def phase_train(dev) -> dict:
     """Phase 24, the trainer (the ``"ref"`` route, as the JAX package
     trains; no kernel launches): (a) granite-3-2b at full width, 2
     layers, f32, B 2 × S 64, from the golden's numpy weights and
@@ -3131,7 +3209,8 @@ def phase_train(dev) -> None:
     B 8 × S 128: every loss finite and the last below the first, step
     time p50, tokens/s and peak memory; (c) the same loss on the kernel
     route with parameters that require grad raises the dispatch's
-    forward-only error."""
+    forward-only error.  Returns (b)'s losses, step p50, peak memory and
+    wall."""
     import torch
     from repro_torch import convert
     from repro_torch.configs.registry import ARCHS
@@ -3266,6 +3345,7 @@ def phase_train(dev) -> None:
     if any(train_launches.values()):
         fail(f"phase 24: the training path launched model kernels "
              f"{json.dumps(train_launches)}")
+    return dict(losses=losses, p50=p50, peak=peak, wall=wall)
 
 
 def moe_times(dev) -> dict:
@@ -3356,6 +3436,541 @@ def moe_times(dev) -> dict:
             f"{row['bound']:.6f} ms ({row['bound_by']}); profile µs per "
             f"launch {row['profile_us']}")
     return out
+
+def phase_mesh(golden: dict, sweep: dict) -> dict:
+    """Phase 25: the fleet entry points under a mesh at world size 1.
+
+    ``make_host_mesh()`` starts a one-rank ``nccl`` group and gives the
+    ``(1, 1)`` ``("data", "model")`` mesh; a ``(1, 1)`` ``("replica",
+    "edge")`` mesh rides the same group.  Phase 20's seed batch and its
+    padded ``run_batch``, ``run_registry_sweep(mesh="auto")`` (no mesh at
+    world size 1) and the paper-scale DEMS-COOP ``run_fleet(mesh=)`` are
+    each held bitwise to the unsharded result (phase 20's golden-checked
+    ones; phase 4's golden summary).  A size-1 axis splits nothing: the
+    paper-scale mesh run replays the graphs the unsharded run before it
+    captured (no new capture) and launches as many ``masked_argext``."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import task
+    from repro_torch.kernels import sched_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.obs.trace import TraceSpec
+    from repro_torch.scenarios.compile import compile_registry_batch
+    from repro_torch.scenarios.runner import fleet_summary, run_registry_sweep
+    from repro_torch.sim import fleet as F
+
+    t_phase = time.perf_counter()
+    host = make_host_mesh()
+    grid = init_device_mesh("cuda", (1, 1),
+                            mesh_dim_names=("replica", "edge"))
+    gold = json.load(open(GOLDEN_SWEEP))
+    dt, dur = gold["dt"], gold["duration_ms"]
+    spec = TraceSpec.full(hist_bins=gold["hist_bins"],
+                          hist_max_ms=gold["hist_max_ms"])
+    pols, seeds = tuple(gold["policies"]), tuple(gold["seeds"])
+
+    # (a) phase 20's seed batch on the (1, 1) grid
+    sb = gold["seed_batch"]
+    models = [task.TABLE1[n] for n in task.ACTIVE]
+    sig = F.stack_signals([F.default_signals(
+        len(models), n_edges=sb["n_edges"],
+        drones_per_edge=sb["drones_per_edge"], duration_ms=dur, dt=dt,
+        seed=s, device="cuda") for s in sb["seeds"]])
+    res = F.run_fleet_batch(models, sb["policy"], sig, dt=dt,
+                            edge_frac=sb["edge_frac"],
+                            cloud_frac=sb["cloud_frac"],
+                            cloud_slots=sb["cloud_slots"], trace=spec,
+                            mesh=grid, device="cuda")
+    if not all(torch.equal(a, b) for a, b in zip(leaves(res),
+                                                  leaves(sweep["seed_batch"]))):
+        fail("phase 25: the seed batch under the (1, 1) mesh differs from "
+             "phase 20's")
+    # (b) the padded sweep batch through run_batch on the grid
+    batch, _ = compile_registry_batch(None, pols, seeds, dt=dt,
+                                      duration_ms=dur, device="cuda")
+    got = [a.cpu().numpy() for a in leaves(F.run_batch(batch, dt=dt,
+                                                       mesh=grid))]
+    if len(got) != len(sweep["padded_plain"]) or not all(
+            np.array_equal(a, b)
+            for a, b in zip(got, sweep["padded_plain"])):
+        fail("phase 25: run_batch under the (1, 1) mesh differs from "
+             "phase 20's padded batch")
+    del batch, got
+    # (c) the traced sweep with mesh="auto"
+    rows = run_registry_sweep(None, pols, seeds, dt=dt, duration_ms=dur,
+                              trace=spec, mesh="auto", device="cuda")
+    for a, b in zip(rows, sweep["padded_rows"]):
+        if ({k: v for k, v in a.items() if k != "trace"}
+                != {k: v for k, v in b.items() if k != "trace"}
+                or not all(np.array_equal(x, y) for x, y in
+                           zip(leaves(a["trace"]), leaves(b["trace"])))):
+            fail(f"phase 25: run_registry_sweep(mesh='auto') row "
+                 f"{a['scenario']} {a['policy']} differs from phase 20's")
+    if len(rows) != len(sweep["padded_rows"]):
+        fail("phase 25: run_registry_sweep(mesh='auto') lost rows")
+    # (d) paper-scale DEMS-COOP: unsharded, then under the host mesh
+    coop = next(r for r in golden["runs"] if r["name"] == "paper-dems-coop")
+    csig = golden_signals(golden, coop, "cuda")
+    kw = dict(dt=golden["dt"], edge_frac=golden["edge_frac"],
+              cloud_frac=golden["cloud_frac"],
+              cloud_slots=golden["cloud_slots"], device="cuda")
+    # the first run captures the program's graphs; the mesh run and a
+    # second unsharded run replay them
+    walls, finals, launches, captured = {}, {}, {}, {}
+    for mode, mesh in (("first", None), ("mesh", host),
+                       ("unsharded", None)):
+        c0 = F._CAPTURES[0]
+        sched_ops.reset_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finals[mode] = F.run_fleet(models_of(coop["models"]),
+                                   coop["policy"], csig, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - t0
+        launches[mode] = sched_ops.launch_count
+        captured[mode] = F._CAPTURES[0] - c0
+        if fleet_summary(finals[mode]) != coop["summary"]:
+            fail(f"phase 25 paper-dems-coop {mode}: summary off the golden")
+    if not (states_equal(finals["first"], finals["mesh"])
+            and states_equal(finals["first"], finals["unsharded"])):
+        fail("phase 25: run_fleet under the host mesh differs from the "
+             "unsharded run")
+    if len(set(launches.values())) != 1 or launches["mesh"] <= 0:
+        fail(f"phase 25: masked_argext launches {launches} differ")
+    if captured["mesh"] or captured["unsharded"]:
+        fail(f"phase 25: graphs captured {captured}: the mesh run must "
+             f"replay the unsharded run's graphs")
+    prog = F._fleet_program(golden["dt"], golden["edge_frac"],
+                            golden["cloud_frac"],
+                            F.FleetPolicy.from_name(
+                                coop["policy"]).coop_max_transfers,
+                            TraceSpec(), False)
+    nodes = [g.nodes / F.RUN_WINDOW_TICKS for g in prog.graphs.values()]
+    ticks = int(csig.times.shape[0])
+    say(f"phase25 mesh at world size 1 ({host}, {grid}): seed batch "
+        f"{sb['n_edges']} edges × {len(sb['seeds'])} seeds, padded "
+        f"run_batch, run_registry_sweep(mesh='auto') "
+        f"({len(rows)} rows) and paper DEMS-COOP run_fleet(mesh=) each "
+        f"bitwise the unsharded result; paper DEMS-COOP graphs captured "
+        f"{json.dumps(captured)} (the first run's replayed by the mesh "
+        f"run), nodes a tick {[round(n, 1) for n in nodes]}; masked_argext "
+        f"launches {json.dumps(launches)}; {ticks} ticks: "
+        + ", ".join(f"{k} {w:.3f} s ({ticks / w:.2f} ticks/s)"
+                    for k, w in walls.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(host=host, launches=launches, walls=walls, nodes=nodes)
+
+
+def opt_decode_run(dev, host, dtype: str, seed: int) -> dict:
+    """One opt_decode comparison of phase 26 in ``dtype``: the base and
+    the opt_decode step from copies of one prefill's cache, the base's
+    greedy tokens fed to both; per step the logits of both, and the
+    caches, step times and launches at the end."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.sharding import sharding_rules
+    from repro_torch.models.model import Model
+    z = OPT_DECODE
+    cfg = dataclasses.replace(ARCHS[z["arch"]], n_layers=z["layers"],
+                              dtype=dtype, param_dtype=dtype,
+                              attn_impl="kernel")
+    base = Model(cfg, dev)
+    opt = Model(dataclasses.replace(cfg, opt_decode=True), dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = base.init(gen)
+    prompt = torch.randint(0, cfg.vocab, (z["batch"], z["prompt"]),
+                           generator=gen, device=dev)
+    reset_model_counts()
+    times = {"base": [], "opt": []}
+    logits, counts = [], {}
+    with torch.no_grad(), sharding_rules(host):
+        last, cache = base.prefill(params, {"tokens": prompt},
+                                   z["prompt"] + z["steps"])
+        caches = {"base": cache, "opt": {k: v.clone()
+                                         for k, v in cache.items()}}
+        tok = last[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        pre = model_counts()
+        for step in range(z["steps"]):
+            pos = z["prompt"] + step
+            out = {}
+            for name, m in (("base", base), ("opt", opt)):
+                before = model_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[name] = m.decode_step(params, caches[name], tok, pos)[0]
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+                after = model_counts()
+                for k in after:
+                    counts.setdefault(name, {}).setdefault(k, 0)
+                    counts[name][k] += after[k] - before[k]
+            b, o = (out[n][:, -1, :cfg.vocab].float() for n in ("base",
+                                                               "opt"))
+            logits.append((b, o))
+            tok = b.argmax(-1, keepdim=True)
+    if counts["base"].get("decode_attention") != z["layers"] * z["steps"] \
+            or counts["opt"].get("decode_attention"):
+        fail(f"phase 26 {dtype}: decode_attention launches "
+             f"{json.dumps(counts)}; want {z['layers']} a base step, none "
+             f"under opt_decode")
+    del params
+    return dict(logits=logits, caches=caches, times=times, counts=counts,
+                pre=pre)
+
+
+def phase_opt_decode(dev, host) -> dict:
+    """Phase 26: ``opt_decode`` against the base decode step on
+    qwen2-72b (published width, 2 layers, ``"kernel"``), both under
+    ``sharding_rules`` of the host mesh: one 512-token prefill, then 16
+    greedy steps (the base's tokens fed to both) from two copies of its
+    cache (:func:`opt_decode_run`).  In bf16 layer 0's cache bitwise (its
+    inputs are the same), every layer's cache and every step's logits
+    within ``OPT_DECODE_TOL`` of the base's largest, and the step times
+    (host clock to a synchronize) side by side; then in f32 layer 0's
+    cache bitwise and the rest within ``OPT_DECODE_F32_TOL``, the JAX
+    test's limits."""
+    import torch
+    z = OPT_DECODE
+    r = opt_decode_run(dev, host, "bfloat16", z["seed"])
+    cb, co = r["caches"]["base"], r["caches"]["opt"]
+    layer0 = all(torch.equal(cb[k][0], co[k][0]) for k in ("k", "v"))
+    cache_err = max(float((co[k].float() - cb[k].float()).abs().max()
+                          / cb[k].float().abs().max()) for k in ("k", "v"))
+    errs = [float((o - b).abs().max() / b.abs().max())
+            for b, o in r["logits"]]
+    agree = sum(int((o.argmax(-1) == b.argmax(-1)).sum())
+                for b, o in r["logits"])
+    if not layer0:
+        fail("phase 26: layer 0's cache under opt_decode differs from the "
+             "base step's")
+    if max(errs) > OPT_DECODE_TOL or cache_err > OPT_DECODE_TOL:
+        fail(f"phase 26: opt_decode logits {max(errs):.3e} / cache "
+             f"{cache_err:.3e} off the base (tol {OPT_DECODE_TOL})")
+    times = r["times"]
+    p50 = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
+    n = z["batch"] * z["steps"]
+    say(f"phase26 opt_decode {z['arch']} full width × {z['layers']} layers "
+        f"bf16 'kernel', B {z['batch']} from {z['prompt']} tokens, "
+        f"{z['steps']} greedy steps under sharding_rules(host mesh): layer "
+        f"0's cache bitwise, cache max rel Δ {cache_err:.3e}, logits max "
+        f"rel Δ {max(errs):.3e} (tol {OPT_DECODE_TOL}), greedy agreement "
+        f"{agree}/{n}; step p50 base {p50['base']:.3f} ms, opt "
+        f"{p50['opt']:.3f} ms (ms sorted: base "
+        f"{[round(x * 1e3, 2) for x in sorted(times['base'])]}, opt "
+        f"{[round(x * 1e3, 2) for x in sorted(times['opt'])]}); prefill "
+        f"launches {json.dumps(r['pre'])}, step launches "
+        f"{json.dumps(r['counts'])}")
+    del r, cb, co
+    torch.cuda.empty_cache()
+
+    r = opt_decode_run(dev, host, "float32", z["seed"] + 1)
+    cb, co = r["caches"]["base"], r["caches"]["opt"]
+    tol = OPT_DECODE_F32_TOL
+    layer0 = all(torch.equal(cb[k][0], co[k][0]) for k in ("k", "v"))
+    cache32 = [allclose_err(co[k], cb[k], tol["cache"]) for k in ("k", "v")]
+    logit32 = [allclose_err(o, b, tol["logits"]) for b, o in r["logits"]]
+    if not (layer0 and max(x for _, x in cache32) <= 0.0
+            and max(x for _, x in logit32) <= 0.0):
+        fail(f"phase 26 f32: opt_decode off the base step: layer 0's cache "
+             f"bitwise {layer0}, cache max |Δ| {[e for e, _ in cache32]} "
+             f"(tol {tol['cache']}), logits max |Δ| "
+             f"{max(e for e, _ in logit32):.3e} (tol {tol['logits']})")
+    say(f"phase26 opt_decode f32 copy, same shapes: layer 0's cache "
+        f"bitwise, cache max |Δ| {max(e for e, _ in cache32):.3e} (tol "
+        f"{tol['cache']}), logits max |Δ| over {z['steps']} steps "
+        f"{max(e for e, _ in logit32):.3e} (tol {tol['logits']}); step "
+        f"launches {json.dumps(r['counts'])}")
+    del r, cb, co
+    torch.cuda.empty_cache()
+    return dict(p50=p50, err=max(errs), cache_err=cache_err)
+
+
+def split_blocks(blocks: dict, cfg, sp: int) -> dict:
+    """The unsplit moe blocks rearranged to the split-expert layout of
+    ``sp`` splits: up (L, E, D, Fe) → (L, E·sp, D, Fe/sp), its columns cut
+    in ``sp`` (a copy); down a view (L, E·sp, Fe/sp, D)."""
+    n, e, d, fe = (blocks["we_d"].shape[0], cfg.n_experts, cfg.d_model,
+                   cfg.d_ff_expert)
+    out = dict(blocks)
+    out["we_i"] = blocks["we_i"].view(n, e, d, sp, fe // sp).permute(
+        0, 1, 3, 2, 4).reshape(n, e * sp, d, fe // sp)
+    out["we_d"] = blocks["we_d"].view(n, e * sp, fe // sp, d)
+    return out
+
+
+def phase_split(dev) -> dict:
+    """Phase 27: the split-expert layout on grok-1-314b (published width,
+    2 layers, bf16, ``"kernel"``): a (B 1, S 64) forward and a prefill
+    with ``expert_split=2`` on the weights rearranged from the unsplit
+    model's (:func:`split_blocks`), against ``expert_split=1`` within
+    ``MOE_TOL["bfloat16"]``.  ``moe_gemm``'s launches are read over the
+    phase: 2 a layer unsplit (gelu: ``we_i``, ``we_d``), 3 split (one up
+    a split on the strided view, one down), every bf16 one on the tensor
+    cores.  Then ``moe_gemm`` at the forward's shapes, split and
+    unsplit: each held to the f32 ``torch.bmm`` of the same (bf16) views
+    within ``MOE_TOL["bfloat16"]`` and timed beside the bf16
+    ``torch.bmm`` over (E, C, D) and the byte bound.  Last, the routes
+    held to each other: an f32 copy cut to one layer (the bf16 routes
+    round apart, and a router's top-2 may then flip) on ``"kernel"``
+    against ``"ref"`` (the JAX package's einsums), split and unsplit,
+    the relative RMS of the logit difference within ``MOE_TOL
+    ["float32"]`` and the routing the same; its ``moe_gemm`` launches
+    (on the CUDA cores, the strided split views too) are counted
+    apart."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import moe_gemm as MG
+    from repro_torch.models.model import Model
+    z = SPLIT
+    cfg = dataclasses.replace(ARCHS[z["arch"]], n_layers=z["layers"],
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              attn_impl="kernel")
+    sp = z["split"]
+    scfg = dataclasses.replace(cfg, expert_split=sp)
+    gen = torch.Generator(device=dev).manual_seed(z["seed"])
+    t0 = time.perf_counter()
+    unsplit = Model(cfg, dev)
+    params = unsplit.init(gen)
+    e, d, fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    blocks = params["blocks"]
+    sblocks = split_blocks(blocks, cfg, sp)
+    sparams = dict(params, blocks=sblocks)
+    split = Model(scfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok = torch.randint(0, cfg.vocab, (1, z["seq"]), generator=gen,
+                        device=dev)
+    MG.reset_count()
+    out, counts = {}, {}
+    with torch.no_grad():
+        for name, m, p in (("unsplit", unsplit, params),
+                           ("split", split, sparams)):
+            c0 = MG.launch_count
+            out[name] = (m.forward(p, {"tokens": tok})[0],
+                         m.prefill(p, {"tokens": tok}, z["seq"])[0])
+            counts[name] = MG.launch_count - c0
+    torch.cuda.synchronize()
+    want = {"unsplit": 2 * 2 * z["layers"],
+            "split": 2 * (sp + 1) * z["layers"]}
+    if counts != want or MG.tc_launch_count != MG.launch_count:
+        fail(f"phase 27: moe_gemm launches {json.dumps(counts)} "
+             f"(tensor cores {MG.tc_launch_count} of {MG.launch_count}); "
+             f"the path's {json.dumps(want)}")
+    tol = MOE_TOL["bfloat16"]
+    errs = []
+    for got, ref_ in zip(out["split"], out["unsplit"]):
+        g, r = got[..., :cfg.vocab].float(), ref_[..., :cfg.vocab].float()
+        if not bool(((g - r).abs() <= tol + tol * r.abs()).all()):
+            fail(f"phase 27: split logits off the unsplit's: max |Δ| "
+                 f"{float((g - r).abs().max()):.3e} (tol {tol})")
+        errs.append(float((g - r).abs().max()))
+    # moe_gemm at the forward's shapes: C rows an expert
+    c = int(z["seq"] * cfg.top_k / e * cfg.capacity_factor) + 1
+    t = e * c
+    bf = torch.bfloat16
+    x = torch.randn(t, d, generator=gen, device=dev).to(bf)
+    h = torch.randn(t, fe, generator=gen, device=dev).to(bf)
+    off = (torch.arange(e + 1, device=dev) * c).int()
+    w_up, w_dn = blocks["we_i"][0], blocks["we_d"][0]
+    w_split = sblocks["we_i"][0].view(e, sp, d, fe // sp)[:, 1]
+    rows, gemm_err = {}, {}
+    for key, (xx, w, f_out) in (
+            (f"unsplit up ({t}, {d}→{fe})", (x, w_up, fe)),
+            (f"split up, one of {sp} ({t}, {d}→{fe // sp}, expert stride "
+             f"{sp}·D·F)", (x, w_split, fe // sp)),
+            (f"down ({t}, {fe}→{d}), split and unsplit", (h, w_dn, d))):
+        want_y = torch.bmm(xx.view(e, c, -1).float(), w.float()).view(t, -1)
+        err, excess = allclose_err(MG.cuda_moe_gemm(xx, w, off), want_y, tol)
+        if not excess <= 0.0:
+            fail(f"phase 27: moe_gemm {key} off the f32 torch.bmm of the "
+                 f"same views: max |err| {err} (tol {tol})")
+        gemm_err[key] = err
+        del want_y
+        row = {"kernel": graph_ms(lambda: MG.cuda_moe_gemm(xx, w, off),
+                                  iters=10),
+               "library": graph_ms(lambda: torch.bmm(
+                   xx.view(e, c, -1), w), iters=10)}
+        nbytes = 2 * (xx.numel() + e * w.shape[1] * f_out + t * f_out) \
+            + 4 * (e + 1)
+        row["bound"], row["bound_by"] = _bound(
+            nbytes, 2 * t * w.shape[1] * f_out, BF16_OPS_PER_S)
+        rows[key] = row
+    floor = floor_ms()
+    for key, row in rows.items():
+        row["floor"] = floor
+        say(f"phase27 moe_gemm {key} (bf16): max |err| {gemm_err[key]:.3e} "
+            f"against the f32 torch.bmm of the same views (tol {tol}); "
+            f"device ms per call (graph "
+            f"replay) kernel {row['kernel']:.6f}, library torch.bmm "
+            f"{row['library']:.6f}, floor {floor:.6f}; bound "
+            f"{row['bound']:.6f} ms ({row['bound_by']})")
+    say(f"phase27 expert_split {z['arch']} full width × {z['layers']} "
+        f"layers bf16 'kernel' (B 1, S {z['seq']}): forward and prefill "
+        f"with expert_split={sp} within tol {tol} of expert_split=1 on "
+        f"the same weights (max |Δ| {errs}); moe_gemm launches "
+        f"{json.dumps(counts)} == the path's, every one on the tensor "
+        f"cores; weights and the split copy in {init_s:.1f} s")
+    del params, sparams, blocks, sblocks, unsplit, split, x, h, out
+    del w_up, w_dn, w_split
+    torch.cuda.empty_cache()
+
+    # the routes held to each other, in f32 at one layer
+    c32 = dataclasses.replace(cfg, n_layers=1, dtype="float32",
+                              param_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(z["seed"] + 1)
+    p32 = Model(c32, dev).init(gen)
+    layouts = (("unsplit", c32, p32),
+               ("split", dataclasses.replace(c32, expert_split=sp),
+                dict(p32, blocks=split_blocks(p32["blocks"], c32, sp))))
+    tc0, f32_launches, f32_rel, logits = MG.tc_launch_count, {}, {}, {}
+    with torch.no_grad():
+        for name, lay, p in layouts:
+            c0 = MG.launch_count
+            with RouteLog() as lk:
+                kl = Model(lay, dev).forward(p, {"tokens": tok})[0]
+            f32_launches[name] = MG.launch_count - c0
+            with RouteLog() as lr:
+                rl = Model(dataclasses.replace(lay, attn_impl="ref"),
+                           dev).forward(p, {"tokens": tok})[0]
+            kl, rl = kl[..., :cfg.vocab].float(), rl[..., :cfg.vocab].float()
+            rel = float((kl - rl).square().sum().sqrt()
+                        / rl.square().sum().sqrt())
+            agree = routing_agreement(lk.calls, lr.calls, 1)
+            if not (bool(torch.isfinite(kl).all())
+                    and rel <= MOE_TOL["float32"] and agree == [1.0]):
+                fail(f"phase 27: f32 {name} 'kernel' against 'ref': "
+                     f"relative RMS {rel:.3e} (tol {MOE_TOL['float32']}), "
+                     f"routing agreement {agree}")
+            f32_rel[name], logits[name] = rel, kl
+    want32 = {"unsplit": 2, "split": sp + 1}
+    if f32_launches != want32 or MG.tc_launch_count != tc0:
+        fail(f"phase 27: f32 moe_gemm launches {json.dumps(f32_launches)} "
+             f"(tensor cores {MG.tc_launch_count - tc0}); the path's "
+             f"{json.dumps(want32)} on the CUDA cores")
+    split_rel = float((logits["split"] - logits["unsplit"]).abs().max())
+    say(f"phase27 f32 copy, 1 layer (B 1, S {z['seq']}): 'kernel' against "
+        f"'ref' relative RMS of the logit difference unsplit "
+        f"{f32_rel['unsplit']:.3e}, split {f32_rel['split']:.3e} (tol "
+        f"{MOE_TOL['float32']}), routing the same; kernel split against "
+        f"unsplit max |Δ| {split_rel:.3e}; moe_gemm launches "
+        f"{json.dumps(f32_launches)}, on the CUDA cores")
+    del p32, layouts, logits, kl, rl
+    torch.cuda.empty_cache()
+    return dict(launches=counts["split"],
+                rows=rows, err=max(errs + list(gemm_err.values())))
+
+
+def phase_dots(dev, full: dict) -> dict:
+    """Phase 28: phase 24 (b)'s training run under remat ``"dots"``
+    (selective checkpointing: ``aten.mm``/``aten.addmm`` outputs saved):
+    its losses against (b)'s under ``"full"`` within ``DOTS_TOL``
+    (bitwise expected: the saved products are the ones recomputed), step
+    p50, tokens/s and peak memory beside (b)'s."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.train.loop import train
+    z = TRAIN_FULL
+    cfg = dataclasses.replace(ARCHS[z["arch"]], remat_policy="dots")
+    stamps = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, losses = train(cfg, steps=z["steps"], batch=z["batch"],
+                      seq_len=z["seq"], lr=z["lr"], log_every=1,
+                      log=lambda _: stamps.append(time.perf_counter()),
+                      device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    p50 = step_s[len(step_s) // 2]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, full["losses"]))
+    tokens = z["batch"] * z["seq"]
+    say(f"phase28 remat 'dots' {z['arch']} {cfg.n_layers} layers, B "
+        f"{z['batch']} × S {z['seq']}, lr {z['lr']}: losses {losses} "
+        f"(max rel Δ from 'full' {rel:.3e}; bitwise "
+        f"{losses == full['losses']}); step p50 dots "
+        f"{p50 * 1e3:.1f} ms, {tokens / p50:.1f} tokens/s, peak {peak} B; "
+        f"'full' (phase 24 b) {full['p50'] * 1e3:.1f} ms, "
+        f"{tokens / full['p50']:.1f} tokens/s, peak {full['peak']} B; wall "
+        f"{wall:.1f} s")
+    if rel > DOTS_TOL:
+        fail(f"phase 28: 'dots' losses {losses} off 'full' "
+             f"{full['losses']} (max rel {rel:.3e} > {DOTS_TOL})")
+    return dict(p50=p50, peak=peak, rel=rel)
+
+
+def start_dryrun() -> list:
+    """Phase 29's children: ``python -m repro_torch.launch.dryrun --arch
+    granite-3-2b --mesh single`` for each of ``DRYRUN_SHAPES``, started
+    together (each a fake group of 256 ranks; host work only).  Returns
+    (shape, process, start time, result path) a child."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    kids = []
+    for shape in DRYRUN_SHAPES:
+        os.makedirs(os.path.join(out_dir, shape), exist_ok=True)
+        log = open(os.path.join(out_dir, shape, "log.txt"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "granite-3-2b", "--shape", shape, "--mesh", "single", "--out",
+             os.path.join(out_dir, shape)], env=env, cwd=ROOT,
+            stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        kids.append((shape, proc, time.perf_counter(),
+                     os.path.join(out_dir, shape,
+                                  f"granite-3-2b__{shape}.json")))
+    # a phase that fails before phase 29 exits: its children go with it
+    atexit.register(lambda: [p.kill() for _, p, _, _ in kids
+                             if p.poll() is None])
+    return kids
+
+
+def phase_dryrun(kids: list) -> dict:
+    """Phase 29: the dry run's children (:func:`start_dryrun`) waited for
+    and their JSON read back: each combo and its roofline must be ok
+    (both pass on the host), the terms and the bottleneck printed.  A
+    child past ``DRYRUN_TIMEOUT_S`` is killed and fails the phase."""
+    res = {}
+    for shape, proc, t0, path in kids:
+        left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+        try:
+            proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            for _, p, _, _ in kids:
+                p.kill()
+                p.wait()
+            fail(f"phase 29 {shape}: the dry run passed "
+                 f"{DRYRUN_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.isfile(path):
+            log = open(os.path.join(os.path.dirname(path), "log.txt")).read()
+            fail(f"phase 29 {shape}: the dry run failed (exit "
+                 f"{proc.returncode}): {log[-3000:]}")
+        r = json.load(open(path))
+        one, roof = r.get("mesh_single", {}), r.get("roofline", {})
+        if not one.get("ok") or "bottleneck" not in roof:
+            fail(f"phase 29 {shape}: combo or roofline not ok: "
+                 f"{json.dumps(one)[:1500]} {json.dumps(roof)[:1500]}")
+        m = one["memory"]
+        say(f"phase29 dryrun granite-3-2b × {shape} × single (16×16 fake "
+            f"ranks): trace {one['trace_s']} s (child wall {wall:.1f} s, "
+            f"roofline included); per device: arguments "
+            f"{m['argument_bytes']} B (fit 80 GB: "
+            f"{m['arguments_fit_80gb']}), peak {m['peak_bytes']} B "
+            f"({m['peak_note']}), FLOPs {one['flops']}, bytes accessed "
+            f"{one['bytes_accessed']} ({one['bytes_accessed_note']}), "
+            f"collectives {one['n_collectives']} "
+            f"({one['collective_bytes']['total']} B)")
+        say(f"phase29 roofline granite-3-2b × {shape}: compute "
+            f"{roof['compute_s'] * 1e3:.4f} ms, memory "
+            f"{roof['memory_s'] * 1e3:.4f} ms, collective "
+            f"{roof['collective_s'] * 1e3:.4f} ms ({roof['collective_note']})"
+            f" → {roof['bottleneck']}-bound; model/traced FLOPs "
+            f"{roof['model_vs_traced_flops']}")
+        res[shape] = dict(wall=wall, roofline=roof)
+    return res
 
 
 T_START = time.perf_counter()
@@ -3542,8 +4157,9 @@ def main() -> int:
     moe_err, moe_cases = check_moe_gemm(dev)
     say(f"phase2 kernels: moe_gemm {moe_cases} cases within tolerance of "
         f"the plain version (tol f32 {MOE_TOL['float32']}, bf16 "
-        f"{MOE_TOL['bfloat16']} against f32), rows that no expert owns "
-        f"exactly zero; max |err| {json.dumps(moe_err)}")
+        f"{MOE_TOL['bfloat16']} against f32; split-expert strided views "
+        f"among them), rows that no expert owns exactly zero; max |err| "
+        f"{json.dumps(moe_err)}")
     say(f"phase2 timing (28x64), device ms per call (graph replay): "
         f"{json.dumps(dev_ms)}; issued eagerly, ms per call: "
         f"{json.dumps(call_ms)}; bound {bound_ms:.7f} ms ({bound_by}: bytes "
@@ -3687,9 +4303,36 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     whisper = phase_whisper(dev)["launches"]
     torch.cuda.empty_cache()
-    phase_train(dev)
+    full = phase_train(dev)
     torch.cuda.empty_cache()
     say(f"phases 1-24 done in {time.perf_counter() - T_START:.1f} s")
+
+    # ---- phase 28: remat "dots" (right after 24, on an idle host) -------
+    phase_dots(dev, full)
+    torch.cuda.empty_cache()
+
+    # ---- phase 29 starts: the dry run's children, host work beside ------
+    # phases 25-27 (one host core of the machine's)
+    dry = start_dryrun()
+
+    # ---- phase 25: the fleet under a mesh at world size 1 --------------
+    mesh = phase_mesh(golden, sweep)
+    torch.cuda.empty_cache()
+
+    # ---- phase 26: opt_decode on qwen2-72b ----------------------------
+    phase_opt_decode(dev, mesh["host"])
+    torch.cuda.empty_cache()
+
+    # ---- phase 27: expert_split on grok-1-314b --------------------------
+    reset_model_counts()
+    split = phase_split(dev)
+    torch.cuda.empty_cache()
+
+    # ---- phase 29: the dry run's results --------------------------------
+    phase_dryrun(dry)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    say(f"phases 1-29 done in {time.perf_counter() - T_START:.1f} s")
 
     flash_t = times["flash serve granite"]
     decode_t = times["decode B8 W1024 L576"]
@@ -3749,7 +4392,7 @@ def main() -> int:
         "name": "moe_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
         "replaces": "src/repro/kernels/moe_gemm.py:24",
-        "launches": moe["moe_gemm"],
+        "launches": moe["moe_gemm"], "split_launches": split["launches"],
         "max_abs_err": max(moe_err["float32"], moe_err["bfloat16"]),
         "ms": moe_t["kernel"], "previous_ms": moe_t["previous"],
         "floor_ms": moe_t["floor"], "plain_ms": moe_t["plain"],

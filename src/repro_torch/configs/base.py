@@ -6,16 +6,18 @@ or ``"kernel"`` (every op of the model's path that has a hand-written
 kernel: flash attention, flash decode, RMSNorm, the Mamba2 selective
 scan and the MoE expert GEMMs), where the JAX package says ``"pallas"``;
 :func:`repro_torch.convert.arch_from_fields` maps one to the other.
-``remat`` is honoured in training: with ``remat_policy="full"`` each
-block whose parameters require grad is recomputed in the backward pass
-(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``; no
-number changes), and ``"dots"`` raises (not ported).  Fields that steer
-JAX-only machinery (``unroll_layers``, ``opt_decode``) are kept so that
-a config converts field for field, and do nothing in the port.  ``moe_groups`` is honoured:
-MoE dispatch and its capacity are per group, so it changes results.
-``expert_split > 1`` (the JAX package's split-expert parameter layout
-for a model-parallel axis) is refused by the MoE model with a
-``NotImplementedError``: one card has no model axis.
+``remat`` is honoured in training: each block whose parameters require
+grad is recomputed in the backward pass (``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint``; no number changes), saving nothing
+under ``remat_policy="full"`` and the outputs of the matmuls with no
+batch dimension under ``"dots"``.  ``opt_decode`` takes the sharded
+flash-decode when a mesh is active (``launch.sharding.sharding_rules``).
+``expert_split`` s > 1 takes the split-expert parameter layout; -1
+("auto") is resolved against a mesh by ``launch.dryrun.build``.
+``unroll_layers`` steers JAX-only machinery (the port always loops over
+layers) and is kept so that a config converts field for field.
+``moe_groups`` is honoured: MoE dispatch and its capacity are per group,
+so it changes results.
 """
 from __future__ import annotations
 

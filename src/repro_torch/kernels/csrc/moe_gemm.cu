@@ -9,7 +9,9 @@
 // gives it (ref_moe_gemm clips such a row to expert 0 or E-1 instead).
 // offsets must be nondecreasing; values outside [0, T] are clipped.
 //
-// Layout: x (T, D), w (E, D, F), y (T, F), all contiguous; offsets
+// Layout: x (T, D), w (E, D, F), y (T, F), contiguous but for w's expert
+// stride (w_expert_stride >= D·F elements; a split of a split-expert
+// weight is a strided view with the (D, F) blocks whole); offsets
 // (E+1,) int32 on the device (read there: no host sync).  x, w and y
 // share one type, f32 or bf16.  Any T, D, F and E, empty experts too.
 //
@@ -191,7 +193,7 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 const int* __restrict__ offsets, T* __restrict__ y, int T_,
-                int D, int F, int E) {
+                int D, int F, int E, int64_t wse) {
   __shared__ float xs[kBK][kBM + 1];      // +1: conflict-free transposes
   __shared__ __align__(16) float ws[kBK][kBN];
   const int tid = threadIdx.x;
@@ -205,7 +207,7 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
   const int lo = clip(offsets[e], 0, T_);
   const int hi = clip(offsets[e + 1], lo, T_);
-  const T* we = w + static_cast<int64_t>(e) * D * F;
+  const T* we = w + static_cast<int64_t>(e) * wse;
 
   for (int64_t r0 = lo + static_cast<int64_t>(blockIdx.z) * kBM; r0 < hi;
        r0 += static_cast<int64_t>(gridDim.z) * kBM) {
@@ -283,7 +285,7 @@ moe_gemm_tc_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w,
                    const int* __restrict__ offsets,
                    __nv_bfloat16* __restrict__ y, int T_, int D, int F,
-                   int E) {
+                   int E, int64_t wse) {
   using bf16 = __nv_bfloat16;
   using Sh = Tc<MT>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -301,7 +303,7 @@ moe_gemm_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
   const int lo = clip(offsets[e], 0, T_);
   const int hi = clip(offsets[e + 1], lo, T_);
-  const bf16* we = w + static_cast<int64_t>(e) * D * F;
+  const bf16* we = w + static_cast<int64_t>(e) * wse;
   const int nk = (D + kTcBK - 1) / kTcBK;
 
   for (int64_t r0 = lo + static_cast<int64_t>(blockIdx.z) * Sh::kBM;
@@ -402,7 +404,8 @@ moe_gemm_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
 template <int MT>
 int launch_tc(const void* x, const void* w, const int* offsets, void* y,
-              int T_, int D, int F, int E, cudaStream_t stream) {
+              int T_, int D, int F, int E, int64_t wse,
+              cudaStream_t stream) {
   using Sh = Tc<MT>;
   // above 48 KB a block's shared memory must be opted into, once per
   // instantiation, at its first launch (before any graph capture)
@@ -418,7 +421,7 @@ int launch_tc(const void* x, const void* w, const int* offsets, void* y,
   using bf16 = __nv_bfloat16;
   moe_gemm_tc_kernel<MT><<<grid, Sh::kThreads, Sh::kSmem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), offsets,
-      static_cast<bf16*>(y), T_, D, F, E);
+      static_cast<bf16*>(y), T_, D, F, E, wse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,10 +429,11 @@ int launch_tc(const void* x, const void* w, const int* offsets, void* y,
 
 template <typename T>
 int launch(const void* x, const void* w, const int* offsets, void* y, int T_,
-           int D, int F, int E, cudaStream_t stream) {
+           int D, int F, int E, int64_t wse, cudaStream_t stream) {
   constexpr int kN = Vec<T>::kN;
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 16 == 0 && D % kN == 0 &&
+                   wse % kN == 0 &&
                    F % kN == 0;
   // row-tile slots per expert: the mean number of 64-row tiles an expert
   // owns (one a block when offsets are uniform)
@@ -443,16 +447,19 @@ int launch(const void* x, const void* w, const int* offsets, void* y, int T_,
   T* yt = static_cast<T*>(y);
   if (vec)
     moe_gemm_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        xt, wt, offsets, yt, T_, D, F, E);
+        xt, wt, offsets, yt, T_, D, F, E, wse);
   else
     moe_gemm_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        xt, wt, offsets, yt, T_, D, F, E);
+        xt, wt, offsets, yt, T_, D, F, E, wse);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (T, D), w (E, D, F), y (T, F) contiguous; offsets (E+1,) int32, on
+// x (T, D) and y (T, F) contiguous; w (E, D, F) with each expert's (D, F)
+// block contiguous and w_expert_stride elements (>= D·F) from one
+// expert's block to the next (D·F for a contiguous w; s·D·F for split s
+// of a split-expert weight viewed (E, s, D, F)); offsets (E+1,) int32, on
 // the device.  dtype: 0 = float32, 1 = bfloat16 (all three tensors).
 // route: 0 = the CUDA-core body (either dtype), 1 = the tensor-core body
 // (bfloat16, D and F multiples of 8, 16-byte aligned x, w and y) with
@@ -461,28 +468,30 @@ int launch(const void* x, const void* w, const int* offsets, void* y, int T_,
 // type or alignment the body does not take.
 extern "C" int moe_gemm_launch(const void* x, const void* w,
                                const void* offsets, void* y, int T_, int D,
-                               int F, int E, int dtype, int route, int mt,
-                               void* stream) {
+                               int F, int E, long long w_expert_stride,
+                               int dtype, int route, int mt, void* stream) {
   if (T_ == 0 || F == 0) return 0;
-  if (T_ < 0 || D < 0 || F < 0 || E <= 0 || E >= 65535)
+  if (T_ < 0 || D < 0 || F < 0 || E <= 0 || E >= 65535 ||
+      w_expert_stride < static_cast<long long>(D) * F)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t wse = static_cast<int64_t>(w_expert_stride);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
   if (route == 1) {
-    if (dtype != 1 || D % 8 != 0 || F % 8 != 0)
+    if (dtype != 1 || D % 8 != 0 || F % 8 != 0 || wse % 8 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
     if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
          reinterpret_cast<uintptr_t>(y)) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
-    if (mt == 1) return launch_tc<1>(x, w, off, y, T_, D, F, E, s);
-    if (mt == 2) return launch_tc<2>(x, w, off, y, T_, D, F, E, s);
-    if (mt == 4) return launch_tc<4>(x, w, off, y, T_, D, F, E, s);
-    if (mt == 8) return launch_tc<8>(x, w, off, y, T_, D, F, E, s);
+    if (mt == 1) return launch_tc<1>(x, w, off, y, T_, D, F, E, wse, s);
+    if (mt == 2) return launch_tc<2>(x, w, off, y, T_, D, F, E, wse, s);
+    if (mt == 4) return launch_tc<4>(x, w, off, y, T_, D, F, E, wse, s);
+    if (mt == 8) return launch_tc<8>(x, w, off, y, T_, D, F, E, wse, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (route != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return launch<float>(x, w, off, y, T_, D, F, E, s);
+  if (dtype == 0) return launch<float>(x, w, off, y, T_, D, F, E, wse, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, off, y, T_, D, F, E, s);
+    return launch<__nv_bfloat16>(x, w, off, y, T_, D, F, E, wse, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

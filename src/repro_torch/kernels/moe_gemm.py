@@ -61,12 +61,14 @@ def tc_route(x_sorted: torch.Tensor, w: torch.Tensor) -> int:
     with D and F multiples of 8 and both storage offsets multiples of 8
     elements (16-byte rows for ``cp.async``), else ``CORE`` (float32, or
     the bf16 shapes off the vector width).  Reads dtype, shape and
-    storage offsets only; the wrapper makes both contiguous first."""
+    storage offsets and w's expert stride only; the wrapper makes x
+    contiguous first, and w when its experts' blocks are not whole."""
     if x_sorted.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         return CORE
     if w.shape[1] % 8 or w.shape[2] % 8:
         return CORE
-    if x_sorted.storage_offset() % 8 or w.storage_offset() % 8:
+    if x_sorted.storage_offset() % 8 or w.storage_offset() % 8 \
+            or w.stride(0) % 8:
         return CORE
     return TC
 
@@ -84,8 +86,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
     fn = lib.moe_gemm_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -95,9 +97,12 @@ def cuda_moe_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
                   _route: int | None = None) -> torch.Tensor:
     """The hand kernel: x_sorted (T, D) and w (E, D, F) CUDA tensors of one
     type (float32 or bfloat16), offsets (E+1,) int32 on the same card →
-    (T, F) in x's type.  ``_route`` forces a body (``CORE`` runs bf16 on
-    the CUDA cores); only ``chip_smoke.py`` passes it, to time and check
-    the earlier bf16 body."""
+    (T, F) in x's type.  w may be a view whose experts lie apart (a split
+    of a split-expert weight, ``w.view(E, s, D, F)[:, j]``): the kernel
+    takes its expert stride, and nothing is copied, as long as each
+    expert's (D, F) block is contiguous.  ``_route`` forces a body
+    (``CORE`` runs bf16 on the CUDA cores); only ``chip_smoke.py`` passes
+    it, to time and check the earlier bf16 body."""
     if x_sorted.device.type != "cuda" or w.device != x_sorted.device \
             or offsets.device != x_sorted.device:
         raise ValueError("cuda_moe_gemm: x_sorted, w and offsets must lie on "
@@ -121,7 +126,9 @@ def cuda_moe_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
     out = torch.empty((t, f), dtype=x_sorted.dtype, device=x_sorted.device)
     if out.numel() == 0:
         return out
-    x_sorted, w = x_sorted.contiguous(), w.contiguous()
+    x_sorted = x_sorted.contiguous()
+    if w.stride(2) != 1 or w.stride(1) != f or w.stride(0) < d * f:
+        w = w.contiguous()
     offsets = offsets.contiguous()
     route = tc_route(x_sorted, w)
     if _route is not None:
@@ -135,7 +142,8 @@ def cuda_moe_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
     stream = torch.cuda.current_stream(x_sorted.device).cuda_stream
     err = _lib().moe_gemm_launch(
         x_sorted.data_ptr(), w.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), t, d, f, e, _DTYPES[x_sorted.dtype], route,
+        out.data_ptr(), t, d, f, e, w.stride(0), _DTYPES[x_sorted.dtype],
+        route,
         row_tiles(t, e), stream)
     if err != 0:
         raise RuntimeError(f"moe_gemm launch failed: cudaError {err}")

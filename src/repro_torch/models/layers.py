@@ -1,22 +1,33 @@
 """Shared model layers: norms, RoPE, activations, MLPs, GQA attention.
 
 Port of ``repro.models.layers``: pure functions over explicit parameter
-dicts of tensors.  The JAX package's logical-sharding annotations are
-dropped (the port has no mesh), and so is its ``shard_map`` flash-decode,
-which needs one.  Attention supports full-causal and sliding-window
-(banded) masks, encoder (bidirectional) use, and single-token decode
-against a (possibly ring-buffered) KV cache.  Every dtype cast sits where
-the JAX code has it.
+dicts of tensors, with the JAX package's logical-axis annotations
+(:func:`~repro_torch.launch.sharding.shard`: they place a DTensor under
+active rules and pass a plain tensor through).  Attention supports
+full-causal and sliding-window (banded) masks, encoder (bidirectional)
+use, and single-token decode against a (possibly ring-buffered) KV
+cache.  Every dtype cast sits where
+the JAX code has it.  The JAX package's ``shard_map`` flash-decode is
+:func:`decode_update_attend_sharded`, one process a rank of the mesh
+that :func:`repro_torch.launch.sharding.sharding_rules` activates, the
+combine done by ``torch.distributed`` collectives.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import (current_mesh, mesh_shape,
+                                         placements, resolves, shard)
 
 NEG = -1e30
 
@@ -70,11 +81,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 def mlp(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     act = activation(cfg.act)
+    x = foldable(x)
     if cfg.act == "silu":                      # gated (SwiGLU-style)
-        h = act(x @ p["wg"]) * (x @ p["wu"])
+        h = act(fold_grad(x @ p["wg"])) * fold_grad(x @ p["wu"])
     else:
-        h = act(x @ p["wi"])
-    return h @ p["wd"]
+        h = act(fold_grad(x @ p["wi"]))
+    # keep the token dim sharded when the arch cannot head-shard
+    seq_ax = "seq" if resolves(cfg.n_heads, "heads") else "act_seq"
+    h = shard(h, "batch", seq_ax, "mlp")
+    return fold_grad(foldable(h) @ p["wd"])
 
 
 # ---------------------------------------------------------------------------
@@ -90,17 +105,93 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
         b, s, kv * groups, hd)
 
 
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) · w (D, H, K) → (B, S, H, K), ``bsd,dhk->bshk``, as one
+    ``x @ w.flatten(1)`` (an ``aten.mm``, whose output remat ``"dots"``
+    saves, as the JAX policy saves the projections) unflattened.
+
+    A DTensor's (H·K) columns are first gathered off any mesh axis that
+    does not divide H: DTensor cannot unflatten such a split (grok's or
+    granite's 8 KV heads on a 16-way model axis)."""
+    wf = _Flatten.apply(w) if isinstance(w, DTensor) else w.flatten(1)
+    return unflatten(fold_grad(foldable(x) @ wf), -1, tuple(w.shape[1:]))
+
+
+def foldable(x):
+    """``x`` ready for a product that folds its leading dimensions: a
+    DTensor split along any of them but the first is gathered along it
+    (DTensor refuses to flatten a split that is not the first folded
+    dimension; a split sequence, ``act_seq``, is gathered before the
+    projections, as sequence parallelism gathers it).  A plain tensor is
+    returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    keep = [Replicate() if any(pl.is_shard(d) for d in range(1, x.dim() - 1))
+            else pl for pl in x.placements]
+    if keep == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, keep)
+
+
+def fold_grad(y):
+    """``y`` as it is, its gradient made :func:`foldable` on the way back:
+    the backward of the product that made ``y`` folds that gradient's
+    leading dimensions too.  A plain tensor is returned as it is."""
+    return _FoldGrad.apply(y) if isinstance(y, DTensor) else y
+
+
+class _FoldGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return foldable(g)
+
+
+class _Flatten(torch.autograd.Function):
+    """``w.flatten(1)`` whose gradient comes back through :func:`unflatten`
+    (the plain view's backward would unflatten a split DTensor cannot)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.sizes = tuple(w.shape[1:])
+        return w.flatten(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten(g, 1, ctx.sizes)
+
+
+def unflatten(y, dim: int, sizes: tuple):
+    """``y.unflatten(dim, sizes)``; a DTensor split along ``dim`` over a
+    mesh axis that does not divide ``sizes[0]`` is first gathered along
+    that axis (DTensor cannot unflatten such a split)."""
+    if isinstance(y, DTensor):
+        mesh, dim = y.device_mesh, dim % y.dim()
+        keep = [Replicate() if pl.is_shard(dim) and sizes[0] % mesh.size(i)
+                else pl for i, pl in enumerate(y.placements)]
+        if keep != list(y.placements):
+            y = y.redistribute(mesh, keep)
+    return y.unflatten(dim, sizes)
+
+
 def qkv_proj(p: dict, cfg: ArchConfig, x: torch.Tensor, positions,
              use_rope: bool = True
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k, v = project(x, p["wq"]), project(x, p["wk"]), project(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    # when heads cannot take the model axis keep the sequence sharded
+    q_seq = "seq" if resolves(q.shape[2], "heads") else "act_seq"
+    kv_seq_ax = "seq" if resolves(k.shape[2], "kv_heads") else "act_seq"
+    q = shard(q, "batch", q_seq, "heads", "head_dim")
+    k = shard(k, "batch", kv_seq_ax, "kv_heads", "head_dim")
+    v = shard(v, "batch", kv_seq_ax, "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -108,9 +199,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Reference attention (B, Sq, H, hd) × (B, Sk, KV, hd) → (B, Sq, H, hd).
 
+    DTensors run it shard-locally (:func:`_attend_local`).
+
     ``window`` > 0 applies a sliding-window band; ``q_offset`` is the
     absolute position of q[0] relative to k[0] (for chunked prefill).
     """
+    if isinstance(q, DTensor):
+        return _attend_local(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
     groups = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
     scale = q.shape[-1] ** -0.5
@@ -124,8 +220,28 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window:
         mask &= kpos > qpos - window
     logits = torch.where(mask, logits, NEG)
+    logits = shard(logits, "batch", "heads", "seq_model", None)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqs,bshk->bqhk", probs, v)
+    out = torch.einsum("bhqs,bshk->bqhk", probs, v)
+    seq_ax = "seq" if resolves(q.shape[2], "heads") else "act_seq"
+    return shard(out, "batch", seq_ax, "heads", "head_dim")
+
+
+def _attend_local(q, k, v, **kw):
+    """:func:`attend` on DTensors, each rank on its own batch rows and heads
+    (``local_map``, the counterpart of the partitioner's: attention is
+    independent across both).  K/V are repeated to the query heads and
+    laid out as q is, with q's splits kept only on the batch and heads
+    dimensions; the sequences are whole on every rank."""
+    groups = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    mesh = q.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+          for p in q.placements]
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    fn = local_map(functools.partial(attend, **kw), out_placements=pl,
+                   in_placements=(pl, pl, pl), device_mesh=mesh)
+    return fn(q, k, v)
 
 
 CHUNK_Q_THRESHOLD = 16_384
@@ -175,7 +291,7 @@ def attention_block(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     q, k, v = qkv_proj(p, cfg, x, positions, use_rope)
     w = cfg.sliding_window if window is None else window
     out = attend_auto(q, k, v, causal=causal, window=w, impl=cfg.attn_impl)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return fold_grad(torch.einsum("bshk,hkd->bsd", out, p["wo"]))
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +324,7 @@ def decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *,
     b, _, h, hd = q.shape
     kv = ck.shape[2]
     groups = h // kv
-    qg = q.reshape(b, kv, groups, hd)        # query heads per KV head
+    qg = unflatten(q[:, 0], 1, (kv, groups))  # query heads per KV head
     scale = hd ** -0.5
     logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).float() * scale
     w = ck.shape[1]
@@ -220,6 +336,126 @@ def decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *,
     else:
         valid = slots <= pos
     logits = torch.where(valid, logits, NEG)
+    logits = shard(logits, "batch", "kv_heads", None, "kv_seq")
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", probs, cv)    # (B, KV, G, hd)
     return out.reshape(b, 1, h, hd)
+
+
+# ---------------------------------------------------------------------------
+# sharded flash-decode over the mesh's "model" axis (opt_decode)
+# ---------------------------------------------------------------------------
+
+def decode_cache_axes(mesh, b: int, w: int) -> tuple:
+    """How :func:`decode_update_attend_sharded` splits a (B, W, KV, hd)
+    cache layer: (batch mesh axes — ``("pod", "data")`` where present and
+    their product divides B, else none —, whether W splits over
+    ``"model"``)."""
+    sizes = mesh_shape(mesh)
+    batch_ax = tuple(a for a in ("pod", "data") if a in sizes)
+    if b % math.prod(sizes[a] for a in batch_ax):
+        batch_ax = ()
+    return batch_ax, w % sizes["model"] == 0
+
+
+def shard_decode_cache(cache: dict, mesh) -> dict:
+    """The ``"k"``/``"v"`` leaves (L, B, W, KV, hd) of a cache that every
+    rank holds whole, as DTensors split the way
+    :func:`decode_update_attend_sharded` reads them (each rank keeps a
+    copy of its own block; no collective).  Other leaves pass through."""
+    out = dict(cache)
+    for key in ("k", "v"):
+        c = cache[key]
+        batch_ax, seq = decode_cache_axes(mesh, c.shape[1], c.shape[2])
+        spec = (None, batch_ax or None, "model" if seq else None)
+        (blo, bhi), (wlo, whi) = _block(mesh, c.shape[1], batch_ax), \
+            _block(mesh, c.shape[2], ("model",) if seq else ())
+        out[key] = DTensor.from_local(
+            c[:, blo:bhi, wlo:whi].contiguous(), mesh,
+            placements(spec, mesh), run_check=False, shape=c.shape,
+            stride=c.stride())
+    return out
+
+
+def _block(mesh, n: int, axes: tuple) -> tuple:
+    """This rank's [lo, hi) of a dimension of n split over mesh ``axes``
+    (major to minor)."""
+    sizes = mesh_shape(mesh)
+    idx, parts = 0, 1
+    for a in axes:
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+        parts *= sizes[a]
+    size = n // parts
+    return idx * size, (idx + 1) * size
+
+
+def decode_update_attend_sharded(cfg: ArchConfig, q, k_new, v_new, ck, cv,
+                                 pos: int, window: int) -> torch.Tensor:
+    """Cache update + single-token attention with the cache's sequence
+    split over the ``"model"`` ranks of the active mesh (flash-decode).
+
+    Each model rank owns a contiguous ``W/n`` slice of every cache layer
+    and the batch rows of its ``("pod", "data")`` block where those axes
+    divide B (:func:`decode_cache_axes`).  The owner of the write slot
+    writes the new K/V; every rank forms the partial online softmax of its
+    slice; ``m`` is combined by an all-reduce MAX and ``l`` and ``o`` by
+    all-reduce SUMs over the model group, so the bytes a step exchanges
+    are O(q), not O(cache).  A model axis of 1 issues no collective.
+
+    q: (B, 1, H, hd); k_new/v_new: (B, 1, KV, hd); ck/cv: (B, W, KV, hd),
+    either a DTensor laid out by :func:`shard_decode_cache` (each rank
+    writes and reads its own block) or a plain tensor every rank holds
+    whole (each rank writes the new K/V into its copy, and reads its
+    block of it).  Returns out (B, 1, H, hd), the batch gathered back
+    over the data ranks when it was split.
+    """
+    mesh = current_mesh()
+    sizes = mesh_shape(mesh)
+    if isinstance(q, DTensor):
+        q, k_new, v_new = (t.full_tensor() for t in (q, k_new, v_new))
+    b, _, h, hd = q.shape
+    w, kv = ck.shape[1], ck.shape[2]
+    groups = h // kv
+    batch_ax, seq = decode_cache_axes(mesh, b, w)
+    n_model = sizes["model"] if seq else 1
+    blo, bhi = _block(mesh, b, batch_ax)
+    my_lo, my_hi = _block(mesh, w, ("model",) if seq else ())
+    w_loc = my_hi - my_lo
+    slot = pos % w if window else min(pos, w - 1)
+    if isinstance(ck, DTensor):
+        ck_l, cv_l = ck.to_local(), cv.to_local()
+        if my_lo <= slot < my_hi:                # the owner writes
+            ck_l[:, slot - my_lo] = k_new[blo:bhi, 0]
+            cv_l[:, slot - my_lo] = v_new[blo:bhi, 0]
+    else:
+        ck[:, slot] = k_new[:, 0]
+        cv[:, slot] = v_new[:, 0]
+        ck_l = ck[blo:bhi, my_lo:my_hi]
+        cv_l = cv[blo:bhi, my_lo:my_hi]
+
+    q_l = q[blo:bhi]
+    bl = q_l.shape[0]
+    qg = q_l.reshape(bl, kv, groups, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, ck_l).float() * hd ** -0.5
+    slots = my_lo + torch.arange(w_loc, device=q.device)
+    valid = (pos - slots) % w <= pos if window else slots <= pos
+    logits = torch.where(valid, logits, NEG)
+    m = logits.amax(-1)                                  # (B, KV, G)
+    group = mesh.get_group("model") if n_model > 1 else None
+    if group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p_ = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    l_ = p_.sum(-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p_.to(q.dtype), cv_l).float()
+    if group is not None:
+        dist.all_reduce(l_, group=group)
+        dist.all_reduce(o, group=group)
+    out = (o / l_.clamp_min(1e-30)[..., None]).to(q.dtype)
+    out = out.reshape(bl, 1, h, hd)
+    for a in reversed(batch_ax):             # minor axis first
+        if sizes[a] > 1:
+            parts = [torch.empty_like(out) for _ in range(sizes[a])]
+            dist.all_gather(parts, out.contiguous(),
+                            group=mesh.get_group(a))
+            out = torch.cat(parts, 0)
+    return out

@@ -32,22 +32,44 @@ over layers as ``aux`` (zero for the other families).
 
 The kernel route is forward-only (``kernels/ops.py``), as the JAX
 package's ``"pallas"`` route is: ``loss`` is differentiated on ``"ref"``.
-With ``cfg.remat`` (policy ``"full"``), a block whose parameters or
-input require grad is recomputed in the backward pass
-(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``); it
-changes no number, and a forward that needs no gradient (a served one)
-runs its blocks directly.
+With ``cfg.remat``, a block whose parameters or input require grad is
+recomputed in the backward pass (``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint``); it changes no number, and a forward
+that needs no gradient (a served one) runs its blocks directly.  Policy
+``"full"`` saves nothing of the block; ``"dots"`` (selective
+checkpointing) saves the outputs of the matmuls that have no batch
+dimension, ``aten.mm`` and ``aten.addmm``, and recomputes the rest.  In
+the port those are the products written with ``@`` on a weight matrix
+(PyTorch folds the leading dimensions of ``x @ w`` into one ``mm``): the
+q/k/v projections (:func:`~repro_torch.models.layers.project`, whisper's
+cross ones too), the dense MLP's ``wg``/``wu``/``wi``/``wd``, the router,
+the Mamba2 and xLSTM projections and the vlm's ``vis_proj``.  The
+``einsum`` products lower to ``aten.bmm`` (with a batch of 1 for a
+weight) and are recomputed: the output projection ``wo``, the attention
+scores and values, the expert einsums and the unembedding.  The JAX
+policy saves ``wo``'s product and the unembedding too.
+
+``param_specs()`` gives every parameter's logical axes
+(:mod:`repro_torch.launch.sharding` places them on a mesh).  With
+``cfg.opt_decode`` and a mesh active (``sharding_rules``), a decode step's
+self-attention runs :func:`~repro_torch.models.layers.
+decode_update_attend_sharded`: the cache's sequence split over the
+``"model"`` ranks, partial softmaxes combined by all-reduces.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import current_mesh, shard
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -58,65 +80,92 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 # ---------------------------------------------------------------------------
-# parameter tables:  name → shape
+# parameter tables:  name → (shape, logical axes)
 # ---------------------------------------------------------------------------
 
 def _attn_defs(cfg: ArchConfig, prefix: str = "") -> dict:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    p = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd),
-         "wo": (h, hd, d)}
+    p = {"wq": ((d, h, hd), ("embed_fsdp", "heads", "head_dim")),
+         "wk": ((d, kv, hd), ("embed_fsdp", "kv_heads", "head_dim")),
+         "wv": ((d, kv, hd), ("embed_fsdp", "kv_heads", "head_dim")),
+         "wo": ((h, hd, d), ("heads", "head_dim", "embed_fsdp"))}
     if cfg.qkv_bias:
-        p.update({"bq": (h, hd), "bk": (kv, hd), "bv": (kv, hd)})
-    return {prefix + name: shape for name, shape in p.items()}
+        p.update({"bq": ((h, hd), ("heads", "head_dim")),
+                  "bk": ((kv, hd), ("kv_heads", "head_dim")),
+                  "bv": ((kv, hd), ("kv_heads", "head_dim"))})
+    return {prefix + name: v for name, v in p.items()}
 
 
 def _mlp_defs(cfg: ArchConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act == "silu":
-        return {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
-    return {"wi": (d, f), "wd": (f, d)}
+        return {"wg": ((d, f), ("embed_fsdp", "mlp")),
+                "wu": ((d, f), ("embed_fsdp", "mlp")),
+                "wd": ((f, d), ("mlp", "embed_fsdp"))}
+    return {"wi": ((d, f), ("embed_fsdp", "mlp")),
+            "wd": ((f, d), ("mlp", "embed_fsdp"))}
+
+
+def _norm_def(d: int) -> tuple:
+    return (d,), (None,)
 
 
 def _dense_block_defs(cfg: ArchConfig) -> dict:
-    return {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,),
+    return {"ln1": _norm_def(cfg.d_model), "ln2": _norm_def(cfg.d_model),
             **_attn_defs(cfg), **_mlp_defs(cfg)}
 
 
 def _moe_block_defs(cfg: ArchConfig) -> dict:
+    """The moe block; with ``expert_split`` s > 1 the experts take the
+    split layout, ``(E·s, D, Fe/s)`` up and ``(E·s, Fe/s, D)`` down, the
+    merged expert dimension on the model axis."""
     d, e, fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
-    p = {"ln1": (d,), "ln2": (d,), **_attn_defs(cfg), "router": (d, e)}
+    p = {"ln1": _norm_def(d), "ln2": _norm_def(d), **_attn_defs(cfg),
+         "router": ((d, e), ("embed_fsdp", "experts"))}
+    sp = max(cfg.expert_split, 1)
+    e2, f2 = e * sp, fe // sp
+    up = ((e2, d, f2), ("experts", "embed_fsdp", "mlp"))
     if cfg.act == "silu":
-        p.update({"we_g": (e, d, fe), "we_u": (e, d, fe)})
+        p.update({"we_g": up, "we_u": up})
     else:
-        p["we_i"] = (e, d, fe)
-    p["we_d"] = (e, fe, d)
+        p["we_i"] = up
+    p["we_d"] = ((e2, f2, d), ("experts", "mlp", "embed_fsdp"))
     return p
 
 
 def _mamba_block_defs(cfg: ArchConfig) -> dict:
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    return {"ln": (d,), "w_in": (d, 2 * di + 2 * n + h), "dt_bias": (h,),
-            "a_log": (h,), "d_skip": (h,), "w_out": (di, d)}
+    return {"ln": _norm_def(d),
+            "w_in": ((d, 2 * di + 2 * n + h), ("embed_fsdp", "ssm_inner")),
+            "dt_bias": ((h,), (None,)), "a_log": ((h,), (None,)),
+            "d_skip": ((h,), (None,)),
+            "w_out": ((di, d), ("ssm_inner", "embed_fsdp"))}
 
 
 def _mlstm_block_defs(cfg: ArchConfig) -> dict:
     d, di = cfg.d_model, cfg.d_inner
-    return {"ln": (d,), "wq": (d, di), "wk": (d, di), "wv": (d, di),
-            "w_gate": (d, 2 * cfg.n_heads), "w_out": (di, d)}
+    return {"ln": _norm_def(d),
+            "wq": ((d, di), ("embed_fsdp", "ssm_inner")),
+            "wk": ((d, di), ("embed_fsdp", "ssm_inner")),
+            "wv": ((d, di), ("embed_fsdp", "ssm_inner")),
+            "w_gate": ((d, 2 * cfg.n_heads), ("embed_fsdp", None)),
+            "w_out": ((di, d), ("ssm_inner", "embed_fsdp"))}
 
 
 def _slstm_block_defs(cfg: ArchConfig) -> dict:
     d, h = cfg.d_model, cfg.n_heads
     pd = d // h
-    return {"ln": (d,), "w_in": (d, d), "w_rec": (h, 2 * pd, 4 * pd),
-            "b_rec": (h, 4 * pd), "w_out": (d, d)}
+    return {"ln": _norm_def(d), "w_in": ((d, d), ("embed_fsdp", None)),
+            "w_rec": ((h, 2 * pd, 4 * pd), ("heads", None, None)),
+            "b_rec": ((h, 4 * pd), ("heads", None)),
+            "w_out": ((d, d), (None, "embed_fsdp"))}
 
 
 def _encdec_dec_defs(cfg: ArchConfig) -> dict:
     """A whisper decoder block: self-attention, cross-attention (the
     ``x_`` projections) and the MLP, each behind its own norm."""
-    return {"ln1": (cfg.d_model,), "ln2": (cfg.d_model,),
-            "ln3": (cfg.d_model,), **_attn_defs(cfg),
+    return {"ln1": _norm_def(cfg.d_model), "ln2": _norm_def(cfg.d_model),
+            "ln3": _norm_def(cfg.d_model), **_attn_defs(cfg),
             **_attn_defs(cfg, prefix="x_"), **_mlp_defs(cfg)}
 
 
@@ -132,6 +181,32 @@ def init_constant(name: str):
     return None
 
 
+# matmuls with no batch dimension, whose outputs remat "dots" saves (the
+# counterpart of jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of ``aten.mm`` and ``aten.addmm``, recompute every
+    other op (``aten.bmm`` included)."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _write_rows(layer, slots, rows) -> None:
+    """``layer[:, slots] = rows`` in place; a DTensor cache takes ring slots
+    (an index tensor) out of place and copies back, since DTensor keeps no
+    placement through an in-place scatter over its split."""
+    if isinstance(layer, DTensor) and not isinstance(slots, slice):
+        layer.copy_(layer.index_copy(1, slots, rows))
+    else:
+        layer[:, slots] = rows
+
+
 def _layer(stacked: dict, i: int) -> dict:
     return {name: t[i] for name, t in stacked.items()}
 
@@ -139,7 +214,7 @@ def _layer(stacked: dict, i: int) -> dict:
 class Model:
     def __init__(self, cfg: ArchConfig, device="cuda"):
         if cfg.family == "moe":
-            MOE.check_split(cfg)
+            MOE.check_expert_split(cfg)
         if cfg.attn_impl not in ("ref", "kernel"):
             raise ValueError(f"attn_impl {cfg.attn_impl!r}: want 'ref' or "
                              f"'kernel'")
@@ -152,19 +227,21 @@ class Model:
         self.vpad = -(-cfg.vocab // 256) * 256
 
     # -- structure ------------------------------------------------------
-    def layout(self) -> dict:
-        """{group name: (name → per-layer shape, stack count or None)}."""
+    def _groups(self) -> dict:
+        """{group name: (name → (per-layer shape, logical axes), stack
+        count or None)}."""
         cfg = self.cfg
         if cfg.family in ("dense", "vlm"):
             lay = {"blocks": (_dense_block_defs(cfg), cfg.n_layers)}
             if cfg.family == "vlm":
-                lay["vis_proj"] = ({"w": (cfg.d_model, cfg.d_model)}, None)
+                lay["vis_proj"] = ({"w": ((cfg.d_model, cfg.d_model),
+                                          ("embed_fsdp", None))}, None)
             return lay
         if cfg.family == "moe":
             return {"blocks": (_moe_block_defs(cfg), cfg.n_layers)}
         if cfg.family == "encdec":       # whisper
             return {"enc_blocks": (_dense_block_defs(cfg), cfg.enc_layers),
-                    "enc_norm": ({"scale": (cfg.d_model,)}, None),
+                    "enc_norm": ({"scale": _norm_def(cfg.d_model)}, None),
                     "blocks": (_encdec_dec_defs(cfg), cfg.n_layers)}
         if cfg.family == "hybrid":       # Zamba2
             g, tail = self._zamba_groups()
@@ -180,6 +257,23 @@ class Model:
                              f"({cfg.slstm_every})")
         return {"mlstm": (_mlstm_block_defs(cfg), g * (cfg.slstm_every - 1)),
                 "slstm": (_slstm_block_defs(cfg), g)}
+
+    def layout(self) -> dict:
+        """{group name: (name → per-layer shape, stack count or None)}."""
+        return {group: ({k: shape for k, (shape, _) in defs.items()}, n)
+                for group, (defs, n) in self._groups().items()}
+
+    def param_specs(self) -> dict:
+        """The logical axes of every parameter, in :meth:`init`'s tree: the
+        JAX package's ``Model.param_specs``, a stacked leaf led by
+        ``None`` (its layer axis)."""
+        specs = {"embed": ("vocab", "embed_fsdp"), "final_norm": (None,)}
+        if not self.cfg.tie_embeddings:
+            specs["lm_head"] = ("embed_fsdp", "vocab")
+        for group, (defs, n) in self._groups().items():
+            specs[group] = {k: ((None, *ax) if n is not None else ax)
+                            for k, (_, ax) in defs.items()}
+        return specs
 
     def param_shapes(self) -> dict:
         """The parameter tree's shapes, as :meth:`init` builds it."""
@@ -251,19 +345,21 @@ class Model:
         if not (cfg.remat and torch.is_grad_enabled() and (
                 x.requires_grad or any(t.requires_grad for t in p.values()))):
             return fn(p, x, *rest)
-        if cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"{cfg.name}: remat_policy {cfg.remat_policy!r} is not "
-                f"ported (ROADMAP queue 1 item 13); the port recomputes "
-                f"whole blocks (remat_policy='full')")
-        return checkpoint(fn, p, x, *rest, use_reentrant=False)
+        if cfg.remat_policy == "full":
+            return checkpoint(fn, p, x, *rest, use_reentrant=False)
+        if cfg.remat_policy == "dots":
+            return checkpoint(fn, p, x, *rest, use_reentrant=False,
+                              context_fn=_dots_contexts)
+        raise ValueError(f"{cfg.name}: remat_policy {cfg.remat_policy!r}: "
+                         f"want 'full' or 'dots'")
 
     def _dense_block(self, p, x, causal: bool = True, window=None):
         cfg = self.cfg
         h = L.attention_block(p, cfg, self._norm(x, p["ln1"]),
                               causal=causal, window=window)
         x = x + h
-        return x + L.mlp(p, cfg, self._norm(x, p["ln2"]))
+        x = x + L.mlp(p, cfg, self._norm(x, p["ln2"]))
+        return shard(x, "batch", "act_seq", "embed")
 
     def _encoder_block(self, p, x):
         """A whisper encoder block: non-causal, no band."""
@@ -280,13 +376,12 @@ class Model:
 
     def _cross_kv(self, p, enc):
         """The cross-attention's K/V of the encoder's output ``enc``."""
-        return (torch.einsum("bfd,dhk->bfhk", enc, p["x_wk"]),
-                torch.einsum("bfd,dhk->bfhk", enc, p["x_wv"]))
+        return L.project(enc, p["x_wk"]), L.project(enc, p["x_wv"])
 
     def _cross_attend(self, p, x, k, v):
         """Cross-attention of normed x to the encoder's K/V: plain on
         every route, as in the JAX package."""
-        q = torch.einsum("bsd,dhk->bshk", x, p["x_wq"])
+        q = L.project(x, p["x_wq"])
         out = L.attend(q, k, v, causal=False, window=0)
         return torch.einsum("bshk,hkd->bsd", out, p["x_wo"])
 
@@ -304,7 +399,7 @@ class Model:
         h = L.attention_block(p, self.cfg, self._norm(x, p["ln1"]))
         x = x + h
         y, aux = MOE.moe_mlp(p, self.cfg, self._norm(x, p["ln2"]))
-        return x + y, aux
+        return shard(x + y, "batch", "act_seq", "embed"), aux
 
     def _mamba_block(self, p, x):
         """Pre-norm Mamba2 block from a zero state; returns (x + y, final
@@ -313,13 +408,19 @@ class Model:
         return x + y, state
 
     def embed_tokens(self, params, tokens):
-        return params["embed"][tokens].to(self.dtype)
+        # the embedding op, not an indexing: the same gather, and DTensor
+        # shards it and its backward (an indexing's scatter-add backward
+        # it does not)
+        x = F.embedding(tokens, params["embed"])
+        return shard(x.to(self.dtype), "batch", "act_seq", "embed")
 
     def unembed(self, params, x):
         w = params.get("lm_head")
         if w is None:
             w = params["embed"].T
-        logits = torch.einsum("bsd,dv->bsv", x, w.to(self.dtype))
+        logits = L.fold_grad(torch.einsum("bsd,dv->bsv", L.foldable(x),
+                                          w.to(self.dtype)))
+        logits = shard(logits, "batch", "seq", "vocab")
         if self.vpad != self.cfg.vocab:      # mask padding columns
             keep = torch.arange(self.vpad, device=x.device) < self.cfg.vocab
             logits = torch.where(keep, logits, L.NEG)
@@ -502,8 +603,7 @@ class Model:
         cache layer ``i``, cross-attention (plain) to the encoder's K/V
         that ``prefill`` stored there, the MLP."""
         x = self._decode_self_attn(p, x, cache["k"][i], cache["v"][i], pos)
-        q = torch.einsum("bsd,dhk->bshk", self._norm(x, p["ln2"]),
-                         p["x_wq"])
+        q = L.project(self._norm(x, p["ln2"]), p["x_wq"])
         xk, xv = cache["xk"][i], cache["xv"][i]
         out = L.decode_attend(q, xk, xv, pos=xk.shape[1] - 1, window=0)
         x = x + torch.einsum("bshk,hkd->bsd", out, p["x_wo"])
@@ -518,6 +618,10 @@ class Model:
         positions = torch.full((b, 1), pos, device=x.device)
         q, k, v = L.qkv_proj(p, cfg, h, positions)
         w = cfg.sliding_window
+        if cfg.opt_decode and current_mesh() is not None:
+            out = L.decode_update_attend_sharded(cfg, q, k, v, ck, cv, pos,
+                                                 w)
+            return x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
         wsz = ck.shape[1]
         slot = pos % wsz if w else min(pos, wsz - 1)
         ck[:, slot] = k[:, 0]
@@ -578,9 +682,10 @@ class Model:
         return x
 
     # -- prefill -----------------------------------------------------------
-    def prefill(self, params, batch, max_seq: int):
-        """Run the full prompt, build the decode cache, return the last
-        position's logits.
+    def prefill(self, params, batch, max_seq: int, cache=None):
+        """Run the full prompt, build the decode cache (into ``cache`` when
+        given, an :meth:`init_cache` layout; a fresh one otherwise), return
+        the last position's logits.
 
         Attention here is always the plain version (``attend_auto``
         without ``impl``), whatever ``cfg.attn_impl`` says: the JAX
@@ -591,7 +696,8 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         b = tokens.shape[0]
-        cache = self.init_cache(b, max_seq)
+        if cache is None:
+            cache = self.init_cache(b, max_seq)
         if cfg.family == "ssm":
             return self._xlstm_prefill(params, tokens, cache)
         if cfg.family == "hybrid":
@@ -611,14 +717,14 @@ class Model:
         x = self._norm(x, params["final_norm"])
         return self.unembed(params, x[:, -1:]), cache
 
-    def _cache_slots(self, s: int, w: int, device) -> torch.Tensor:
+    def _cache_slots(self, s: int, w: int, device):
         """Cache slots of a prompt's last ``min(w, s)`` positions: the
-        first slots of a contiguous cache, or ``p % w`` for position p of
-        a sliding window's ring."""
+        first slots of a contiguous cache (a slice), or ``p % w`` for
+        position p of a sliding window's ring (an index tensor)."""
         take = min(w, s)
         if self.cfg.sliding_window:
             return torch.arange(s - take, s, device=device) % w
-        return torch.arange(take, device=device)
+        return slice(0, take)
 
     def _prefill_attn_block(self, p, x, positions, cache, i: int, slots,
                             enc=None):
@@ -637,9 +743,10 @@ class Model:
             x = x + self._cross_attend(p, self._norm(x, p["ln2"]), xk, xv)
             x = x + L.mlp(p, cfg, self._norm(x, p["ln3"]))
             cache["xk"][i], cache["xv"][i] = xk, xv
-        s, take = x.shape[1], len(slots)
-        cache["k"][i][:, slots] = k[:, s - take:]
-        cache["v"][i][:, slots] = v[:, s - take:]
+        s = x.shape[1]
+        take = slots.stop if isinstance(slots, slice) else len(slots)
+        _write_rows(cache["k"][i], slots, k[:, s - take:])
+        _write_rows(cache["v"][i], slots, v[:, s - take:])
         return x
 
     def _xlstm_prefill(self, params, tokens, cache):

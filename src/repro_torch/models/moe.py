@@ -20,8 +20,19 @@ the same buffer goes through those einsums (``gecd,edf->gecf``, then
 offsets are static, counts come from a sorted search, not ``bincount``
 (which reads its maximum on the host).
 
-``cfg.expert_split > 1`` (the JAX package's split-expert layout for a
-model-parallel axis) is refused: one card has no model axis.
+``cfg.expert_split`` s > 1 takes the JAX package's split-expert layout:
+each expert's d_ff split s ways, ``(E·s, D, Fe/s)`` up and
+``(E·s, Fe/s, D)`` down, so that the merged expert dimension divides a
+model-parallel axis (grok's 8 experts on 16 ranks).  Under ``"ref"`` the
+JAX einsums run on the split views (``gecd,esdf->gescf``, then
+``gescf,esfd->gecd``, which sums the s partials).  Under ``"kernel"``
+the up projections are one grouped-GEMM launch a split, each on the
+strided view ``w.view(E, s, D, Fe/s)[:, j]`` (the kernel takes the
+expert stride), and the down projection is one launch on the contiguous
+``(E, s·Fe/s, D)`` view of ``we_d`` against the splits' hidden rows side
+by side: no expert weight is copied.  ``expert_split == -1`` ("auto",
+resolved against a mesh by :func:`repro_torch.launch.dryrun.build`) is
+refused here.
 """
 from __future__ import annotations
 
@@ -32,18 +43,22 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
-SPLIT_NOT_PORTED = ("ROADMAP queue 1 item 3c: expert_split > 1 (the "
-                    "layout of a model-parallel axis)")
-
 # offsets of the expert-major buffer, one device tensor per shape
 _OFFSETS: dict = {}
 
 
-def check_split(cfg: ArchConfig) -> None:
-    if cfg.expert_split > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: expert_split {cfg.expert_split} is not ported "
-            f"({SPLIT_NOT_PORTED})")
+def check_expert_split(cfg: ArchConfig) -> None:
+    """Refuse an expert split a model cannot take: s < 1 (``-1``, "auto",
+    is resolved against a mesh before a model is built), or an s that does
+    not divide d_ff_expert."""
+    s = cfg.expert_split
+    if s < 1:
+        raise ValueError(
+            f"{cfg.name}: expert_split {s} is unresolved; 'auto' (-1) is "
+            f"resolved against a mesh by launch.dryrun.build")
+    if cfg.d_ff_expert % s:
+        raise ValueError(f"{cfg.name}: expert_split {s} does not divide "
+                         f"d_ff_expert {cfg.d_ff_expert}")
 
 
 def router(p: dict, x: torch.Tensor, cfg: ArchConfig):
@@ -110,25 +125,40 @@ def _offsets(n_experts: int, rows: int, device) -> torch.Tensor:
 def _expert_mlp(p: dict, cfg: ArchConfig, buf: torch.Tensor, groups: int,
                 capacity: int) -> torch.Tensor:
     """The experts' MLP on the (E·g·C, D) buffer → (E·g·C, D)."""
-    e, d = cfg.n_experts, buf.shape[-1]
+    e, d, sp = cfg.n_experts, buf.shape[-1], cfg.expert_split
     act = L.activation(cfg.act)
     up = ("we_g", "we_u") if cfg.act == "silu" else ("we_i",)
+
+    def hidden(hs):
+        return act(hs[0]) * hs[1] if cfg.act == "silu" else act(hs[0])
+
     if cfg.attn_impl == "kernel":
         off = _offsets(e, groups * capacity, buf.device)
-        hs = [ops.moe_gemm(buf, p[name], off) for name in up]
-        h = act(hs[0]) * hs[1] if cfg.act == "silu" else act(hs[0])
-        return ops.moe_gemm(h, p["we_d"], off)
+        if sp == 1:
+            h = hidden([ops.moe_gemm(buf, p[name], off) for name in up])
+            return ops.moe_gemm(h, p["we_d"], off)
+        f2 = p["we_d"].shape[1]
+        views = {name: p[name].view(e, sp, d, f2) for name in up}
+        h = torch.cat([hidden([ops.moe_gemm(buf, views[name][:, j], off)
+                               for name in up]) for j in range(sp)], -1)
+        return ops.moe_gemm(h, p["we_d"].view(e, sp * f2, d), off)
     # the JAX package's einsums, over a (g, E, C, D) view of the buffer
     gecd = buf.view(e, groups, capacity, d).transpose(0, 1)
-    hs = [torch.einsum("gecd,edf->gecf", gecd, p[name]) for name in up]
-    h = act(hs[0]) * hs[1] if cfg.act == "silu" else act(hs[0])
-    out = torch.einsum("gecf,efd->gecd", h, p["we_d"])
+    if sp == 1:
+        h = hidden([torch.einsum("gecd,edf->gecf", gecd, p[name])
+                    for name in up])
+        out = torch.einsum("gecf,efd->gecd", h, p["we_d"])
+    else:
+        f2 = p["we_d"].shape[1]
+        h = hidden([torch.einsum("gecd,esdf->gescf", gecd,
+                                 p[name].view(e, sp, d, f2)) for name in up])
+        out = torch.einsum("gescf,esfd->gecd", h,
+                           p["we_d"].view(e, sp, f2, d))
     return out.transpose(0, 1).reshape(-1, d)
 
 
 def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
     """(B, S, D) → (B, S, D), plus the router aux loss (f32 scalar)."""
-    check_split(cfg)
     b, s, d = x.shape
     t, k, e = b * s, cfg.top_k, cfg.n_experts
     g = max(1, cfg.moe_groups)

@@ -162,10 +162,11 @@ def run_scenario_oracle(spec: ScenarioSpec, policy: str, *,
 
 def run_scenario_fleet(spec: ScenarioSpec, policy, *, dt: float = 25.0,
                        edge_frac: float = 0.62, cloud_frac: float = 0.80,
-                       record_trace: bool = False, trace=None,
+                       mesh=None, record_trace: bool = False, trace=None,
                        device="cuda"):
     """The scenario through the port's fleet tick program; returns the
-    final stacked ``EdgeState`` on ``device``.
+    final stacked ``EdgeState`` on ``device`` (``mesh`` splits the edges,
+    as in :func:`repro_torch.sim.fleet.run_fleet`).
 
     The signals are compiled on ``device`` by :func:`compile_fleet`, and
     the spec's ``cloud_concurrency`` becomes each edge's finite
@@ -178,7 +179,7 @@ def run_scenario_fleet(spec: ScenarioSpec, policy, *, dt: float = 25.0,
     signals = compile_fleet(spec, dt, device=device)
     return F.run_fleet(spec.models, policy, signals, dt=dt,
                        edge_frac=edge_frac, cloud_frac=cloud_frac,
-                       cloud_slots=spec.cloud_concurrency,
+                       cloud_slots=spec.cloud_concurrency, mesh=mesh,
                        record_trace=record_trace, trace=trace, device=device)
 
 
@@ -240,10 +241,11 @@ def assert_streaming_equivalence(spec: ScenarioSpec, policy, *,
 def run_scenario_fleet_batch(spec: ScenarioSpec, policy,
                              seeds: tuple[int, ...], *, dt: float = 25.0,
                              edge_frac: float = 0.62,
-                             cloud_frac: float = 0.80,
+                             cloud_frac: float = 0.80, mesh=None,
                              record_trace: bool = False, trace=None,
                              device="cuda"):
-    """One scenario × many seeds as one batch on ``device``.
+    """One scenario × many seeds as one batch on ``device`` (``mesh`` as in
+    :func:`repro_torch.sim.fleet.run_fleet_batch`).
 
     Returns a stacked final ``EdgeState`` with leading ``[R, E]`` axes;
     use :func:`fleet_summary_batch` for per-seed metrics.  ``trace`` /
@@ -253,7 +255,7 @@ def run_scenario_fleet_batch(spec: ScenarioSpec, policy,
     signals = compile_fleet_batch(spec, tuple(seeds), dt, device=device)
     return F.run_fleet_batch(spec.models, policy, signals, dt=dt,
                              edge_frac=edge_frac, cloud_frac=cloud_frac,
-                             cloud_slots=spec.cloud_concurrency,
+                             cloud_slots=spec.cloud_concurrency, mesh=mesh,
                              record_trace=record_trace, trace=trace,
                              device=device)
 
@@ -270,7 +272,7 @@ def _to_host(tree):
 
 def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
                        dt: float = 25.0, duration_ms: float | None = None,
-                       trace=None, planner: str = "padded",
+                       mesh=None, trace=None, planner: str = "padded",
                        donate: bool = False, device="cuda") -> list[dict]:
     """Scenarios × policies × seeds as batches on ``device``.
 
@@ -303,8 +305,20 @@ def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
     and padded models never count).  ``donate=True`` updates each
     batch's carry in place (:class:`repro_torch.sim.fleet.FleetProgram`),
     bitwise alike.
+
+    ``mesh`` (a DeviceMesh, one process a rank) splits each batch's
+    (replica, edge) grid as :func:`repro_torch.sim.fleet.run_batch` does;
+    ``mesh="auto"`` fans each batch's replicas over the largest divisor
+    of R up to the world size (a 1-D ``("replica",)`` mesh of the first
+    ranks; the others run the batch whole), and none at 1.  Every rank
+    returns every row, bitwise the unsharded sweep's.
     """
     traced = trace is not None and trace.enabled
+    auto = isinstance(mesh, str) and mesh == "auto"
+
+    def mesh_of(batch):
+        return _auto_mesh(int(batch.signals.arrive.shape[0]),
+                          batch.state.busy_rem.device) if auto else mesh
 
     def summarize(res, rows):
         final = res.final if traced else res
@@ -340,7 +354,7 @@ def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
                 scenarios, policies, seeds, dt=dt, duration_ms=duration_ms,
                 device=device):
             res = _to_host(F.run_batch(batch, dt=dt, trace=trace,
-                                         donate=donate))
+                                       donate=donate, mesh=mesh_of(batch)))
             for d in summarize(res, rows):
                 by_key[d["scenario"], d["policy"], d["seed"]] = d
         from repro_torch.scenarios.registry import names
@@ -357,7 +371,30 @@ def run_registry_sweep(scenarios=None, policies=("DEMS",), seeds=(0,), *,
                                          duration_ms=duration_ms,
                                          device=device)
     return summarize(_to_host(F.run_batch(batch, dt=dt, trace=trace,
-                                         donate=donate)), rows)
+                                          donate=donate,
+                                          mesh=mesh_of(batch))), rows)
+
+
+# the "auto" meshes built so far, one a (device type, size): each is a
+# set of process groups, made once by every rank in the same order
+_AUTO_MESHES: dict = {}
+
+
+def _auto_mesh(n_rep: int, device):
+    """The ``mesh="auto"`` mesh of a batch of ``n_rep`` replicas: 1-D
+    ``("replica",)`` over the first n ranks, n the largest divisor of
+    ``n_rep`` up to the world size; None at 1 (or with no group)."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = max(d for d in range(1, world + 1) if n_rep % d == 0)
+    if n == 1:
+        return None
+    key = (device.type, n)
+    if key not in _AUTO_MESHES:
+        from torch.distributed.device_mesh import DeviceMesh
+        _AUTO_MESHES[key] = DeviceMesh(device.type, list(range(n)),
+                                       mesh_dim_names=("replica",))
+    return _AUTO_MESHES[key]
 
 
 def fleet_summary_batch(final) -> list[dict[str, float]]:

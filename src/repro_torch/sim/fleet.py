@@ -1,7 +1,7 @@
 """Fleet-scale scheduler simulation (paper §8.6) as one batched PyTorch
 tick program.
 
-Port of ``repro.sim.fleet_jax`` (unsharded).  The JAX tick is written for
+Port of ``repro.sim.fleet_jax``.  The JAX tick is written for
 one edge and vmapped over the fleet and, in a batch, over replicas; here
 every :class:`EdgeState` leaf carries explicit leading axes — ``[E]`` for
 one fleet, ``[R, E]`` for R replicas of it — and each tick is one pass of
@@ -41,6 +41,16 @@ bit-identical.  Host aggregation lives in :mod:`repro_torch.obs.metrics`.
 The batch entry points (:func:`run_fleet_batch`, :func:`build_fleet_batch`
 / :func:`plan_buckets` / :func:`run_batch`) run many scenarios, policies
 and seeds under one set of launches a tick.
+
+``mesh=`` (a :class:`~torch.distributed.device_mesh.DeviceMesh`, one
+process a rank) splits a run over ranks as the reference's ``_put``
+places it: ``run_fleet`` its edges over the first mesh axis, a batch its
+replicas over the first and, on a 2-D mesh, its edges over the second;
+an axis that does not divide its dimension leaves it whole.  Each rank
+runs its block with the same tick; the one step that reads across edges,
+peer offload, all-gathers what it reads (:func:`_offload_across`), and the
+result is gathered whole on every rank, bitwise the unsharded run's.  A
+mesh axis of 1 splits nothing and launches nothing more.
 """
 from __future__ import annotations
 
@@ -1033,6 +1043,136 @@ def _cat_results(parts: list, axis: int) -> FleetResult:
 
 
 # ---------------------------------------------------------------------------
+# mesh sharding: one process a rank, each rank runs its block
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshSplit:
+    """One tensor dimension split over one mesh axis: ``size`` blocks, this
+    rank's the ``index``-th, the axis's process ``group`` between them."""
+
+    group: object
+    size: int
+    index: int
+
+    def block(self, n: int) -> tuple:
+        per = n // self.size
+        return self.index * per, (self.index + 1) * per
+
+
+def _mesh_split(mesh, axis: int, n: int) -> Optional[MeshSplit]:
+    """The split of a dimension of ``n`` over the mesh's ``axis``-th axis,
+    or None where nothing splits: no mesh or no such axis, an axis of 1,
+    an axis that does not divide ``n`` (it stays whole on every rank, as
+    the reference's ``_put`` leaves it replicated), or a rank outside the
+    mesh (it runs the whole)."""
+    if mesh is None or axis >= mesh.ndim:
+        return None
+    size = mesh.size(axis)
+    coord = mesh.get_coordinate()
+    if size == 1 or n % size or coord is None:
+        return None
+    return MeshSplit(mesh.get_group(axis), size, coord[axis])
+
+
+def _take(a: torch.Tensor, dim: int, split: Optional[MeshSplit]):
+    """This rank's block of ``a`` along ``dim`` (its own contiguous copy)."""
+    if split is None:
+        return a
+    lo, hi = split.block(a.shape[dim])
+    return a.narrow(dim, lo, hi - lo).contiguous()
+
+
+def _gather(a: torch.Tensor, dim: int, split: Optional[MeshSplit]):
+    """The blocks of every rank of ``split`` joined along ``dim``."""
+    if split is None:
+        return a
+    import torch.distributed as dist
+    src = a.contiguous()
+    wire = src.view(torch.uint8) if src.dtype == torch.bool else src
+    parts = [torch.empty_like(wire) for _ in range(split.size)]
+    dist.all_gather(parts, wire, group=split.group)
+    out = torch.cat(parts, dim)
+    return out.view(torch.bool) if src.dtype == torch.bool else out
+
+
+# the edge axis of each signal field of one run ([T, E, …]; None = none);
+# a batch's fields lead with the replica axis, one further in
+_SIGNAL_EDGE_AXIS = dict(times=None, theta=1, bw=1, arrive=1, order=1,
+                         load_mult=1, cloud_up=None, valid=1, exec_jit=1,
+                         edge_up=1, link_up=1)
+
+
+def _take_signals(sig: FleetSignals, rep: Optional[MeshSplit],
+                  edge: Optional[MeshSplit]) -> FleetSignals:
+    """A rank's block of signals: replicas (a batch's leading axis) over
+    ``rep``, the edge axis over ``edge``."""
+    lead = sig.times.dim() - 1
+    out = {}
+    for f in FleetSignals._fields:
+        a = getattr(sig, f)
+        if lead:
+            a = _take(a, 0, rep)
+        ax = _SIGNAL_EDGE_AXIS[f]
+        out[f] = a if ax is None else _take(a, ax + lead, edge)
+    return FleetSignals(**out)
+
+
+def _gather_result(res, lead: int, rep: Optional[MeshSplit],
+                   edge: Optional[MeshSplit]):
+    """Every rank's blocks of a run's result joined back: the edge axis
+    (state ``[(R,) E, …]``, streams ``[(R,) T, E, …]``) over ``edge``,
+    then replicas over ``rep``; every rank returns the whole."""
+    def whole(tree, edge_dim):
+        tree = _map(lambda a: _gather(a, edge_dim, edge), tree)
+        return _map(lambda a: _gather(a, 0, rep), tree) if lead else tree
+
+    if not isinstance(res, FleetResult):
+        return whole(res, lead)
+    return FleetResult(whole(res.final, lead), whole(res.t_hat, lead + 1),
+                       whole(res.counters, lead + 1))
+
+
+# the EdgeState fields peer_offload reads or writes across edges
+_OFFLOAD_FIELDS = ("eq", "busy_rem", "seq", "n_peer_out", "n_peer_in")
+
+
+def _offload_across(split: MeshSplit, fs: EdgeState,
+                    edge_valid: torch.Tensor, offload) -> EdgeState:
+    """``offload(fs, edge_valid)`` — peer offload — on an edge axis split
+    over the ranks of ``split``.
+
+    The exchange is the only step of a tick that reads other edges.  Each
+    rank packs the fields it reads (:data:`_OFFLOAD_FIELDS` and the edges'
+    validity) as bytes an edge, all-gathers them over the edge group in
+    one collective, runs the exchange on the whole fleet — every rank the
+    same selections on the same bytes, so the result is the unsharded one
+    bitwise — and keeps its own block."""
+    dim = edge_valid.dim() - 1
+    parts = [edge_valid] + [a for f in _OFFLOAD_FIELDS
+                            for a in _leaves(getattr(fs, f))]
+    rows = [a.contiguous().reshape(a.shape[:dim + 1] + (-1,)).view(
+        torch.uint8) for a in parts]
+    packed = _gather(torch.cat(rows, -1), dim, split)
+    full, at = [], 0
+    for a, b in zip(parts, rows):
+        width = b.shape[-1]
+        full.append(packed[..., at:at + width].contiguous().view(
+            a.dtype).reshape(packed.shape[:dim + 1] + a.shape[dim + 1:]))
+        at += width
+    rest = iter(full[1:])
+    whole = fs._replace(**{f: _map(lambda _a: next(rest), getattr(fs, f))
+                           for f in _OFFLOAD_FIELDS})
+    out = offload(whole, full[0])
+    n_loc = edge_valid.shape[dim]
+    lo = split.index * n_loc
+    return fs._replace(**{
+        f: _map(lambda a: a.narrow(dim, lo, n_loc).contiguous(),
+                getattr(out, f))
+        for f in ("eq", "seq", "n_peer_out", "n_peer_in")})
+
+
+# ---------------------------------------------------------------------------
 # tick programs: a bounded cache over the statics, a CUDA graph a shape key
 # ---------------------------------------------------------------------------
 
@@ -1158,9 +1298,11 @@ class TickProgram:
     body eagerly and record their shape key alike."""
 
     def __init__(self, dt: float, edge_frac: float, cloud_frac: float,
-                 coop_rounds: int, tspec: TraceSpec, donate: bool):
+                 coop_rounds: int, tspec: TraceSpec, donate: bool,
+                 exchange: Optional[MeshSplit] = None):
         self.dt, self.coop_rounds = dt, coop_rounds
         self.tspec, self.donate = tspec, donate
+        self.exchange = exchange
         self.step = make_step(dt, edge_frac, cloud_frac, tspec)
         self.shape_keys: set = set()
         self.graphs: dict = {}
@@ -1188,12 +1330,16 @@ class TickProgram:
             state, tick = step(prof, pp, state, row)
             if self.coop_rounds:
                 pre_out, pre_in = state.n_peer_out, state.n_peer_in
+
+                def offload(fs, ev, now=row[0] + self.dt):
+                    return peer_offload(
+                        fs, now, pp.coop_slack_ms, self.coop_rounds,
+                        enable=pp.cooperation,
+                        transfer_cap=pp.coop_transfer_cap, edge_valid=ev)
                 # crashed edges neither export nor import peer work
-                state = peer_offload(
-                    state, row[0] + self.dt, pp.coop_slack_ms,
-                    self.coop_rounds, enable=pp.cooperation,
-                    transfer_cap=pp.coop_transfer_cap,
-                    edge_valid=row[7] & row[9])
+                ev = row[7] & row[9]
+                state = offload(state, ev) if self.exchange is None \
+                    else _offload_across(self.exchange, state, ev, offload)
                 if tick is not None:
                     # the exchange runs between ticks; fold its per-edge
                     # deltas into the tick row
@@ -1235,7 +1381,10 @@ class TickProgram:
         key = _shape_key(prof, pp, state, signals)
         if note:
             self.shape_keys.add(key)
-        if state.busy_rem.device.type != "cuda" or not capture:
+        # a window that exchanges across ranks runs eagerly: its
+        # collectives are not captured
+        if state.busy_rem.device.type != "cuda" or not capture \
+                or self.exchange is not None:
             return self.window(prof, pp, state, signals)
         g = self.graphs.get(key)
         if g is None:
@@ -1314,7 +1463,8 @@ class TickProgram:
 
 def _fleet_program(dt: float, edge_frac: float, cloud_frac: float,
                    coop_rounds: int, tspec: TraceSpec,
-                   donate: bool = False) -> TickProgram:
+                   donate: bool = False,
+                   exchange: Optional[MeshSplit] = None) -> TickProgram:
     """The cached :class:`TickProgram` of these statics.
 
     ``coop_rounds`` is the static peer-offload round bound (0 leaves
@@ -1323,9 +1473,11 @@ def _fleet_program(dt: float, edge_frac: float, cloud_frac: float,
     of the key, so the trace-off program records exactly the untraced
     launches.  ``donate`` keeps the carry in the graph's own state
     buffers: a donated window consumes the state passed in
-    (:class:`FleetProgram`)."""
+    (:class:`FleetProgram`).  ``exchange`` is the split of the edge axis
+    over ranks that peer offload crosses (:func:`_offload_across`)."""
     global _PROGRAM_EVICTIONS
-    key = (dt, edge_frac, cloud_frac, coop_rounds, tspec, donate)
+    key = (dt, edge_frac, cloud_frac, coop_rounds, tspec, donate,
+           exchange)
     prog = _PROGRAM_CACHE.get(key)
     if prog is not None:
         _PROGRAM_CACHE.move_to_end(key)
@@ -1387,6 +1539,7 @@ class FleetProgram:
     coop_rounds: int = 0
     trace: TraceSpec = TraceSpec()
     donate: bool = False
+    exchange: Optional[MeshSplit] = None
 
     @classmethod
     def for_policy(cls, policy, *, trace: TraceSpec = TraceSpec(),
@@ -1410,7 +1563,8 @@ class FleetProgram:
     @property
     def _program(self) -> TickProgram:
         return _fleet_program(self.dt, self.edge_frac, self.cloud_frac,
-                              self.coop_rounds, self.trace, self.donate)
+                              self.coop_rounds, self.trace, self.donate,
+                              self.exchange)
 
     @torch.inference_mode()
     def step_chunk(self, prof: Profiles, pp: PolicyParams, state: EdgeState,
@@ -1468,7 +1622,7 @@ def run_fleet(models, policy, signals: FleetSignals, *, dt: float = 25.0,
               cloud_slots: int = CLOUD_SLOTS, record_trace: bool = False,
               trace: Optional[TraceSpec] = None,
               chunk_ticks: Optional[int] = None, donate: bool = False,
-              device="cuda"):
+              mesh=None, device="cuda"):
     """Run the fleet simulator over scenario signals; returns the final
     stacked :class:`EdgeState` on ``device``.
 
@@ -1478,17 +1632,33 @@ def run_fleet(models, policy, signals: FleetSignals, *, dt: float = 25.0,
     ``record_trace=True`` is the older alias for
     ``TraceSpec(t_hat=True)``.  ``chunk_ticks`` sets the window (bitwise
     alike for any value); ``donate=True`` updates the carry in place
-    (:class:`FleetProgram`), same results bitwise."""
+    (:class:`FleetProgram`), same results bitwise.
+
+    ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh`, one
+    process a rank) splits the edges over its first axis: each rank
+    runs its block of edges, peer offload exchanges across ranks
+    (:func:`_offload_across`), and every rank returns the whole, gathered
+    result, bitwise the unsharded one.  An axis that does not divide the
+    edges leaves them whole on every rank."""
     dev = resolve_device(device)
     tspec = resolve_spec(trace, record_trace)
     pol = _resolve_policy(policy)
     prof = Profiles.build(models, dev)
     signals = FleetSignals(*(a.to(dev) for a in signals))
+    n_edges = signals.arrive.shape[1]
     prog = FleetProgram.for_policy(pol, trace=tspec, dt=dt,
                                    edge_frac=edge_frac,
                                    cloud_frac=cloud_frac, donate=donate)
-    state = prog.init(prof, pol, signals.arrive.shape[1], cloud_slots)
-    return prog.run(prof, pol.params(dev), state, signals, chunk_ticks)
+    state = prog.init(prof, pol, n_edges, cloud_slots)
+    edge = _mesh_split(mesh, 0, n_edges)
+    if edge is None:
+        return prog.run(prof, pol.params(dev), state, signals, chunk_ticks)
+    prog = dataclasses.replace(prog,
+                               exchange=edge if prog.coop_rounds else None)
+    res = prog.run(prof, pol.params(dev), _map(lambda a: _take(a, 0, edge),
+                                               state),
+                   _take_signals(signals, None, edge), chunk_ticks)
+    return _gather_result(res, 0, None, edge)
 
 
 # ---------------------------------------------------------------------------
@@ -1580,7 +1750,7 @@ def run_fleet_batch(models, policy, signals: FleetSignals, *,
                     cloud_frac: float = 0.80, cloud_slots: int = CLOUD_SLOTS,
                     record_trace: bool = False,
                     trace: Optional[TraceSpec] = None, donate: bool = False,
-                    device="cuda"):
+                    mesh=None, device="cuda"):
     """One batch: ``signals`` carry a leading replica axis ``[R, …]``
     (from :func:`stack_signals`), and every replica's mission runs under
     one set of launches a tick, with the model table and policy flags
@@ -1592,7 +1762,8 @@ def run_fleet_batch(models, policy, signals: FleetSignals, *,
     :class:`FleetResult` with replica-leading streams (``t_hat``
     ``[R, T, E, M]``).  For heterogeneous replicas see
     :func:`build_fleet_batch` / :func:`run_batch`.  ``donate`` as in
-    :func:`run_fleet`.
+    :func:`run_fleet`.  ``mesh`` splits the replicas over its first axis
+    and, on a 2-D mesh, the edges over its second (:func:`run_batch`).
     """
     dev = resolve_device(device)
     tspec = resolve_spec(trace, record_trace)
@@ -1605,7 +1776,32 @@ def run_fleet_batch(models, policy, signals: FleetSignals, *,
                                    cloud_frac=cloud_frac, donate=donate)
     state = _stack_tree([prog.init(prof, pol, n_edges, cloud_slots)]
                         * n_rep)
-    return prog.run(prof, pol.params(dev), state, signals)
+    return _run_split(prog, prof, pol.params(dev), state, signals, None,
+                      mesh, shared=True)
+
+
+def _run_split(prog: FleetProgram, prof: Profiles, pp: PolicyParams,
+               state: EdgeState, signals: FleetSignals, chunk_ticks,
+               mesh, shared: bool):
+    """``prog.run`` of a batch (state ``[R, E, …]``) on this rank's block
+    of the mesh's (replica, edge) grid: replicas over the first mesh axis,
+    edges over the second where there is one; profiles and params split
+    with the replicas unless ``shared``.  The result is gathered whole on
+    every rank."""
+    n_rep, n_edges = state.busy_rem.shape
+    rep = _mesh_split(mesh, 0, n_rep)
+    edge = _mesh_split(mesh, 1, n_edges)
+    if rep is None and edge is None:
+        return prog.run(prof, pp, state, signals, chunk_ticks)
+    if not shared:
+        prof = _map(lambda a: _take(a, 0, rep), prof)
+        pp = _map(lambda a: _take(a, 0, rep), pp)
+    state = _map(lambda a: _take(_take(a, 0, rep), 1, edge), state)
+    prog = dataclasses.replace(prog,
+                               exchange=edge if prog.coop_rounds else None)
+    res = prog.run(prof, pp, state, _take_signals(signals, rep, edge),
+                   chunk_ticks)
+    return _gather_result(res, 1, rep, edge)
 
 
 def _stack_tree(trees: list):
@@ -1707,7 +1903,8 @@ def plan_buckets(runs, *, dt: float = 25.0, device="cuda"
 def run_batch(batch: FleetBatch, *, dt: float = 25.0,
               edge_frac: float = 0.62, cloud_frac: float = 0.80,
               record_trace: bool = False, trace: Optional[TraceSpec] = None,
-              donate: bool = False, chunk_ticks: Optional[int] = None):
+              donate: bool = False, chunk_ticks: Optional[int] = None,
+              mesh=None):
     """Run a heterogeneous :class:`FleetBatch` under one set of launches
     a tick, on the batch's device.
 
@@ -1720,13 +1917,19 @@ def run_batch(batch: FleetBatch, *, dt: float = 25.0,
     ``chunk_ticks`` replays the horizon in windows and ``donate=True``
     updates the carry in place (``batch.state`` itself survives), both
     bitwise alike.
+
+    ``mesh`` (a DeviceMesh, one process a rank) splits the (replica,
+    edge) grid: replicas over its first axis, and on a 2-D mesh the edges
+    over its second, with peer offload exchanged across the edge ranks.
+    An axis that does not divide its dimension leaves it whole.  Every
+    rank returns the whole, gathered result, bitwise the unsharded one.
     """
     tspec = resolve_spec(trace, record_trace)
     prog = FleetProgram(dt=dt, edge_frac=edge_frac, cloud_frac=cloud_frac,
                         coop_rounds=batch.coop_rounds, trace=tspec,
                         donate=donate)
-    return prog.run(batch.profiles, batch.params, batch.state,
-                    batch.signals, chunk_ticks)
+    return _run_split(prog, batch.profiles, batch.params, batch.state,
+                      batch.signals, chunk_ticks, mesh, shared=False)
 
 
 def simulate_fleet(models, policy: str, *, n_edges: int,
@@ -1734,9 +1937,10 @@ def simulate_fleet(models, policy: str, *, n_edges: int,
                    dt: float = 25.0, edge_frac: float = 0.62,
                    cloud_frac: float = 0.80, cloud_slots: int = CLOUD_SLOTS,
                    theta_fn=None, bw_fn=None, seed: int = 0,
-                   device="cuda") -> EdgeState:
+                   mesh=None, device="cuda") -> EdgeState:
     """Simulate ``n_edges`` base stations under the paper's steady
-    workload; returns the final stacked state."""
+    workload; returns the final stacked state (``mesh`` as in
+    :func:`run_fleet`)."""
     signals = default_signals(len(models), n_edges=n_edges,
                               drones_per_edge=drones_per_edge,
                               duration_ms=duration_ms, dt=dt,
@@ -1744,4 +1948,4 @@ def simulate_fleet(models, policy: str, *, n_edges: int,
                               device=device)
     return run_fleet(models, policy, signals, dt=dt, edge_frac=edge_frac,
                      cloud_frac=cloud_frac, cloud_slots=cloud_slots,
-                     device=device)
+                     mesh=mesh, device=device)

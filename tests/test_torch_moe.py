@@ -346,11 +346,63 @@ def test_moe_params_round_trip_through_numpy():
 
 
 def test_expert_split_is_refused():
-    cfg = dataclasses.replace(reduced(ARCHS["grok-1-314b"]), expert_split=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="expert_split"):
-        MOE.moe_mlp({}, cfg, torch.zeros(1, 2, cfg.d_model))
+    """``expert_split`` -1 ("auto") is resolved against a mesh by the dry
+    run and refused by a model, as is a split that does not divide
+    d_ff_expert; a split that divides builds (the split layout)."""
+    base = reduced(ARCHS["grok-1-314b"])
+    with pytest.raises(ValueError, match="auto"):
+        Model(dataclasses.replace(base, expert_split=-1), "cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        Model(dataclasses.replace(base, expert_split=3), "cpu")
+    shapes = Model(dataclasses.replace(base, expert_split=2),
+                   "cpu").param_shapes()["blocks"]
+    e, d, fe = base.n_experts, base.d_model, base.d_ff_expert
+    assert shapes["we_i"] == (2, 2 * e, d, fe // 2)
+    assert shapes["we_d"] == (2, 2 * e, fe // 2, d)
+
+
+def _split_params(blk: dict, cfg, s: int) -> dict:
+    """The JAX test's rearrangement of unsplit expert weights into the
+    split layout: up (E, D, Fe) → (E·s, D, Fe/s) with split j the columns
+    [j·Fe/s, (j+1)·Fe/s), down (E, Fe, D) → (E·s, Fe/s, D)."""
+    e, d, fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    out = dict(blk)
+    for key in ("we_g", "we_u") if cfg.act == "silu" else ("we_i",):
+        out[key] = blk[key].reshape(e, d, s, fe // s).transpose(
+            0, 2, 1, 3).reshape(e * s, d, fe // s)
+    out["we_d"] = blk["we_d"].reshape(e * s, fe // s, d)
+    return out
+
+
+@pytest.mark.parametrize("impl", ["ref", "kernel"])
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("arch", ["grok-1-314b", "qwen3-moe-30b-a3b"])
+def test_expert_split_matches_jax_and_unsplit(arch, split, impl):
+    """The split-expert layer against the JAX ``moe_mlp`` on the same split
+    weights, and against the port's unsplit layer on the weights they
+    were rearranged from, within the JAX test's 1e-4; ``"kernel"`` runs
+    the grouped GEMM's plain version here (one call a split up, one down
+    on the (E, s·Fe/s, D) view).  d_ff_expert is rounded down to a
+    multiple of 8 so that every split divides it (reduced grok's 682)."""
+    cfg = reduced(ARCHS[arch])
+    cfg = dataclasses.replace(cfg, attn_impl=impl,
+                              d_ff_expert=cfg.d_ff_expert // 8 * 8)
+    split_cfg = dataclasses.replace(cfg, expert_split=split)
+    tree = _weights(cfg, 21)
+    blk = {k: v[0] for k, v in tree["blocks"].items()}
+    sblk = _split_params(blk, cfg, split)
+    x = np.random.default_rng(22).standard_normal(
+        (2, 16, cfg.d_model), dtype=np.float32) * np.float32(0.3)
+    jcfg = JArchConfig(**convert.arch_to_fields(split_cfg))
+    want, want_aux = JMOE.moe_mlp({k: jnp.asarray(v) for k, v in
+                                   sblk.items()}, jcfg, jnp.asarray(x))
+    got, aux = MOE.moe_mlp({k: torch.from_numpy(v) for k, v in sblk.items()},
+                           split_cfg, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GEMM_TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **GEMM_TOL)
+    unsplit, _ = MOE.moe_mlp({k: torch.from_numpy(v) for k, v in blk.items()},
+                             cfg, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), unsplit.numpy(), **GEMM_TOL)
 
 
 def test_qwen3_moe_published_size_layout():

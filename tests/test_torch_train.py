@@ -117,9 +117,9 @@ def test_loss_and_grads_match_jax(family):
 
 @pytest.mark.parametrize("family", ["dense", "encdec", "hybrid"])
 def test_remat_changes_no_number(family):
-    """``cfg.remat`` (policy ``"full"``) recomputes each block in the
-    backward pass: the loss and every gradient equal those without it;
-    ``"dots"`` is not ported and says so."""
+    """``cfg.remat`` recomputes each block in the backward pass: under
+    policy ``"full"`` and ``"dots"`` the loss and every gradient equal
+    those without it, bitwise."""
     cfg = _cfg(FAMILIES[family])
     tree = _weights(cfg, 13)
     batch = _batch(cfg, 14)
@@ -129,9 +129,66 @@ def test_remat_changes_no_number(family):
     assert torch.equal(off[0], on[0])
     for a, b in zip(off[1], on[1]):
         assert torch.equal(a, b)
-    dots = dataclasses.replace(cfg, remat=True, remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _port_loss_and_grads(dots, tree, batch)
+    dots = _port_loss_and_grads(
+        dataclasses.replace(cfg, remat=True, remat_policy="dots"), tree,
+        batch)
+    assert torch.equal(off[0], dots[0])
+    for a, b in zip(off[1], dots[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_remat_dots_matches_jax(family):
+    """``remat_policy="dots"``: the loss and every gradient within the
+    trainer's tolerances of ``jax.value_and_grad`` of the JAX model under
+    its ``"dots"`` policy (bitwise ``"full"``'s: ``test_remat_changes_no_
+    number``)."""
+    cfg = _cfg(FAMILIES[family], remat=True, remat_policy="dots")
+    tree = _weights(cfg, 16)
+    batch = _batch(cfg, 17)
+    got, grads, struct = _port_loss_and_grads(cfg, tree, batch)
+    jm = JModel(JArchConfig(**convert.arch_to_fields(cfg)))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    want, jgrads = jax.value_and_grad(jm.loss)(_jax_tree(tree), jb)
+    _close(got, want, LOSS_TOL, "loss")
+    jleaves, jstruct = jax.tree.flatten(jgrads)
+    assert jstruct == struct
+    for g, jg in zip(grads, jleaves):
+        _close(g, jg, GRAD_TOL)
+
+
+def test_remat_dots_saves_the_matmuls():
+    """Under ``"dots"`` the backward recomputes fewer ``aten.mm`` than under
+    ``"full"`` (their outputs are saved), and no fewer ``aten.bmm`` (the
+    einsum products, recomputed by both), counted with a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"mm": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._overloadpacket.__name__
+            if name in self.n:
+                self.n[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    def backward_counts(policy):
+        cfg = _cfg("granite-3-2b", remat=True, remat_policy=policy)
+        model = Model(cfg, "cpu")
+        params = convert.params_from_numpy(cfg, _weights(cfg, 18), "cpu")
+        leaves = jax.tree.leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = model.loss(params, _torch_batch(_batch(cfg, 19)))
+        with Count() as c:
+            torch.autograd.grad(loss, leaves)
+        return c.n
+
+    full, dots = backward_counts("full"), backward_counts("dots")
+    assert dots["mm"] < full["mm"]
+    assert dots["bmm"] == full["bmm"]
 
 
 def test_remat_skips_forwards_without_grad(monkeypatch):

@@ -1,0 +1,187 @@
+"""Multi-rank cases of the port's mesh paths on ``gloo`` CPU ranks.
+
+Run by ``tests/test_torch_dist.py`` as one subprocess: ``python
+tests/torch_dist_worker.py 2 4`` spawns a group of 2 ranks and one of 4
+side by side, each rank a process of its own in a ``gloo`` group on
+localhost.  Every rank runs
+every case sharded and unsharded and holds the two equal: the fleet
+cases bitwise (the unsharded port is held to the JAX package by the
+other tests), the sharded flash-decode within the JAX test's
+tolerances at every step of :data:`DECODE_CASES`.  A rank prints ``CASE-OK <name>`` a case; any mismatch
+raises, and the parent exits non-zero.
+
+Missions are shortened to keep the run cheap: 2 s of simulated time
+(80 ticks of 25 ms) in place of the JAX test's 8 s.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+DURATION_MS = 2_000.0
+
+
+def _equal(a, b, where: str) -> None:
+    if a is None or b is None:
+        assert a is None and b is None, where
+        return
+    if isinstance(a, tuple):
+        for x, y, f in zip(a, b, getattr(a, "_fields", range(len(a)))):
+            _equal(x, y, f"{where}.{f}")
+        return
+    assert a.shape == b.shape and a.dtype == b.dtype, where
+    assert torch.equal(a, b), where
+
+
+def _fleet_cases(world: int, say) -> None:
+    """``run_fleet`` with its edges split over every rank; at 2 ranks
+    also ``simulate_fleet`` and ``run_registry_sweep(mesh="auto")``, at 4
+    the (replica, edge) grid of ``run_fleet_batch`` and ``run_batch``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.task import PASSIVE, TABLE1
+    from repro_torch.obs.trace import TraceSpec
+    from repro_torch.scenarios.compile import compile_registry_batch
+    from repro_torch.scenarios.runner import run_registry_sweep
+    from repro_torch.sim import fleet as F
+
+    models = [TABLE1[n] for n in PASSIVE]
+    edges = init_device_mesh("cpu", (world,), mesh_dim_names=("fleet",))
+
+    # overloaded edges, so that DEMS-COOP exchanges tasks across ranks
+    def signals(seed):
+        return F.default_signals(len(models), n_edges=4, drones_per_edge=8,
+                                 duration_ms=DURATION_MS, seed=seed,
+                                 device="cpu")
+
+    for pol in ("DEMS", "DEMS-COOP") if world == 2 else ("DEMS-COOP",):
+        kw = dict(trace=TraceSpec.full(), device="cpu")
+        ref = F.run_fleet(models, pol, signals(3), **kw)
+        got = F.run_fleet(models, pol, signals(3), mesh=edges, **kw)
+        _equal(ref, got, f"run_fleet {pol}")
+        if pol == "DEMS-COOP":
+            assert int(ref.final.n_peer_out.sum()) > 0, "no peer offload"
+        say(f"run_fleet-{pol}")
+    if world == 2:
+        kw = dict(n_edges=4, duration_ms=DURATION_MS, device="cpu")
+        _equal(F.simulate_fleet(models, "DEMS-COOP", **kw),
+               F.simulate_fleet(models, "DEMS-COOP", mesh=edges, **kw),
+               "simulate_fleet")
+        say("simulate_fleet")
+        args = (("baseline", "rush-hour"), ("DEMS", "DEMS-COOP"), (0, 1))
+        ref = run_registry_sweep(*args, duration_ms=DURATION_MS,
+                                 device="cpu")
+        got = run_registry_sweep(*args, duration_ms=DURATION_MS,
+                                 mesh="auto", device="cpu")
+        assert ref == got, "run_registry_sweep"
+        say("run_registry_sweep-auto")
+        return
+
+    # the (replica, edge) grid: both axes split, the exchange across the
+    # edge ranks of each replica block
+    grid = init_device_mesh("cpu", (2, 2), mesh_dim_names=("replica", "edge"))
+    sigs = F.stack_signals([signals(s) for s in range(4)])
+    ref = F.run_fleet_batch(models, "DEMS-COOP", sigs, device="cpu")
+    got = F.run_fleet_batch(models, "DEMS-COOP", sigs, mesh=grid,
+                            device="cpu")
+    _equal(ref, got, "run_fleet_batch")
+    say("run_fleet_batch")
+    # the JAX test's heterogeneous batch (2 scenarios x 2 policies x
+    # seeds 0, 1), traced
+    batch, _ = compile_registry_batch(
+        ("baseline", "rush-hour"), ("DEMS", "DEMS-COOP"), (0, 1),
+        duration_ms=DURATION_MS, device="cpu")
+    _equal(F.run_batch(batch, trace=TraceSpec.full()),
+           F.run_batch(batch, trace=TraceSpec.full(), mesh=grid),
+           "run_batch")
+    say("run_batch")
+
+
+# (sliding window, prompt, cache max_seq, steps) of the opt_decode cases:
+# a 32-slot cache split 16/16 whose 14-token prompt leaves the second
+# half empty (the first two steps write on model rank 0 while rank 1's
+# partial softmax is all masked; from position 16 on rank 1 owns the
+# write and both halves hold valid keys), and a 16-slot ring split 8/8
+# that the steps wrap from rank 1 back to rank 0
+DECODE_CASES = ((0, 14, 32, 6), (16, 6, 32, 14))
+
+
+def _decode_case(world: int, say) -> None:
+    """opt_decode with the cache's sequence split over 2 model ranks (at 4
+    ranks the batch over 2 data ranks too), step by step against the
+    unsharded decode on the same tokens."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.sharding import sharding_rules
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+
+    mesh = init_device_mesh("cpu", (world // 2, 2),
+                            mesh_dim_names=("data", "model"))
+    for window, prompt, max_seq, steps in DECODE_CASES:
+        cfg = dataclasses.replace(reduced(ARCHS["qwen2-72b"]),
+                                  sliding_window=window)
+        base = Model(cfg, "cpu")
+        opt = Model(dataclasses.replace(cfg, opt_decode=True), "cpu")
+        params = base.init(torch.Generator().manual_seed(0))
+        tokens = torch.randint(0, cfg.vocab, (2, prompt),
+                               generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            _, cache = base.prefill(params, {"tokens": tokens}, max_seq)
+            sharded = L.shard_decode_cache(
+                {k: v.clone() for k, v in cache.items()}, mesh)
+            tok = tokens[:, -1:]
+            for pos in range(prompt, prompt + steps):
+                want, cache = base.decode_step(params, cache, tok, pos)
+                with sharding_rules(mesh):
+                    got, sharded = opt.decode_step(params, sharded, tok, pos)
+                where = f"window {window} pos {pos}"
+                torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3,
+                                           msg=where)
+                for key in ("k", "v"):
+                    torch.testing.assert_close(
+                        sharded[key].full_tensor(), cache[key], rtol=1e-5,
+                        atol=1e-5, msg=f"{where} cache {key}")
+                tok = want[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+    say("opt_decode")
+
+
+def _rank(rank: int, world: int, port: int) -> None:
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+
+    def say(name: str) -> None:
+        print(f"CASE-OK {name} world={world} rank={rank}", flush=True)
+
+    try:
+        _fleet_cases(world, say)
+        _decode_case(world, say)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def main(worlds) -> None:
+    """The groups of every world size at once, each on a port of its own;
+    raises if a rank of any of them fails."""
+    from repro_torch.launch.mesh import free_port
+    runs = [mp.start_processes(_rank, args=(world, free_port()),
+                               nprocs=world, join=False,
+                               start_method="spawn") for world in worlds]
+    for ctx in runs:
+        while not ctx.join():
+            pass
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+    main([int(w) for w in sys.argv[1:]] or [2, 4])
