@@ -240,7 +240,13 @@ Phases, each printed on its own line and each failing the script
 29. the dry run: ``python -m repro_torch.launch.dryrun --arch
     granite-3-2b --shape train_4k --mesh single`` and ``--shape
     decode_32k``, each combo and its roofline ok (fake ranks; they pass
-    on the host), the terms and the bottleneck printed.
+    on the host), the memory plan's argument, output, temp and alias
+    bytes and its verdict printed (train_4k must fit 80 GB), the terms
+    and the bottleneck printed; and a child tracing the reduced combos
+    that once failed to trace (qwen3-moe-30b-a3b × train_4k, prefill_32k,
+    decode_32k, xlstm-1.3b and zamba2-7b × train_4k) on a (2, 2) fake
+    mesh, each ok with the JAX dry run's argument bytes
+    (``tests/golden/torch_port_dryrun.json``) on this machine's torch.
 
 The expected numbers come from ``tests/golden/torch_port_summaries.json``
 (phase 19's under its ``scenario_runs`` key),
@@ -423,6 +429,10 @@ DOTS_TOL = 1e-6
 # phase 29: the dry run's combos (fake ranks; host work only)
 DRYRUN_SHAPES = ("train_4k", "decode_32k")
 DRYRUN_TIMEOUT_S = 300
+DRYRUN_REDUCED = (("qwen3-moe-30b-a3b", "train_4k"),
+                  ("qwen3-moe-30b-a3b", "prefill_32k"),
+                  ("qwen3-moe-30b-a3b", "decode_32k"),
+                  ("xlstm-1.3b", "train_4k"), ("zamba2-7b", "train_4k"))
 # phase 19: a fleet summary's float fields against the JAX one, the
 # parity tolerance of tests/_torch_parity.py (XLA on the host fuses a
 # product and a sum into one multiply-add where the port rounds twice,
@@ -3921,17 +3931,51 @@ def start_dryrun() -> list:
         kids.append((shape, proc, time.perf_counter(),
                      os.path.join(out_dir, shape,
                                   f"granite-3-2b__{shape}.json")))
+    os.makedirs(os.path.join(out_dir, "reduced"), exist_ok=True)
+    log = open(os.path.join(out_dir, "reduced", "log.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_REDUCED_CHILD,
+         os.path.join(ROOT, "tests", "golden", "torch_port_dryrun.json"),
+         os.path.join(out_dir, "reduced", "result.json")], env=env, cwd=ROOT,
+        stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    kids.append(("reduced", proc, time.perf_counter(),
+                 os.path.join(out_dir, "reduced", "result.json")))
     # a phase that fails before phase 29 exits: its children go with it
     atexit.register(lambda: [p.kill() for _, p, _, _ in kids
                              if p.poll() is None])
     return kids
 
 
+# phase 29's reduced child: DRYRUN_REDUCED traced on a (2, 2) fake mesh
+# at the golden's cut SHAPES, written as JSON (host work only)
+_DRYRUN_REDUCED_CHILD = f"""
+import json, sys
+from repro_torch.configs.base import reduced
+from repro_torch.configs.registry import ARCHS
+from repro_torch.launch import dryrun as D
+golden = json.load(open(sys.argv[1]))
+D.SHAPES.update({{k: tuple(v) for k, v in golden["reduced_shapes"].items()}})
+mesh = D.fake_mesh(tuple(golden["reduced_mesh"]), ("data", "model"))
+out = {{}}
+for arch, shape in {DRYRUN_REDUCED!r}:
+    cfg = D.variant_for(reduced(ARCHS[arch]), shape)
+    try:
+        out[arch + "|" + shape] = D.compile_combo(cfg, shape, mesh)
+    except Exception as e:
+        out[arch + "|" + shape] = {{"ok": False,
+                                   "error": type(e).__name__ + ": " + str(e)}}
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
 def phase_dryrun(kids: list) -> dict:
     """Phase 29: the dry run's children (:func:`start_dryrun`) waited for
-    and their JSON read back: each combo and its roofline must be ok
-    (both pass on the host), the terms and the bottleneck printed.  A
-    child past ``DRYRUN_TIMEOUT_S`` is killed and fails the phase."""
+    and their JSON read back: each granite combo and its roofline must be
+    ok (both pass on the host), its memory plan printed, and train_4k's
+    must fit 80 GB; each reduced combo must trace, with the JAX dry run's
+    argument bytes.  A child past ``DRYRUN_TIMEOUT_S`` is killed and
+    fails the phase."""
     res = {}
     for shape, proc, t0, path in kids:
         left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
@@ -3948,6 +3992,9 @@ def phase_dryrun(kids: list) -> dict:
             log = open(os.path.join(os.path.dirname(path), "log.txt")).read()
             fail(f"phase 29 {shape}: the dry run failed (exit "
                  f"{proc.returncode}): {log[-3000:]}")
+        if shape == "reduced":
+            res[shape] = phase_dryrun_reduced(json.load(open(path)), wall)
+            continue
         r = json.load(open(path))
         one, roof = r.get("mesh_single", {}), r.get("roofline", {})
         if not one.get("ok") or "bottleneck" not in roof:
@@ -3957,8 +4004,11 @@ def phase_dryrun(kids: list) -> dict:
         say(f"phase29 dryrun granite-3-2b × {shape} × single (16×16 fake "
             f"ranks): trace {one['trace_s']} s (child wall {wall:.1f} s, "
             f"roofline included); per device: arguments "
-            f"{m['argument_bytes']} B (fit 80 GB: "
-            f"{m['arguments_fit_80gb']}), peak {m['peak_bytes']} B "
+            f"{m['argument_bytes']} B, outputs {m['output_bytes']} B, "
+            f"temps {m['temp_bytes']} B (plan: "
+            f"{json.dumps(one['plan']['terms'])}), aliases "
+            f"{m['alias_bytes']} B, total {m['total_bytes']} B → fits "
+            f"80 GB: {m['fits_80gb']}; peak {m['peak_bytes']} B "
             f"({m['peak_note']}), FLOPs {one['flops']}, bytes accessed "
             f"{one['bytes_accessed']} ({one['bytes_accessed_note']}), "
             f"collectives {one['n_collectives']} "
@@ -3969,8 +4019,38 @@ def phase_dryrun(kids: list) -> dict:
             f"{roof['collective_s'] * 1e3:.4f} ms ({roof['collective_note']})"
             f" → {roof['bottleneck']}-bound; model/traced FLOPs "
             f"{roof['model_vs_traced_flops']}")
-        res[shape] = dict(wall=wall, roofline=roof)
+        if shape == "train_4k" and not m["fits_80gb"]:
+            fail(f"phase 29: granite-3-2b train_4k's plan does not fit "
+                 f"80 GB a device: {m['total_bytes']} B")
+        res[shape] = dict(wall=wall, roofline=roof, memory=m)
     return res
+
+
+def phase_dryrun_reduced(r: dict, wall: float) -> dict:
+    """Phase 29's reduced combos: each traced, with the JAX dry run's
+    argument bytes (the golden's), its plan printed."""
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "torch_port_dryrun.json")) as f:
+        ref = json.load(f)["reduced"]
+    for arch, shape in DRYRUN_REDUCED:
+        key = f"{arch}|{shape}"
+        one = r.get(key, {})
+        if not one.get("ok"):
+            fail(f"phase 29 reduced {key}: did not trace: "
+                 f"{json.dumps(one)[:1500]}")
+        m, want = one["memory"], ref[key]["memory"]
+        if m["argument_bytes"] != want["argument_bytes"]:
+            fail(f"phase 29 reduced {key}: arguments {m['argument_bytes']} "
+                 f"B, the JAX dry run's {want['argument_bytes']} B")
+        say(f"phase29 reduced {key} ((2, 2) fake ranks): trace "
+            f"{one['trace_s']} s; arguments {m['argument_bytes']} B (= the "
+            f"JAX dry run's), outputs {m['output_bytes']} B (JAX "
+            f"{want['output_bytes']}), temps {m['temp_bytes']} B (JAX "
+            f"{want['temp_bytes']}), aliases {m['alias_bytes']} B (JAX "
+            f"{want['alias_bytes']}), fits 80 GB: {m['fits_80gb']}")
+    say(f"phase29 reduced: {len(DRYRUN_REDUCED)} combos traced (child wall "
+        f"{wall:.1f} s)")
+    return dict(wall=wall)
 
 
 T_START = time.perf_counter()

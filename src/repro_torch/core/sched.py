@@ -396,6 +396,53 @@ def adapt_init(static: torch.Tensor, w: int, lead: tuple = ()) -> AdaptState:
         cooling_start=torch.full(shape, -1.0, device=dev))
 
 
+def adapt_observe(st: AdaptState, model, obs, eps: float) -> AdaptState:
+    """One observation of ``model`` (the reference's ``adapt_observe``, a
+    state without a leading axis): append until the buffer fills (write
+    position = count), then overwrite circularly; t̂ rises to the
+    window's average when that clears it by more than ``eps``."""
+    w = st.buf.shape[-1]
+    cnt, at = st.count[model], st.idx[model]
+    filling = cnt < w
+    buf = st.buf.clone()
+    buf[model, torch.where(filling, cnt, at)] = obs
+    count, idx, cur = st.count.clone(), st.idx.clone(), st.current.clone()
+    count[model] = torch.clamp(cnt + 1, max=w)
+    idx[model] = torch.where(filling, at, (at + 1) % w)
+    avg = buf[model].sum() / count[model]
+    cur[model] = torch.where(avg - st.current[model] > eps, avg,
+                             st.current[model])
+    return AdaptState(buf, count, idx, cur, st.cooling_start)
+
+
+def adapt_on_sent(st: AdaptState, model) -> AdaptState:
+    """A task of ``model`` went to the cloud: its cooling period ends."""
+    cs = st.cooling_start.clone()
+    cs[model] = -1.0
+    return st._replace(cooling_start=cs)
+
+
+def adapt_select(pred, a: AdaptState, b: AdaptState) -> AdaptState:
+    """Elementwise ``where`` over whole estimator states (masked
+    updates)."""
+    return AdaptState(*(torch.where(pred, x, y) for x, y in zip(a, b)))
+
+
+def adapt_on_skip(st: AdaptState, model, now, static, t_cp) -> AdaptState:
+    """A task of ``model`` stayed on the edge at ``now``: an inflated t̂
+    starts cooling, and falls back to ``static`` once ``t_cp`` has
+    passed since the cooling began."""
+    inflated = st.current[model] > static[model]
+    cs = st.cooling_start[model]
+    expired = (cs >= 0) & (now - cs >= t_cp)
+    cur, new_cs = st.current.clone(), st.cooling_start.clone()
+    cur[model] = torch.where(inflated & expired, static[model],
+                             st.current[model])
+    new_cs[model] = torch.where(~inflated, cs, torch.where(
+        expired, -1.0, torch.where(cs < 0, now, cs)))
+    return st._replace(current=cur, cooling_start=new_cs)
+
+
 def adapt_feed_batch(st: AdaptState, model_ids, sent, obs, obs_val, skip,
                      now, static, eps, t_cp, *, with_obs: bool = True,
                      max_obs: int | None = None) -> AdaptState:
@@ -484,6 +531,34 @@ def edge_push(q: EdgeQueue, key, seq, t_edge, deadline, model,
         t_edge=set_at(q.t_edge, t_edge), deadline=set_at(q.deadline,
                                                          deadline),
         abs_dl=set_at(q.abs_dl, abs_dl), model=set_at(q.model, model)), ok
+
+
+def cloud_push(cq: CloudQueue, trigger, t_edge, deadline, steal_only,
+               rank, enable=True) -> tuple[CloudQueue, torch.Tensor]:
+    """Insert into each cloud queue's first free slot; returns (queue,
+    ok)."""
+    free = ~cq.valid
+    slot = torch.argmax(free.int(), dim=-1)
+    ok = free.any(-1) & enable
+    hit = _onehot(slot, free.shape[-1]) & ok.unsqueeze(-1)
+
+    def set_at(arr, v):
+        return torch.where(hit, _col(torch.as_tensor(v, dtype=arr.dtype,
+                                                     device=arr.device)),
+                           arr)
+
+    return CloudQueue(
+        valid=cq.valid | hit, trigger=set_at(cq.trigger, trigger),
+        t_edge=set_at(cq.t_edge, t_edge),
+        deadline=set_at(cq.deadline, deadline),
+        steal_only=set_at(cq.steal_only, steal_only),
+        rank=set_at(cq.rank, rank)), ok
+
+
+def cloud_remove(cq: CloudQueue, idx) -> CloudQueue:
+    """Drop slot ``idx`` of each cloud queue."""
+    idx = torch.as_tensor(idx, device=cq.valid.device)
+    return cq._replace(valid=cq.valid & ~_onehot(idx, cq.valid.shape[-1]))
 
 
 def edge_pop_head(q: EdgeQueue, ahead=None, is_head=None):

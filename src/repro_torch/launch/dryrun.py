@@ -15,13 +15,22 @@ propagating the sharding op by op.  Every rank's local shard is a
 splits reads a tensor's value and fails, so the shards are meta
 tensors outside it, which allocate nothing either.)
 
+The steps take the JAX package's arguments: train ``(params,
+opt_state, batch)``, prefill ``(params, batch)`` (the cache is made in
+the step), decode ``(params, cache, token, pos)`` with ``pos`` an int32
+scalar; a step takes only the parameters it reads (:func:`read_params`),
+as a jit keeps only those.
+
 Per combo, per device (one rank's program), the dry run records:
   * trace wall time,
-  * argument bytes (parameters, moments, batch, cache, each placed by
-    the rules) and whether they fit an H100's 80 GB, and peak live bytes
-    (``torch.distributed._tools.mem_tracker.MemTracker``).  The peak is
-    that of DTensor's own layout of the step (:data:`PEAK_NOTE`), not of
-    a sharded plan, so it gives no fit verdict,
+  * the JAX dry run's memory terms: argument, output and alias bytes of
+    the traced step (local shards, exact), temp bytes from
+    :func:`plan_memory` (arithmetic over the placements, no trace),
+    ``total_bytes`` = argument + temp and the verdict ``fits_80gb``
+    (an H100's 80 GB); and, as a diagnostic, the peak live bytes of
+    DTensor's own layout of the step
+    (``torch.distributed._tools.mem_tracker.MemTracker``,
+    :data:`PEAK_NOTE`),
   * the collectives the step issues (kind, dtype, result shape and
     bytes, recorded on the fake group; the roofline's input),
   * FLOPs (``torch.utils.flop_counter``'s registry, the one
@@ -59,8 +68,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import ARCHS
 from repro_torch.launch.mesh import (HBM_BYTES, PRODUCTION_SHAPES,
                                      make_production_mesh)
-from repro_torch.launch.sharding import (mesh_shape, named_sharding,
+from repro_torch.launch.sharding import (_filter_rules, logical_to_pspec,
+                                         mesh_shape, named_sharding,
                                          sharding_rules)
+from repro_torch.models.layers import CHUNK_Q, CHUNK_Q_THRESHOLD
 from repro_torch.models.model import Model
 from repro_torch.roofline import analysis as RA
 from repro_torch.train.optimizer import (AdamW, AdamWState, tree_leaves,
@@ -296,6 +307,21 @@ class StepRecorder(TorchDispatchMode):
 # step builders
 # ---------------------------------------------------------------------------
 
+def mesh_config(cfg: ArchConfig, mesh) -> ArchConfig:
+    """``cfg`` as a mesh runs it: the MoE family dispatches in one group a
+    data-parallel shard, and ``expert_split`` -1 ("auto") resolves
+    against the model axis."""
+    if cfg.family != "moe":
+        return cfg
+    sizes = mesh_shape(mesh)
+    cfg = dataclasses.replace(
+        cfg, moe_groups=sizes.get("data", 1) * sizes.get("pod", 1))
+    if cfg.expert_split == -1:
+        cfg = dataclasses.replace(cfg, expert_split=max(
+            1, sizes.get("model", 1) // cfg.n_experts))
+    return cfg
+
+
 def build(cfg: ArchConfig, shape_name: str, mesh, n_micro: int = 0):
     """Returns ``(step_fn, args)``: the step and its DTensor stand-ins.
 
@@ -303,15 +329,7 @@ def build(cfg: ArchConfig, shape_name: str, mesh, n_micro: int = 0):
     traces pass the *full-depth* config's factor (their 1–2-layer
     configs would otherwise resolve to 1)."""
     seq, batch, kind = SHAPES[shape_name]
-    sizes = mesh_shape(mesh)
-    if cfg.family == "moe":
-        # group-wise dispatch: one group per data-parallel shard
-        n_data = sizes.get("data", 1) * sizes.get("pod", 1)
-        cfg = dataclasses.replace(cfg, moe_groups=n_data)
-        n_model = sizes.get("model", 1)
-        if cfg.expert_split == -1:   # resolve "auto" against the mesh
-            cfg = dataclasses.replace(
-                cfg, expert_split=max(1, n_model // cfg.n_experts))
+    cfg = mesh_config(cfg, mesh)
     model = Model(cfg, device="meta")
     pdt = model.pdtype
     params = tree_map(lambda s, lg: placed(s, pdt, lg, mesh),
@@ -369,35 +387,385 @@ def build(cfg: ArchConfig, shape_name: str, mesh, n_micro: int = 0):
 
         return step, (params, opt_state, b)
 
-    params = tree_map(lambda p: p.detach(), params)
+    params = read_params(tree_map(lambda p: p.detach(), params), kind)
     ms = max_seq_for(cfg, shape_name)
-    cache = {k: placed(v.shape, v.dtype, cache_logical(k, v.dim()), mesh)
-             for k, v in model.init_cache(batch, ms).items()}
+
+    def cache_of(n: int) -> dict:
+        return {k: placed(v.shape, v.dtype, cache_logical(k, v.dim()), mesh)
+                for k, v in model.init_cache(n, ms).items()}
     if kind == "prefill":
-        def step(params, cache, b):
-            return model.prefill(params, b, ms, cache)
-        return step, (params, cache, b)
+        def step(params, b):
+            # the cache is made here, as the JAX package's prefill makes
+            # it, placed by cache_logical (a plain one for plain inputs)
+            from torch.distributed.tensor import DTensor
+            placed_in = isinstance(b["tokens"], DTensor)
+            return model.prefill(params, b, ms,
+                                 cache_of(batch) if placed_in else None)
+        return step, (params, b)
 
-    # decode
+    # decode: ``pos`` is an int32 scalar argument, as in the JAX package;
+    # a meta scalar has no value, and ``Model.decode_step`` takes a host
+    # int, so the step decodes at the cache's last position seq − 1.
+    # xLSTM reads no position, and its step takes none (a jit drops an
+    # argument its step never reads).
+    def step(params, cache, token, pos=None):
+        return model.decode_step(params, cache, token, seq - 1)
 
-    def step(params, cache, token, pos):
-        return model.decode_step(params, cache, token, pos)
+    args = (params, cache_of(batch), b["token"])
+    if cfg.family != "ssm":
+        args += (b["pos"],)
+    return step, args
 
-    return step, (params, cache, b["token"], seq - 1)
+
+# what a decode step never reads (the JAX package's jit drops these
+# arguments: keep_unused=False): the vision projection, the encoder, and
+# the cross-attention's K/V projections, whose products the cache holds
+_DECODE_UNREAD = ("vis_proj", "enc_blocks", "enc_norm", "blocks.x_wk",
+                  "blocks.x_wv")
 
 
-# what the recorded peak is, and why no fit verdict is taken from it
+def read_params(tree: dict, kind: str) -> dict:
+    """``tree`` (the parameters, their shapes or their specs) without the
+    leaves the ``kind`` step never reads."""
+    if kind != "decode":
+        return tree
+    out = {}
+    for g, v in tree.items():
+        if g in _DECODE_UNREAD:
+            continue
+        if isinstance(v, dict):
+            v = {k: x for k, x in v.items()
+                 if f"{g}.{k}" not in _DECODE_UNREAD}
+        out[g] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the memory plan: arithmetic over the placements, no trace
+# ---------------------------------------------------------------------------
+
+class ShapeMesh(NamedTuple):
+    """A mesh by its axis sizes alone (``{name: size}``, in mesh order):
+    all the plan needs of one, so it runs with no process group."""
+    shape: dict
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+
+class _Local:
+    """Per-device bytes of a tensor placed by the rules on ``mesh``: its
+    global size over the mesh axes its logical axes take (the rule
+    engine's decisions, the divisibility fallback included)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = mesh_shape(mesh)
+        self.rules = _filter_rules(mesh, None)
+
+    def __call__(self, shape, logical, dtype) -> int:
+        n = math.prod(shape)
+        for ax in logical_to_pspec(shape, logical, self.mesh, self.rules):
+            for a in ((ax,) if isinstance(ax, str) else (ax or ())):
+                n //= self.sizes[a]
+        return n * dtype.itemsize
+
+    def splits(self, dim: int, logical: str) -> bool:
+        """True if ``logical`` takes mesh axes that divide ``dim``."""
+        ax = self.rules.get(logical)
+        size = math.prod(self.sizes[a] for a in
+                         ((ax,) if isinstance(ax, str) else (ax or ())))
+        return size > 1 and dim % size == 0
+
+
+def _attention_terms(cfg, nb, b: int, sq: int, sk: int) -> int:
+    """One attention sublayer's live tensors: q and its output, k and v
+    repeated to the query heads (GQA), the f32 scores and the
+    probabilities of a query chunk (``attend_auto`` chunks queries at 16k
+    tokens and more)."""
+    f32, dt = torch.float32, _DTYPES[cfg.dtype]
+    h, hd = cfg.n_heads, cfg.hd
+    seq_ax = "seq" if nb.splits(h, "heads") else "act_seq"
+    q = nb((b, sq, h, hd), ("batch", seq_ax, "heads", "head_dim"), dt)
+    # keys and values whole along the sequence on every rank
+    k = nb((b, sk, h, hd), ("batch", None, "heads", "head_dim"), dt)
+    cq = CHUNK_Q if sq >= CHUNK_Q_THRESHOLD else sq
+    scores = (b, h, cq, sk), ("batch", "heads", "seq_model", None)
+    return 2 * q + 2 * k + nb(*scores, f32) + nb(*scores, dt)
+
+
+def _mlp_terms(cfg, nb, b: int, s: int, d_ff: int) -> int:
+    """The MLP's hidden activations: gate, up and their product (or the
+    input projection and its activation)."""
+    seq_ax = "seq" if nb.splits(cfg.n_heads, "heads") else "act_seq"
+    n = 3 if cfg.act == "silu" else 2
+    return n * nb((b, s, d_ff), ("batch", seq_ax, "mlp"), _DTYPES[cfg.dtype])
+
+
+def _moe_terms(cfg, nb, b: int, s: int) -> int:
+    """The MoE layer's router probabilities (f32), the (g, E, C, D)
+    dispatch buffer and expert output, the experts' hidden activations,
+    and each (token, k) pair's row twice: its token's copy for the
+    dispatch and its expert's output for the combine."""
+    f32, dt = torch.float32, _DTYPES[cfg.dtype]
+    t, e, k, d = b * s, cfg.n_experts, cfg.top_k, cfg.d_model
+    g = max(1, cfg.moe_groups)
+    while t % g:
+        g //= 2
+    tg = t // g
+    c = int(tg * k / e * cfg.capacity_factor) + 1
+    grp = ("moe_grp", None, None)
+    buf = nb((g, e, c, d), ("moe_grp", "experts", None, None), dt)
+    hid = nb((g, e, c, cfg.d_ff_expert), ("moe_grp", "experts", None, "mlp"),
+             dt)
+    return (2 * nb((g, tg, e), grp, f32) + 2 * buf
+            + (3 if cfg.act == "silu" else 2) * hid
+            + 2 * nb((g, tg * k, d), grp, dt))
+
+
+def _mamba_terms(cfg, nb, b: int, s: int) -> int:
+    """One Mamba2 (SSD) block: the input projection, the chunk decay and
+    mixing matrices (f32), the chunk states (f32) and the gated output."""
+    from repro_torch.models.ssm import CHUNK
+    f32, dt = torch.float32, _DTYPES[cfg.dtype]
+    h, p, n, di = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
+    nc = max(1, s // CHUNK)
+    c = s // nc
+    heads5 = ("batch", None, None, None, "ssm_heads")
+    return (nb((b, s, 2 * di + 2 * n + h), ("batch", "seq", "ssm_inner"), dt)
+            + 2 * nb((b, nc, c, c, h), heads5, f32)
+            + 2 * nb((b, nc, h, p, n), ("batch", None, "ssm_heads", None,
+                                        None), f32)
+            + 2 * nb((b, s, h, p), ("batch", "seq", "ssm_inner", None), dt))
+
+
+def _mlstm_terms(cfg, nb, b: int, s: int) -> int:
+    """One mLSTM block: q, k, v, the chunk gate and score matrices (f32)
+    and the chunk memory summaries (f32)."""
+    from repro_torch.models.xlstm import CHUNK
+    f32, dt = torch.float32, _DTYPES[cfg.dtype]
+    h = cfg.n_heads
+    p = cfg.d_inner // h
+    nc = max(1, s // CHUNK)
+    c = s // nc
+    return (3 * nb((b, s, h, p), ("batch", "seq", None, "ssm_inner"), dt)
+            + 3 * nb((b, nc, c, c, h), ("batch", None, None, None, None),
+                     f32)
+            + 2 * nb((b, nc, h, p, p), ("batch", None, None, "ssm_inner",
+                                        None), f32))
+
+
+def _slstm_terms(cfg, nb, b: int, s: int) -> int:
+    """One sLSTM block: its input gates (4·D a token) and its per-step
+    outputs."""
+    dt = _DTYPES[cfg.dtype]
+    return (nb((b, s, 4 * cfg.d_model), ("batch", "seq", None), dt)
+            + nb((b, s, cfg.d_model), ("batch", "seq", None), dt))
+
+
+def layer_terms(cfg: ArchConfig, nb, b: int, s: int) -> int:
+    """The largest one-layer forward working set at (b, s) a device: the
+    live intermediates of the family's largest block, besides its input
+    and output."""
+    if cfg.family == "ssm":
+        return max(_mlstm_terms(cfg, nb, b, s), _slstm_terms(cfg, nb, b, s))
+    attn = _attention_terms(cfg, nb, b, s, s)
+    if cfg.family == "hybrid":
+        return max(_mamba_terms(cfg, nb, b, s),
+                   attn + _mlp_terms(cfg, nb, b, s, cfg.d_ff))
+    if cfg.family == "moe":
+        return max(attn, _moe_terms(cfg, nb, b, s))
+    if cfg.family == "encdec":
+        f = cfg.n_frames
+        enc = _attention_terms(cfg, nb, b, f, f)
+        cross = _attention_terms(cfg, nb, b, s, f)
+        return max(enc, attn + cross) + _mlp_terms(cfg, nb, b, max(s, f),
+                                                   cfg.d_ff)
+    return max(attn, _mlp_terms(cfg, nb, b, s, cfg.d_ff))
+
+
+def _decode_terms(cfg, nb, b: int, cache: dict) -> int:
+    """One decode layer's working set: the f32 scores and probabilities
+    against a cache layer, or a recurrent state's f32 update."""
+    f32, dt = torch.float32, _DTYPES[cfg.dtype]
+    if cfg.family == "ssm":
+        h = cfg.n_heads
+        p = cfg.d_inner // h
+        return 3 * nb((b, h, p, p), ("batch", None, None, None), f32)
+    w = cache["k"].shape[2]
+    kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    sc = (b, kv, g, w), ("batch", "kv_heads", None, "kv_seq")
+    terms = nb(*sc, f32) + nb(*sc, dt)
+    if cfg.family == "hybrid":
+        st = (b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+        terms = max(terms, 3 * nb(st, ("batch", None, None, None), f32))
+    return terms
+
+
+def _n_blocks(cfg: ArchConfig) -> int:
+    """Blocks a forward runs (zamba's shared attention once a group,
+    whisper's encoder and decoder)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers + cfg.n_layers // cfg.attn_every
+    if cfg.family == "encdec":
+        return cfg.n_layers + cfg.enc_layers
+    return cfg.n_layers
+
+
+def _saved_terms(cfg, nb, b: int, s: int) -> int:
+    """Activations one microbatch's forward keeps for the backward, a
+    block: its input under remat ``"full"``; also its matmul outputs
+    under ``"dots"``; every intermediate without remat."""
+    dt = _DTYPES[cfg.dtype]
+    x = nb((b, s, cfg.d_model), ("batch", "act_seq", "embed"), dt)
+    if not cfg.remat:
+        return x + layer_terms(cfg, nb, b, s)
+    if cfg.remat_policy == "dots":
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        proj = (nb((b, s, (h + 2 * kv) * hd), ("batch", None, "heads"), dt)
+                + 2 * x + _mlp_terms(cfg, nb, b, s, cfg.d_ff) * 2 // 3)
+        return x + proj
+    return x
+
+
+def _gathered_layer(nb, shapes: dict, specs: dict, dtype) -> int:
+    """The largest block's parameters gathered off the FSDP axis
+    (``embed_fsdp``), as a matmul takes them: one layer of a stacked
+    group, an unstacked group whole, the embedding or the LM head."""
+    best = 0
+    for g in shapes:
+        leaves = list(zip(tree_leaves(shapes[g]), tree_leaves(specs[g])))
+        stacked = all(len(sh) >= 2 and lg[0] is None for sh, lg in leaves) \
+            and isinstance(shapes[g], dict)
+        total = 0
+        for sh, lg in leaves:
+            lg = tuple(None if a == "embed_fsdp" else a for a in lg)
+            total += nb(sh[1:], lg[1:], dtype) if stacked else \
+                nb(sh, lg, dtype)
+        best = max(best, total)
+    return best
+
+
+def _tree_bytes(nb, shapes: dict, specs: dict, dtype) -> int:
+    return sum(nb(s, lg, dtype) for s, lg in
+               zip(tree_leaves(shapes), tree_leaves(specs)))
+
+
+def plan_memory(cfg: ArchConfig, shape_name: str, mesh) -> dict:
+    """The per-device memory plan of the ``shape_name`` step on ``mesh``
+    (a DeviceMesh or a :class:`ShapeMesh`), in the JAX package's terms,
+    from the placements alone (``Model.param_specs``, the rules,
+    :func:`batch_logical`, :func:`cache_logical`, :func:`n_micro_for`
+    and the remat policy).  Bytes a device:
+
+    * ``argument_bytes``: the parameters the step reads, AdamW's state
+      (train), the batch, the cache and the position (decode);
+    * ``output_bytes``: the loss and the updated parameters and state
+      (train), the logits and the cache (prefill, decode);
+    * ``alias_bytes``: the donated arguments the outputs take (train: the
+      parameters and state; decode: the cache);
+    * ``temp_bytes``: the sum of ``terms``, the step's buffers besides
+      its arguments and outputs, as one program holds them: train — the
+      gradients (and their accumulator under microbatching), AdamW's f32
+      temporaries of one update slice, one microbatch's activations saved
+      under the remat policy, the largest block's forward working set
+      twice (its recomputed values and their gradients), its parameters
+      gathered off the FSDP axis twice (forward and backward), the logits
+      with the loss's f32 copies; prefill — the cache it writes, a
+      block's working set, the residual stream, gathered parameters and
+      the last logits; decode — the cache's double buffer (a functional
+      step writes a new cache, as the JAX package's loop carries it; the
+      port writes in place, so this is its upper bound), a layer's
+      working set, gathered parameters and the logits;
+    * ``total_bytes`` (argument + temp) and ``fits_80gb``.
+    """
+    seq, batch, kind = SHAPES[shape_name]
+    cfg = mesh_config(cfg, mesh)
+    nb = _Local(mesh)
+    model = Model(cfg, device="meta")
+    dt, f32 = model.dtype, torch.float32
+    shapes = read_params(model.param_shapes(), kind)
+    specs = read_params(model.param_specs(), kind)
+    params = _tree_bytes(nb, shapes, specs, model.pdtype)
+    args = params + sum(
+        nb(v.shape, batch_logical(cfg, k), v.dtype)
+        for k, v in input_specs(cfg, shape_name).items()
+        if not (k == "pos" and cfg.family == "ssm"))
+    b = batch                   # global shapes below: nb() places them
+    terms = {}
+    if kind == "train":
+        mdt = f32 if cfg.param_count() <= BIG_OPT_THRESHOLD \
+            else torch.bfloat16
+        opt = 2 * _tree_bytes(nb, shapes, specs, mdt) + 4
+        args += opt
+        output = 4 + params + opt
+        alias = params + opt
+        n_micro = n_micro_for(cfg, shape_name)
+        bm = b // n_micro
+        s = seq + cfg.n_image_tokens if cfg.family == "vlm" else seq
+        # AdamW updates a stacked leaf a layer at a time (four f32
+        # temporaries: gradient, two moments, update)
+        slices = [nb(sh[1:], lg[1:], f32) if len(sh) >= 3 and lg[0] is None
+                  else nb(sh, lg, f32)
+                  for sh, lg in zip(tree_leaves(shapes), tree_leaves(specs))]
+        terms["gradients"] = params * (2 if n_micro > 1 else 1)
+        terms["adamw"] = 4 * max(slices)
+        terms["saved"] = _n_blocks(cfg) * _saved_terms(cfg, nb, bm, s)
+        terms["block"] = 2 * layer_terms(cfg, nb, bm, s)
+        terms["gathered"] = 2 * _gathered_layer(nb, shapes, specs,
+                                                model.pdtype)
+        # the logits, the f32 log-softmax, the gradient scattered into it
+        # by the label gather, and the log-softmax's input gradient
+        logits = (bm, seq, model.vpad), ("batch", "seq", "vocab")
+        terms["logits"] = nb(*logits, dt) + 3 * nb(*logits, f32)
+    else:
+        cache = model.init_cache(batch, max_seq_for(cfg, shape_name))
+        cache_b = {k: nb(v.shape, cache_logical(k, v.dim()), v.dtype)
+                   for k, v in cache.items()}
+        output = nb((batch, 1, model.vpad), ("batch", "seq", "vocab"),
+                    dt) + sum(cache_b.values())
+        alias = 0
+        if kind == "prefill":
+            s = seq + cfg.n_image_tokens if cfg.family == "vlm" else seq
+            terms["cache"] = sum(cache_b.values())
+            terms["block"] = layer_terms(cfg, nb, b, s)
+            terms["residual"] = 2 * nb((b, s, cfg.d_model),
+                                       ("batch", "act_seq", "embed"), dt)
+        else:
+            args += sum(cache_b.values())
+            alias = sum(cache_b.values())
+            terms["cache"] = sum(cache_b.values())
+            terms["block"] = _decode_terms(cfg, nb, b, cache)
+        terms["gathered"] = _gathered_layer(nb, shapes, specs,
+                                            model.pdtype)
+        logits = (b, 1, model.vpad), ("batch", "seq", "vocab")
+        terms["logits"] = nb(*logits, dt) + nb(*logits, f32)
+    temp = sum(terms.values())
+    return {"argument_bytes": args, "output_bytes": output,
+            "alias_bytes": alias, "temp_bytes": temp,
+            "total_bytes": args + temp, "fits_80gb": args + temp <= HBM_BYTES,
+            "terms": terms}
+
+
+# what the recorded peak is, and why the verdict is not taken from it
 PEAK_NOTE = ("peak live bytes of DTensor's layout of the port's step: "
              "where DTensor cannot split an op the port gathers its "
              "activations to Replicate (models/layers.py foldable, "
-             "_attend_local), so this is not a sharded plan's peak, moves "
-             "with the torch version's propagation rules, and gives no fit "
-             "verdict; arguments_fit_80gb is the plan's own")
+             "_attend_local), so this is not a sharded plan's peak and "
+             "moves with the torch version's propagation rules; a "
+             "diagnostic only: the fit verdict (fits_80gb) is the plan's")
+
+# (argument, output) positions of the donated arguments and the outputs
+# that take their buffers: train donates the parameters and AdamW state
+# into the updated ones, decode the cache (the JAX package's
+# donate_argnums); prefill donates nothing
+DONATED = {"train": ((0, 1), (1, 2)), "decode": ((1, 1),), "prefill": ()}
 
 
 def _run_step(step, args):
-    """The step once under the recorders: (FLOPs, recorder, peak bytes),
-    all of one rank."""
+    """The step once under the recorders: (its outputs, the recorder, peak
+    bytes), all of one rank."""
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -407,42 +775,76 @@ def _run_step(step, args):
     rec = StepRecorder()
     grad = any(a.requires_grad for a in _leaves(args))
     with torch.set_grad_enabled(grad), implicit_replication(), mt, rec:
-        step(*args)
+        out = step(*args)
     peak = sum(v.get("Total", 0)
                for v in mt.get_tracker_snapshot("peak").values())
-    return rec.flops, rec, peak
+    return out, rec, peak
 
 
 def _leaves(tree) -> list:
     from torch.distributed.tensor import DTensor
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
     if isinstance(tree, tuple):
         return [x for v in tree for x in _leaves(v)]
     return [tree] if isinstance(tree, DTensor) else []
 
 
+def _local_bytes(tree) -> int:
+    return sum(_nbytes(a.to_local()) for a in _leaves(tree))
+
+
+def _alias_bytes(kind: str, args, out) -> int:
+    """Bytes of the donated arguments whose buffers the outputs take: a
+    donated leaf and the output leaf at its place in the tree, of one
+    local shape and dtype (in the port the very tensor, updated in place,
+    or the step counter's successor)."""
+    total = 0
+    for ai, oi in DONATED[kind]:
+        for a, o in zip(_leaves(args[ai]), _leaves(out[oi])):
+            a, o = a.to_local(), o.to_local()
+            if a.shape == o.shape and a.dtype == o.dtype:
+                total += _nbytes(a)
+    return total
+
+
 def compile_combo(cfg: ArchConfig, shape_name: str, mesh) -> dict:
-    """Build the stand-ins and trace the step once; return its stats."""
+    """Build the stand-ins and trace the step once; return its stats.
+
+    ``memory`` holds the reference's terms, per device: argument, output
+    and alias bytes of the traced step (local shards, exact), temp bytes
+    from :func:`plan_memory`, ``total_bytes`` = argument + temp (as the
+    JAX package defines it) and the verdict ``fits_80gb``; ``plan`` is
+    the plan's own account, term by term."""
     t0 = time.time()
+    kind = SHAPES[shape_name][2]
+    plan = plan_memory(cfg, shape_name, mesh)
     with sharding_rules(mesh):
         step, args = build(cfg, shape_name, mesh)
         t_build = time.time() - t0
-        flops, rec, peak = _run_step(step, args)
+        out, rec, peak = _run_step(step, args)
     t_total = time.time() - t0
-    arg_bytes = sum(_nbytes(a.to_local()) for a in _leaves(args))
+    arg_bytes = _local_bytes(args)
     coll = RA.collective_bytes(rec.collectives)
+    total = arg_bytes + plan["temp_bytes"]
     return {
         "ok": True,
         "build_s": round(t_build, 1),
         "trace_s": round(t_total, 1),
         "memory": {
             "argument_bytes": arg_bytes,
-            "arguments_fit_80gb": arg_bytes <= HBM_BYTES,
+            "output_bytes": _local_bytes(out),
+            "output_leaf_bytes": [_nbytes(o.to_local())
+                                  for o in _leaves(out)],
+            "temp_bytes": plan["temp_bytes"],
+            "alias_bytes": _alias_bytes(kind, args, out),
+            "total_bytes": total,
+            "fits_80gb": total <= HBM_BYTES,
             "peak_bytes": peak,
             "peak_note": PEAK_NOTE,
         },
-        "flops": flops,
+        "plan": plan,
+        "flops": rec.flops,
         "bytes_accessed": rec.bytes_accessed,
         "bytes_accessed_note": "summed over the aten ops, unfused",
         "collective_bytes": coll,
@@ -464,9 +866,9 @@ def roofline_combo(cfg: ArchConfig, shape_name: str, mesh,
         dcfg = with_layers(cfg, units, unroll=True)
         with sharding_rules(mesh):
             step, args = build(dcfg, shape_name, mesh, n_micro=nm_full)
-            flops, rec, _ = _run_step(step, args)
+            _, rec, _ = _run_step(step, args)
         coll = RA.collective_bytes(rec.collectives)
-        vals[units] = (flops, rec.bytes_accessed, coll["total"])
+        vals[units] = (rec.flops, rec.bytes_accessed, coll["total"])
     lf = full_depth_units(cfg)
     nm = n_micro_for(cfg, shape_name)
     flops = RA.extrapolate(vals[1][0], vals[2][0], 1, 2, lf) * nm
@@ -526,10 +928,12 @@ def run(arch: str, shape: str, meshes: list[str], out_dir: str,
             mesh = production_mesh(multi_pod=(mesh_kind == "multi"))
             result[key] = compile_combo(cfg, shape, mesh)
             m = result[key]["memory"]
+            fit = "fits" if m["fits_80gb"] else "does NOT fit"
             print(f"[ok]   {arch} × {shape} × {mesh_kind}: "
                   f"trace {result[key]['trace_s']}s, "
                   f"args {m['argument_bytes'] / 1e9:.2f} GB, "
-                  f"peak {m['peak_bytes'] / 1e9:.2f} GB/device, "
+                  f"temps {m['temp_bytes'] / 1e9:.2f} GB/device "
+                  f"({fit} 80 GB), "
                   f"coll {result[key]['collective_bytes']['total'] / 1e9:.2f}"
                   f" GB")
         except Exception as e:  # noqa: BLE001 — record and continue

@@ -133,21 +133,57 @@ def foldable(x):
     return x.redistribute(x.device_mesh, keep)
 
 
+def matmul(x, w):
+    """``x @ w`` of activations x (..., D): a DTensor made
+    :func:`foldable` first, its gradient too (:func:`fold_grad`); a
+    plain tensor as it is."""
+    return fold_grad(foldable(x) @ w)
+
+
+def einsum(eq: str, *xs):
+    """``torch.einsum(eq, *xs)``.  With a DTensor among the operands each
+    is first gathered to a split of its first dimension alone, and the
+    result's gradient too (:func:`batch_split`): the product then folds
+    no split but the first dimension's (torch 2.11's DTensor refuses to
+    flatten a batch split with a head split).  Plain operands go to
+    ``torch.einsum`` as they are."""
+    if not any(isinstance(x, DTensor) for x in xs):
+        return torch.einsum(eq, *xs)
+    return _GatherGrad.apply(torch.einsum(eq, *map(batch_split, xs)),
+                             batch_split)
+
+
+def batch_split(x):
+    """A DTensor gathered along every split but its first dimension's (a
+    plain tensor as it is)."""
+    if not isinstance(x, DTensor):
+        return x
+    keep = [Replicate() if pl.is_shard() and not pl.is_shard(0) else pl
+            for pl in x.placements]
+    if keep == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, keep)
+
+
 def fold_grad(y):
     """``y`` as it is, its gradient made :func:`foldable` on the way back:
     the backward of the product that made ``y`` folds that gradient's
     leading dimensions too.  A plain tensor is returned as it is."""
-    return _FoldGrad.apply(y) if isinstance(y, DTensor) else y
+    return _GatherGrad.apply(y, foldable) if isinstance(y, DTensor) else y
 
 
-class _FoldGrad(torch.autograd.Function):
+class _GatherGrad(torch.autograd.Function):
+    """``y`` as it is, its gradient passed through ``gather`` (a DTensor
+    redistribution) on the way back."""
+
     @staticmethod
-    def forward(ctx, y):
+    def forward(ctx, y, gather):
+        ctx.gather = gather
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
-        return foldable(g)
+        return ctx.gather(g), None
 
 
 class _Flatten(torch.autograd.Function):
@@ -244,6 +280,24 @@ def _attend_local(q, k, v, **kw):
     return fn(q, k, v)
 
 
+def shard_local(fn, x, whole: Optional[int] = None):
+    """``fn(x)`` for an ``fn`` that works on any split of ``x`` but along
+    ``whole`` (an elementwise op; a scan along ``whole``).  A DTensor runs
+    it on each rank's own shard (``local_map``; a pending sum reduced
+    and a split of ``whole`` gathered first), so that its backward is the
+    local op's: torch 2.11's DTensor has no rule for
+    ``log_sigmoid_backward``, nor for the ``flip`` in a cumulative sum's.
+    A plain tensor is passed to ``fn`` as it is."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    mesh = x.device_mesh
+    pl = [Replicate() if p.is_partial() or (
+        whole is not None and p.is_shard(whole % x.dim())) else p
+        for p in x.placements]
+    return local_map(fn, out_placements=pl, in_placements=(pl,),
+                     device_mesh=mesh)(x.redistribute(mesh, pl))
+
+
 CHUNK_Q_THRESHOLD = 16_384
 CHUNK_Q = 2_048
 
@@ -326,7 +380,11 @@ def decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *,
     groups = h // kv
     qg = unflatten(q[:, 0], 1, (kv, groups))  # query heads per KV head
     scale = hd ** -0.5
-    logits = torch.einsum("bkgd,bskd->bkgs", qg, ck).float() * scale
+    # a DTensor query and probabilities fold their head splits (torch
+    # 2.11 cannot flatten them with the batch's); the cache keeps its
+    # sequence split, which the contraction reduces across
+    logits = torch.einsum("bkgd,bskd->bkgs", foldable(qg), ck).float() \
+        * scale
     w = ck.shape[1]
     slots = torch.arange(w, device=q.device)
     if window:
@@ -338,7 +396,7 @@ def decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *,
     logits = torch.where(valid, logits, NEG)
     logits = shard(logits, "batch", "kv_heads", None, "kv_seq")
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgs,bskd->bkgd", probs, cv)    # (B, KV, G, hd)
+    out = torch.einsum("bkgs,bskd->bkgd", foldable(probs), cv)  # (B,KV,G,hd)
     return out.reshape(b, 1, h, hd)
 
 

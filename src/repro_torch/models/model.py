@@ -197,14 +197,26 @@ def _dots_contexts():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
-def _write_rows(layer, slots, rows) -> None:
-    """``layer[:, slots] = rows`` in place; a DTensor cache takes ring slots
-    (an index tensor) out of place and copies back, since DTensor keeps no
-    placement through an in-place scatter over its split."""
-    if isinstance(layer, DTensor) and not isinstance(slots, slice):
-        layer.copy_(layer.index_copy(1, slots, rows))
-    else:
+def _write_rows(layer, slots, rows, s: int) -> None:
+    """``layer[:, slots] = rows`` in place: a prompt of ``s`` tokens' last
+    rows into a cache layer (B, W, …), at its first slots or (a ring's
+    index tensor) at slot p % W for position p.  A DTensor layer is built
+    out of place and copied back, from a concatenation and a ``where``:
+    DTensor keeps no placement through an in-place write into its split,
+    and torch 2.11's has no rule for ``index_copy``."""
+    if not isinstance(layer, DTensor):
         layer[:, slots] = rows
+        return
+    w, take = layer.shape[1], rows.shape[1]
+    if take < w:                 # the first slots (p % W = p while s ≤ W)
+        pad = rows.new_zeros((rows.shape[0], w - take, *rows.shape[2:]))
+        first = torch.arange(w, device=rows.device) < take
+        rows = torch.where(first[:, None, None],
+                           torch.cat([rows, pad], 1), layer)
+    elif not isinstance(slots, slice) and s % w:
+        r = s % w                # slot j holds row (j − s) mod W
+        rows = torch.cat([rows[:, w - r:], rows[:, :w - r]], 1)
+    layer.copy_(rows)
 
 
 def _layer(stacked: dict, i: int) -> dict:
@@ -383,7 +395,7 @@ class Model:
         every route, as in the JAX package."""
         q = L.project(x, p["x_wq"])
         out = L.attend(q, k, v, causal=False, window=0)
-        return torch.einsum("bshk,hkd->bsd", out, p["x_wo"])
+        return L.fold_grad(torch.einsum("bshk,hkd->bsd", out, p["x_wo"]))
 
     def _encode(self, params, frames):
         """The encoder over the stub frontend's ``frames`` (B, F, D),
@@ -745,8 +757,8 @@ class Model:
             cache["xk"][i], cache["xv"][i] = xk, xv
         s = x.shape[1]
         take = slots.stop if isinstance(slots, slice) else len(slots)
-        _write_rows(cache["k"][i], slots, k[:, s - take:])
-        _write_rows(cache["v"][i], slots, v[:, s - take:])
+        _write_rows(cache["k"][i], slots, k[:, s - take:], s)
+        _write_rows(cache["v"][i], slots, v[:, s - take:], s)
         return x
 
     def _xlstm_prefill(self, params, tokens, cache):

@@ -36,11 +36,16 @@ refused here.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import shard
 from repro_torch.models import layers as L
 
 # offsets of the expert-major buffer, one device tensor per shape
@@ -122,15 +127,20 @@ def _offsets(n_experts: int, rows: int, device) -> torch.Tensor:
     return off
 
 
+def _up_and_hidden(cfg: ArchConfig):
+    """The experts' up-projection names and the hidden activation of
+    their outputs: silu(gate)·up, or gelu of the one input projection."""
+    act = L.activation(cfg.act)
+    if cfg.act == "silu":
+        return ("we_g", "we_u"), lambda hs: act(hs[0]) * hs[1]
+    return ("we_i",), lambda hs: act(hs[0])
+
+
 def _expert_mlp(p: dict, cfg: ArchConfig, buf: torch.Tensor, groups: int,
                 capacity: int) -> torch.Tensor:
     """The experts' MLP on the (E·g·C, D) buffer → (E·g·C, D)."""
     e, d, sp = cfg.n_experts, buf.shape[-1], cfg.expert_split
-    act = L.activation(cfg.act)
-    up = ("we_g", "we_u") if cfg.act == "silu" else ("we_i",)
-
-    def hidden(hs):
-        return act(hs[0]) * hs[1] if cfg.act == "silu" else act(hs[0])
+    up, hidden = _up_and_hidden(cfg)
 
     if cfg.attn_impl == "kernel":
         off = _offsets(e, groups * capacity, buf.device)
@@ -144,17 +154,75 @@ def _expert_mlp(p: dict, cfg: ArchConfig, buf: torch.Tensor, groups: int,
         return ops.moe_gemm(h, p["we_d"].view(e, sp * f2, d), off)
     # the JAX package's einsums, over a (g, E, C, D) view of the buffer
     gecd = buf.view(e, groups, capacity, d).transpose(0, 1)
+    return _expert_einsums(p, cfg, gecd).transpose(0, 1).reshape(-1, d)
+
+
+def _expert_einsums(p: dict, cfg: ArchConfig, gecd: torch.Tensor
+                    ) -> torch.Tensor:
+    """The experts' MLP as the JAX package's einsums: (g, E, C, D) →
+    (g, E, C, D)."""
+    e, d, sp = cfg.n_experts, gecd.shape[-1], cfg.expert_split
+    up, hidden = _up_and_hidden(cfg)
+
     if sp == 1:
-        h = hidden([torch.einsum("gecd,edf->gecf", gecd, p[name])
+        h = hidden([L.einsum("gecd,edf->gecf", gecd, p[name])
                     for name in up])
-        out = torch.einsum("gecf,efd->gecd", h, p["we_d"])
+        out = L.einsum("gecf,efd->gecd", h, p["we_d"])
     else:
         f2 = p["we_d"].shape[1]
-        h = hidden([torch.einsum("gecd,esdf->gescf", gecd,
-                                 p[name].view(e, sp, d, f2)) for name in up])
-        out = torch.einsum("gescf,esfd->gecd", h,
-                           p["we_d"].view(e, sp, f2, d))
-    return out.transpose(0, 1).reshape(-1, d)
+        h = hidden([L.einsum("gecd,esdf->gescf", gecd,
+                             p[name].view(e, sp, d, f2)) for name in up])
+        out = L.einsum("gescf,esfd->gecd", h, p["we_d"].view(e, sp, f2, d))
+    return out
+
+
+def _dispatch_local(xf, experts, n_experts: int, capacity: int):
+    """Each group's (E, C, D) buffer of its tokens' copies (the JAX
+    package's ``_dispatch_group`` over the groups): (g, E, C, D), and
+    the pairs' slots and keep flags."""
+    g, tg, d = xf.shape
+    k = experts.shape[-1]
+    slot, keep = capacity_dispatch(experts, n_experts, capacity)
+    trash = n_experts * capacity
+    buf = torch.zeros((g, trash + 1, d), dtype=xf.dtype, device=xf.device)
+    gi = torch.arange(g, device=xf.device)[:, None]
+    buf[gi, torch.where(keep, slot, trash)] = \
+        xf[:, :, None, :].expand(g, tg, k, d).reshape(g, tg * k, d)
+    return buf[:, :-1].view(g, n_experts, capacity, d), slot, keep
+
+
+def _combine_local(out, slot, keep, weights):
+    """Each token's k expert rows, weighted and summed in order: (g, E,
+    C, D) → (g, T, D)."""
+    g, e, c, d = out.shape
+    rows = torch.gather(out.reshape(g, e * c, d), 1,
+                        slot[..., None].expand(-1, -1, d))
+    gathered = rows * (weights.reshape(g, -1, 1) * keep[..., None])
+    return gathered.view(g, -1, weights.shape[-1], d).sum(2)
+
+
+def _moe_sharded(p: dict, cfg: ArchConfig, xf, weights, experts,
+                 capacity: int):
+    """The dispatch, experts and combine on DTensors, as the JAX package
+    shards them: dispatch and combine on each rank's own groups
+    (``local_map``: DTensor has no rule for ``searchsorted`` and cannot
+    place an indexed write into a split buffer), the (g, E, C, D) buffer
+    split over groups and experts, the experts' einsums between."""
+    mesh = xf.device_mesh
+    grp = [pl if pl.is_shard(0) else Replicate() for pl in xf.placements]
+    buf, slot, keep = local_map(
+        functools.partial(_dispatch_local, n_experts=cfg.n_experts,
+                          capacity=capacity),
+        out_placements=(grp, grp, grp), in_placements=(grp, grp),
+        device_mesh=mesh)(xf.redistribute(mesh, grp),
+                          experts.redistribute(mesh, grp))
+    buf = shard(buf, "moe_grp", "experts", None, None)
+    out = shard(_expert_einsums(p, cfg, buf), "moe_grp", "experts", None,
+                None)
+    return local_map(_combine_local, out_placements=grp,
+                     in_placements=(grp, grp, grp, grp), device_mesh=mesh)(
+        out.redistribute(mesh, grp), slot, keep,
+        weights.redistribute(mesh, grp))
 
 
 def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
@@ -166,10 +234,13 @@ def moe_mlp(p: dict, cfg: ArchConfig, x: torch.Tensor):
         g //= 2
     tg = t // g
     capacity = int(tg * cfg.top_k / cfg.n_experts * cfg.capacity_factor) + 1
-    xf = x.reshape(g, tg, d)
+    xf = L.foldable(x).reshape(g, tg, d)
 
     weights, experts, aux = router(p, xf, cfg)
     aux = aux.mean()
+    if isinstance(xf, DTensor):
+        y = _moe_sharded(p, cfg, xf, weights, experts, capacity)
+        return L.fold_grad(y.reshape(b, s, d).to(x.dtype)), aux
     slot, keep = capacity_dispatch(experts, e, capacity)
     rows = _buffer_rows(slot, capacity, g)                      # (g, tg·k)
     trash = e * g * capacity

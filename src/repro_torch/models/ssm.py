@@ -16,6 +16,7 @@ state N = cfg.ssm_state.  State cache per layer: (B, H, P, N).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 
 CHUNK = 128
 
@@ -33,7 +35,7 @@ def _split_in_proj(p: dict, cfg: ArchConfig, x: torch.Tensor):
     z, xs, B and C are views into the projection; dt is
     ``softplus(dt + dt_bias)``."""
     di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    proj = x @ p["w_in"]                 # (B,S, 2*di + 2*n + h)
+    proj = L.matmul(x, p["w_in"])        # (B,S, 2*di + 2*n + h)
     z, xs, bmat, cmat, dt = torch.split(proj, [di, di, n, n, h], dim=-1)
     b, s, _ = x.shape
     z = z.reshape(b, s, h, cfg.ssm_head_dim)
@@ -48,7 +50,7 @@ def _gate_out(p: dict, cfg: ArchConfig, y: torch.Tensor, xs: torch.Tensor,
     b, s = y.shape[:2]
     y = y + xs * p["d_skip"][None, None, :, None]    # D skip connection
     y = y * F.silu(z)                                # gated output
-    return y.reshape(b, s, cfg.d_inner) @ p["w_out"]
+    return L.matmul(y.reshape(b, s, cfg.d_inner), p["w_out"])
 
 
 def ssd_chunked(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -74,7 +76,7 @@ def ssd_chunked(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
     # per-step log decay  ℓ_t = a·dt_t  (per head), cumulated in a chunk
     ldec = dt_c * a[None, None, None, :]             # (B,nc,c,H) ≤ 0
-    cum = torch.cumsum(ldec, dim=2)
+    cum = L.shard_local(functools.partial(torch.cumsum, dim=2), ldec, 2)
 
     # intra-chunk: M[i,j] = exp(cum_i − cum_j) · (C_i·B_j) · dt_j, i ≥ j
     ci = cum[:, :, :, None, :]                       # (B,nc,c,1,H)
@@ -82,14 +84,14 @@ def ssd_chunked(p: dict, cfg: ArchConfig, x: torch.Tensor,
     decay = torch.exp(torch.clamp(ci - cj, -60.0, 0.0))
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=x.device))
-    cb = torch.einsum("bgin,bgjn->bgij", c_c, b_c)   # (B,nc,c,c)
+    cb = L.einsum("bgin,bgjn->bgij", c_c, b_c)   # (B,nc,c,c)
     m = cb[..., None] * decay * dt_c[:, :, None, :, :]
     m = torch.where(causal[None, None, :, :, None], m, 0.0)
-    y_intra = torch.einsum("bgijh,bgjhp->bgihp", m, xs_c)
+    y_intra = L.einsum("bgijh,bgjhp->bgihp", m, xs_c)
 
     # chunk summaries: S_g = Σ_j exp(cum_end − cum_j) dt_j B_j x_j
     tail = torch.exp(torch.clamp(cum[:, :, -1:, :] - cum, -60.0, 0.0))
-    sum_g = torch.einsum("bgjh,bgjn,bgjhp->bghpn", tail * dt_c, b_c, xs_c)
+    sum_g = L.einsum("bgjh,bgjn,bgjhp->bghpn", tail * dt_c, b_c, xs_c)
     chunk_decay = torch.exp(torch.clamp(cum[:, :, -1, :], -60.0, 0.0))
 
     # inter-chunk recurrence over chunk states, in f32; each chunk sees
@@ -106,7 +108,7 @@ def ssd_chunked(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
     # the carried state's contribution: y_t += C_t · (decay_to_t · S_prev)
     into = torch.exp(torch.clamp(cum, -60.0, 0.0))   # from chunk start
-    y_inter = torch.einsum("bgin,bgih,bghpn->bgihp", c_c, into,
+    y_inter = L.einsum("bgin,bgih,bghpn->bgihp", c_c, into,
                            prev_states.to(x.dtype))
 
     y = (y_intra + y_inter).reshape(b, s, h, pd)
@@ -144,9 +146,9 @@ def ssd_decode_step(p: dict, cfg: ArchConfig, x: torch.Tensor,
     a = -torch.exp(p["a_log"])
     dec = torch.exp(dt[:, 0, :] * a[None, :])        # (B,H)
     # state ← decay·state + dt·x_t ⊗ B_t
-    upd = torch.einsum("bhp,bn,bh->bhpn", xs[:, 0], bmat[:, 0], dt[:, 0])
+    upd = L.einsum("bhp,bn,bh->bhpn", xs[:, 0], bmat[:, 0], dt[:, 0])
     state = state * dec[:, :, None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", cmat[:, 0], state)  # C_t · state
+    y = L.einsum("bn,bhpn->bhp", cmat[:, 0], state)  # C_t · state
     y = y + xs[:, 0] * p["d_skip"][None, :, None]
     y = (y * F.silu(z[:, 0]))[:, None]               # (B,1,H,P)
     b = x.shape[0]

@@ -15,10 +15,13 @@ State caches: mLSTM (B, H, P, P) + (B, H, P); sLSTM (B, H, P) × 3.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
 
 CHUNK = 256
 
@@ -38,12 +41,12 @@ def mlstm_parallel(p: dict, cfg: ArchConfig, x: torch.Tensor,
     final (C, n) state in ``x.dtype``."""
     b, s, d = x.shape
     h, pd = _heads(cfg)
-    q = (x @ p["wq"]).reshape(b, s, h, pd)
-    k = (x @ p["wk"]).reshape(b, s, h, pd) * pd ** -0.5
-    v = (x @ p["wv"]).reshape(b, s, h, pd)
-    gates = x @ p["w_gate"]                          # (B,S,2H)
+    q = L.matmul(x, p["wq"]).reshape(b, s, h, pd)
+    k = L.matmul(x, p["wk"]).reshape(b, s, h, pd) * pd ** -0.5
+    v = L.matmul(x, p["wv"]).reshape(b, s, h, pd)
+    gates = L.matmul(x, p["w_gate"])                 # (B,S,2H)
     logi, logf = gates.chunk(2, dim=-1)
-    logf = F.logsigmoid(logf.float())                # (B,S,H) ≤ 0
+    logf = L.shard_local(F.logsigmoid, logf.float())  # (B,S,H) ≤ 0
     logi = logi.float()
 
     nc = max(1, s // CHUNK)
@@ -56,7 +59,7 @@ def mlstm_parallel(p: dict, cfg: ArchConfig, x: torch.Tensor,
     vc = v.reshape(b, nc, c, h, pd)
     fi = logf.reshape(b, nc, c, h)
     ii = logi.reshape(b, nc, c, h)
-    cumf = torch.cumsum(fi, dim=2)
+    cumf = L.shard_local(functools.partial(torch.cumsum, dim=2), fi, 2)
 
     # intra-chunk: M[i,j] = exp(cumf_i − cumf_j + i_j) for j ≤ i
     expo = cumf[:, :, :, None, :] - cumf[:, :, None, :, :] + \
@@ -64,16 +67,16 @@ def mlstm_parallel(p: dict, cfg: ArchConfig, x: torch.Tensor,
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=x.device))[None, None, :, :, None]
     m = torch.where(causal, torch.exp(expo.clamp(-60.0, 30.0)), 0.0)
-    qk = torch.einsum("bgihp,bgjhp->bgijh", qc, kc)
+    qk = L.einsum("bgihp,bgjhp->bgijh", qc, kc)
     w = (m * qk).to(x.dtype)                     # gated linear attention
-    y_intra_v = torch.einsum("bgijh,bgjhp->bgihp", w, vc)
+    y_intra_v = L.einsum("bgijh,bgjhp->bgihp", w, vc)
     n_q = w.sum(dim=3)                           # q·(Σ_j M[i,j] k_j)
 
     # chunk summaries for the recurrence (f32, as JAX promotes them)
     tail = torch.exp((cumf[:, :, -1:, :] - cumf + ii).clamp(-60.0, 30.0))
     kf, vf = kc.float(), vc.float()
-    c_sum = torch.einsum("bgjhp,bgjhq->bghpq", tail[..., None] * vf, kf)
-    n_sum = torch.einsum("bgjh,bgjhp->bghp", tail, kf)
+    c_sum = L.einsum("bgjhp,bgjhq->bghpq", tail[..., None] * vf, kf)
+    n_sum = L.einsum("bgjh,bgjhp->bghp", tail, kf)
     cdec = torch.exp(cumf[:, :, -1, :].clamp(-60.0, 0.0))      # (B,nc,H)
 
     if state is None:
@@ -93,14 +96,14 @@ def mlstm_parallel(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
     into = torch.exp(cumf.clamp(-60.0, 0.0))     # decay chunk-start → i
     qf = qc.float()
-    y_inter = into[..., None] * torch.einsum("bghpq,bgihq->bgihp",
+    y_inter = into[..., None] * L.einsum("bghpq,bgihq->bgihp",
                                              c_prev, qf)
-    n_inter = into * torch.einsum("bghp,bgihp->bgih", n_prev, qf)
+    n_inter = into * L.einsum("bghp,bgihp->bgih", n_prev, qf)
 
     num = (y_intra_v + y_inter).reshape(b, s, h, pd)
     den = (n_q + n_inter).reshape(b, s, h)
     y = num / den.abs().clamp(min=1.0)[..., None]
-    out = y.to(x.dtype).reshape(b, s, cfg.d_inner) @ p["w_out"]
+    out = L.matmul(y.to(x.dtype).reshape(b, s, cfg.d_inner), p["w_out"])
     return out, (cm.to(x.dtype), nm.to(x.dtype))
 
 
@@ -114,14 +117,14 @@ def mlstm_decode_step(p: dict, cfg: ArchConfig, x: torch.Tensor, state):
     v = (x @ p["wv"]).reshape(b, h, pd)
     gates = (x @ p["w_gate"]).reshape(b, 2 * h)
     logi, logf = gates.chunk(2, dim=-1)
-    f = torch.exp(F.logsigmoid(logf.float()))
+    f = torch.exp(L.shard_local(F.logsigmoid, logf.float()))
     i = torch.exp(logi.float().clamp(-60.0, 30.0))
     cm = cm * f[..., None, None] + i[..., None, None] * \
-        torch.einsum("bhp,bhq->bhpq", v, k)
+        L.einsum("bhp,bhq->bhpq", v, k)
     nm = nm * f[..., None] + i[..., None] * k
     qf = q.float()
-    num = torch.einsum("bhpq,bhq->bhp", cm, qf)
-    den = torch.einsum("bhp,bhp->bh", nm, qf)
+    num = L.einsum("bhpq,bhq->bhp", cm, qf)
+    den = L.einsum("bhp,bhp->bh", nm, qf)
     y = num / den.abs().clamp(min=1.0)[..., None]
     out = y.reshape(b, 1, cfg.d_inner).to(x.dtype) @ p["w_out"]
     return out, (cm.to(x.dtype), nm.to(x.dtype))
@@ -135,11 +138,11 @@ def _slstm_cell(p, h_prev, c_prev, n_prev, xt):
     """One sLSTM step for all heads.  Shapes: (B, H, P)."""
     b, hh, pd = h_prev.shape
     inp = torch.cat([xt.reshape(b, hh, pd), h_prev], dim=-1)
-    zifo = torch.einsum("bhp,hpq->bhq", inp, p["w_rec"]) + p["b_rec"]
+    zifo = L.einsum("bhp,hpq->bhq", inp, p["w_rec"]) + p["b_rec"]
     z, i, f, o = zifo.chunk(4, dim=-1)              # (B,H,P) each
     z = torch.tanh(z)
     i = torch.exp(i.float().clamp(-60.0, 20.0))
-    f = torch.exp(F.logsigmoid(f.float()))
+    f = torch.exp(L.shard_local(F.logsigmoid, f.float()))
     o = torch.sigmoid(o)
     c = f * c_prev + i * z.float()
     n = f * n_prev + i
@@ -152,7 +155,7 @@ def slstm_scan(p: dict, cfg: ArchConfig, x: torch.Tensor,
     """Sequential sLSTM over the sequence.  x: (B,S,D) → (B,S,D)."""
     b, s, d = x.shape
     h, pd = cfg.n_heads, d // cfg.n_heads
-    xt = x @ p["w_in"]                               # (B,S,D)
+    xt = L.matmul(x, p["w_in"])                      # (B,S,D)
     if state is None:
         hp = torch.zeros((b, h, pd), dtype=x.dtype, device=x.device)
         cp = torch.zeros((b, h, pd), dtype=torch.float32, device=x.device)
@@ -164,7 +167,7 @@ def slstm_scan(p: dict, cfg: ArchConfig, x: torch.Tensor,
         hp, cp, np_ = _slstm_cell(p, hp, cp, np_, xt[:, t])
         ys.append(hp)
     y = torch.stack(ys, dim=1).reshape(b, s, d)
-    return y @ p["w_out"], (hp, cp, np_)
+    return L.matmul(y, p["w_out"]), (hp, cp, np_)
 
 
 def slstm_decode_step(p: dict, cfg: ArchConfig, x: torch.Tensor, state):

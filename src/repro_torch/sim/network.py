@@ -31,6 +31,11 @@ SEGMENT_KB = 38.0          # 1 s video segment size (§8.1)
 NOMINAL_BW_MBPS = 20.0     # bandwidth assumed by the t̂ benchmarks
 
 
+def transfer_ms(size_kb: float, bw_mbps: float) -> float:
+    """Transfer time of ``size_kb`` at ``bw_mbps`` (8 kb per kB)."""
+    return size_kb * 8.0 / max(bw_mbps, 1e-3)
+
+
 def bandwidth_penalty_ms(bw_mbps: torch.Tensor,
                          segment_kb: float = SEGMENT_KB) -> torch.Tensor:
     """Signed shaping delta vs the nominal benchmark bandwidth.

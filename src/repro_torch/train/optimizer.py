@@ -19,6 +19,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -46,10 +47,19 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _slices(t: torch.Tensor):
-    """A stacked leaf (layers, ...) a layer at a time, so the f32
-    temporaries of an update stay a layer's size."""
-    return t.unbind(0) if t.dim() >= 3 else (t,)
+def _slices(*ts: torch.Tensor):
+    """Leaves of one shape (gradient, moments, parameter) a slice of
+    dimension 0 at a time when they are 3-D or more (a stacked leaf a
+    layer at a time), so the f32 temporaries of an update stay a slice's
+    size; whole where a DTensor among them is split along dimension 0
+    (DTensor cannot unbind a split).  The update is elementwise, so the
+    two give the same numbers."""
+    if ts[0].dim() < 3 or any(
+            isinstance(t, DTensor) and any(p.is_shard(0)
+                                           for p in t.placements)
+            for t in ts):
+        return (ts,)
+    return zip(*(t.unbind(0) for t in ts))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +93,7 @@ class AdamW:
                                device=stepf.device) ** stepf
         for g, m, v, p in zip(*map(tree_leaves, (grads, state.mu, state.nu,
                                                  params))):
-            for gs, ms, vs, ps in zip(*map(_slices, (g, m, v, p))):
+            for gs, ms, vs, ps in _slices(g, m, v, p):
                 self._update_leaf(gs, ms, vs, ps, bc1, bc2)
         return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 

@@ -292,3 +292,128 @@ def test_queue_mutation(seed):
     mask = rng.random((E, Q)) < 0.5
     _same(tuple(T.edge_remove(qt, _t(mask))),
           tuple(jax.vmap(J.edge_remove)(qj, mask)))
+
+
+# ---------------------------------------------------------------------------
+# per-event functions, on the event sequences of tests/test_jax_sched.py
+# ---------------------------------------------------------------------------
+
+def _close(got, want):
+    """Integer and boolean fields exactly, floats within 1e-6."""
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.shape == w.shape
+        if w.dtype == np.bool_ or np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(g.astype(w.dtype), w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_adapt_observe_sequence(seed):
+    """A run of observations (1–30 durations in [50, 2000] ms, windows of
+    2–10), state against state after every one."""
+    rng = np.random.default_rng(300 + seed)
+    w = int(rng.integers(2, 11))
+    sj = J.adapt_init(jnp.array([400.0]), w=w)
+    st = T.adapt_init(torch.tensor([400.0]), w=w)
+    for o in rng.uniform(50, 2000, int(rng.integers(1, 31))):
+        sj = J.adapt_observe(sj, 0, float(o), eps=10.0)
+        st = T.adapt_observe(st, 0, float(o), eps=10.0)
+        _close(st, sj)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_adapt_skip_cooling_sequence(seed):
+    """Four 900 ms observations inflate t̂, then sends and skips at sorted
+    times in [0, 40 s] cool it (t_cp 10 s)."""
+    rng = np.random.default_rng(310 + seed)
+    static_j, static_t = jnp.array([400.0]), torch.tensor([400.0])
+    sj = J.adapt_init(static_j, w=4)
+    st = T.adapt_init(static_t, w=4)
+    for _ in range(4):
+        sj = J.adapt_observe(sj, 0, 900.0, eps=10.0)
+        st = T.adapt_observe(st, 0, 900.0, eps=10.0)
+    n = int(rng.integers(1, 26))
+    for sent, t in zip(rng.random(n) < 0.5,
+                       np.sort(rng.uniform(0, 40_000, n))):
+        if sent:
+            sj, st = J.adapt_on_sent(sj, 0), T.adapt_on_sent(st, 0)
+        else:
+            sj = J.adapt_on_skip(sj, 0, float(t), static_j, t_cp=10_000.0)
+            st = T.adapt_on_skip(st, 0, float(t), static_t, t_cp=10_000.0)
+        _close(st, sj)
+
+
+@pytest.mark.parametrize("seed", SEEDS + [3, 4])
+def test_adapt_mixed_sequence(seed):
+    """Interleaved observe / skip / sent events over two models (1–40
+    events, 1–2000 ms apart, windows of 2–8, t_cp 5 s)."""
+    rng = np.random.default_rng(320 + seed)
+    w = int(rng.integers(2, 9))
+    static_j, static_t = jnp.array([400.0, 400.0]), torch.tensor([400.0,
+                                                                  400.0])
+    sj, st = J.adapt_init(static_j, w=w), T.adapt_init(static_t, w=w)
+    now = 0.0
+    for _ in range(int(rng.integers(1, 41))):
+        m, kind = int(rng.integers(0, 2)), int(rng.integers(0, 3))
+        val = float(rng.uniform(50, 2000))
+        now += float(rng.integers(1, 2001))
+        if kind == 0:
+            sj = J.adapt_observe(sj, m, val, eps=10.0)
+            st = T.adapt_observe(st, m, val, eps=10.0)
+        elif kind == 1:
+            sj = J.adapt_on_skip(sj, m, now, static_j, t_cp=5_000.0)
+            st = T.adapt_on_skip(st, m, now, static_t, t_cp=5_000.0)
+        else:
+            sj, st = J.adapt_on_sent(sj, m), T.adapt_on_sent(st, m)
+        _close(st, sj)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_adapt_select(seed):
+    """A masked choice between two whole estimator states."""
+    rng = np.random.default_rng(330 + seed)
+    a = _adapt_state(rng)
+    b = _adapt_state(rng)
+    aj, at = _pair(J.AdaptState, T.AdaptState, a)
+    bj, bt = _pair(J.AdaptState, T.AdaptState, b)
+    for pred in (True, False, bool(rng.random() < 0.5)):
+        _same(tuple(T.adapt_select(torch.tensor(pred), at, bt)),
+              tuple(J.adapt_select(jnp.asarray(pred), aj, bj)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_cloud_push_remove_sequence(seed):
+    """Pushes (some disabled) into a 16-slot cloud queue past full, with
+    removals between, field by field after every event, as the steal
+    test of tests/test_jax_sched.py fills its queue."""
+    rng = np.random.default_rng(340 + seed)
+    cqj = J.empty_cloud_queue(QC)
+    cqt = T.empty_cloud_queue(QC, device="cpu")
+    for _ in range(3 * QC):
+        if rng.random() < 0.25:
+            idx = int(rng.integers(0, QC))
+            cqj, cqt = J.cloud_remove(cqj, idx), T.cloud_remove(cqt, idx)
+        else:
+            mi = int(rng.integers(0, M))
+            m = MODELS[mi]
+            trig = float(rng.integers(0, 200) * 10)
+            dl = trig + float(m.deadline)
+            enable = bool(rng.random() < 0.9)
+            cqj, okj = J.cloud_push(cqj, trig, m.t_edge, dl,
+                                    m.gamma_cloud <= 0, m.steal_rank(),
+                                    enable)
+            cqt, okt = T.cloud_push(cqt, trig, m.t_edge, dl,
+                                    m.gamma_cloud <= 0, m.steal_rank(),
+                                    enable)
+            assert bool(okt) == bool(okj)
+        _close(cqt, cqj)
+
+
+def test_transfer_ms_matches_jax():
+    from repro.sim import network as JN
+    from repro_torch.sim import network as TN
+    for kb, bw in ((38.0, 20.0), (38.0, 0.0), (512.0, 3.5), (0.0, 1e-4),
+                   (1.5, 1e-3)):
+        assert TN.transfer_ms(kb, bw) == JN.transfer_ms(kb, bw)

@@ -153,6 +153,102 @@ def _decode_case(world: int, say) -> None:
     say("opt_decode")
 
 
+def _sharded_model_case(world: int, say) -> None:
+    """The DTensor-only branches that the dry run's traces take, here on
+    values: the MoE layer's sharded dispatch, experts and combine
+    (reduced qwen3-moe, one dispatch group a data rank), reduced xLSTM's
+    loss and gradients (its log-sigmoid gates on each rank's shards) and
+    an AdamW step of leaves split along dimension 0, each against the
+    same work on plain tensors (f32; 1e-5, AdamW bitwise)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.sharding import named_sharding, sharding_rules
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import (AdamW, AdamWState, tree_leaves,
+                                             tree_map)
+
+    mesh = init_device_mesh("cpu", (world // 2, 2),
+                            mesh_dim_names=("data", "model"))
+
+    def placed(t, logical):
+        return distribute_tensor(t, mesh, named_sharding(t.shape, logical,
+                                                         mesh))
+
+    def full(t):
+        return t.full_tensor()
+
+    cfg = dataclasses.replace(reduced(ARCHS["qwen3-moe-30b-a3b"]),
+                              moe_groups=world // 2)
+    model = Model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(2))
+    p = {k: v[0] for k, v in params["blocks"].items()}
+    specs = {k: v[1:] for k, v in model.param_specs()["blocks"].items()}
+    x = torch.randn(4, 16, cfg.d_model,
+                    generator=torch.Generator().manual_seed(3))
+    want, want_aux = MOE.moe_mlp(p, cfg, x)
+    # as the dry run traces: plain constants replicate
+    with sharding_rules(mesh), implicit_replication():
+        got, aux = MOE.moe_mlp({k: placed(v, specs[k]) for k, v in p.items()},
+                               cfg, placed(x, ("batch", None, None)))
+    torch.testing.assert_close(full(got), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(full(aux), want_aux, rtol=1e-5, atol=1e-5)
+    say("moe_sharded")
+
+    cfg = reduced(ARCHS["xlstm-1.3b"])
+    model = Model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(4))
+    tokens = torch.randint(0, cfg.vocab, (4, 16),
+                           generator=torch.Generator().manual_seed(5))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    loss = model.loss(params, batch)
+    want = torch.autograd.grad(loss, leaves)
+    dparams = tree_map(lambda t, lg: placed(t.detach(), lg).requires_grad_(
+        True), params, model.param_specs())
+    with sharding_rules(mesh), implicit_replication():
+        # the tokens whole on every rank: DTensor's masked embedding
+        # partial cannot take a batch split over the data axis that also
+        # splits the table's width (a mask of the local rows)
+        dbatch = {k: placed(v, (None, "seq")) for k, v in batch.items()}
+        dloss = model.loss(dparams, dbatch)
+        got = torch.autograd.grad(dloss, tree_leaves(dparams))
+    torch.testing.assert_close(full(dloss), loss.detach(), rtol=1e-5,
+                               atol=1e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(full(g), w, rtol=1e-5, atol=1e-5)
+    say("xlstm_sharded")
+
+    gen = torch.Generator().manual_seed(6)
+    leaves = {"w": torch.randn(4, 6, 8, generator=gen),
+              "b": torch.randn(4, 6, 8, generator=gen)}
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=gen), leaves)
+    opt = AdamW(lr=1e-2)
+    plain = tree_map(torch.clone, leaves)
+    state = opt.init(plain)
+    opt.update(grads, state, plain)       # a leaf a slice of dimension 0
+    split = {k: placed(v.clone(), ("embed_fsdp", None, None))
+             for k, v in leaves.items()}
+    dgrads = {k: placed(v, ("embed_fsdp", None, None))
+              for k, v in grads.items()}
+    dstate = AdamWState(
+        step=placed(state.step.new_zeros(()), ()),
+        mu=tree_map(lambda t: placed(torch.zeros_like(t),
+                                     ("embed_fsdp", None, None)), leaves),
+        nu=tree_map(lambda t: placed(torch.zeros_like(t),
+                                     ("embed_fsdp", None, None)), leaves))
+    with implicit_replication():
+        opt.update(dgrads, dstate, split)
+    for k in leaves:
+        assert torch.equal(full(split[k]), plain[k]), k
+        assert torch.equal(full(dstate.mu[k]), state.mu[k]), k
+    say("adamw_sharded")
+
+
 def _rank(rank: int, world: int, port: int) -> None:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
     torch.set_num_threads(1)
@@ -165,6 +261,7 @@ def _rank(rank: int, world: int, port: int) -> None:
     try:
         _fleet_cases(world, say)
         _decode_case(world, say)
+        _sharded_model_case(world, say)
         dist.barrier()
     finally:
         dist.destroy_process_group()
