@@ -16,8 +16,9 @@ served and decoded at its published width and depth — head dim 192:
 nemotron-4-340b at its published width — the encdec family:
 whisper-medium served and decoded at its published width and depth —
 and the trainer: granite-3-2b trained at its published size.  A served forward on the card
-is a CUDA graph, captured once and replayed, and so is a window of fleet
-ticks: ``FleetProgram.step_chunk`` keeps a graph per shape key in its
+is a CUDA graph, captured once and replayed, and so is a train step
+(``TrainProgram``: loss, gradient and AdamW in one graph) and a window
+of fleet ticks: ``FleetProgram.step_chunk`` keeps a graph per shape key in its
 program cache, runs a key's first window eagerly (the warm-up) and
 captures it, and replays it for every later window; the kernel's
 launches a replay are counted as its capture recorded them.  Its six
@@ -205,12 +206,20 @@ Phases, each printed on its own line and each failing the script
     granite-3-2b at full width, 2 layers, f32, 4 AdamW steps at B 2 × S
     64 against ``tests/golden/torch_port_train.json`` (the step-0 loss
     and gradient norm within 1e-5 relative, later losses and the final
-    parameters' sums within 1e-3); (c) the same loss on ``"kernel"``
-    with parameters that require grad raises the dispatch's forward-only
-    error; (b) ``train`` as ``python -m repro_torch.launch.train --full``
-    runs it: granite-3-2b at its published size, 10 steps at B 8 × S 128,
-    every loss finite and the last below the first, step time p50,
-    tokens/s and peak memory;
+    parameters' sums within 1e-3), and a ``TrainProgram`` (a warm step,
+    then replays of its captured step) on the same weights and batches
+    bitwise those eager steps; (c) the same loss on ``"kernel"`` with
+    parameters that require grad raises the dispatch's forward-only
+    error; (b) granite-3-2b at its published size, 10 steps at B 8 × S
+    128, first eagerly (``make_train_step`` on ``train``'s init and
+    batches), then freed and run again through ``train`` as ``python -m
+    repro_torch.launch.train --full`` runs it (captured): the losses
+    bitwise the eager ones, every loss finite and the last below the
+    first; eager step p50 and captured replay p50, tokens/s and peak
+    memory, capture seconds and graph nodes, a profile of one more eager
+    step and of one more replay; (d) each of the 10 archs' reduced
+    variants, 3 eager steps against a warm step and 2 replays, losses,
+    parameters, moments and step count bitwise;
 25. the fleet under a mesh at world size 1 (``make_host_mesh()``: one
     ``nccl`` rank, a ``(1, 1)`` mesh): phase 20's 28-edge × 4-seed
     ``run_fleet_batch`` and its padded ``run_batch`` under a ``(1, 1)``
@@ -234,9 +243,10 @@ Phases, each printed on its own line and each failing the script
     strided view, one down); ``moe_gemm`` timed at grok's split and
     unsplit shapes beside ``torch.bmm`` and the byte bound;
 28. remat ``"dots"``: phase 24 (b)'s configuration (granite-3-2b, 40
-    layers, B 8 × S 128, lr 3e-4) trained under ``"dots"``: losses equal
-    to (b)'s under ``"full"``, step p50, tokens/s and peak memory beside
-    (b)'s;
+    layers, B 8 × S 128, lr 3e-4) trained under ``"dots"`` through
+    ``train`` (captured; its warm step is its eager step): losses equal
+    to (b)'s captured ones under ``"full"``, capture seconds and nodes,
+    replay p50, tokens/s and peak memory beside (b)'s;
 29. the dry run: ``python -m repro_torch.launch.dryrun --arch
     granite-3-2b --shape train_4k --mesh single`` and ``--shape
     decode_32k``, each combo and its roofline ok (fake ranks; they pass
@@ -293,8 +303,8 @@ METRO_TICK_FACTOR = 2.0
 # phase 9's horizon shrinks (never below MIN_METRO_MS) when the phases
 # before it ran so slowly that the whole script, with RESERVE_S left for
 # phases 10-18 and 21 (266 s on an H100, the fleet on the captured
-# program: PERF.md), 22-24 (about 90 s, the encdec family and the
-# trainer) and 25-29 (about 120 s: the mesh runs, opt_decode, the split
+# program: PERF.md), 22-24 (about 110 s, the encdec family and the
+# trainer, eager and captured) and 25-29 (about 120 s: the mesh runs, opt_decode, the split
 # experts, remat "dots", and what the dry run's children take past
 # them), would pass this budget
 BUDGET_S = 850.0
@@ -3208,25 +3218,174 @@ def phase_whisper(dev) -> dict:
     return dict(launches=launches, times=rows)
 
 
+def trees_equal(a: dict, b: dict) -> bool:
+    """Every leaf of two parameter or moment trees bitwise equal."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves
+    return all(torch.equal(x.detach(), y.detach())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def states_match(p1, s1, p2, s2) -> bool:
+    """Parameters, moments and step count of two trainings bitwise."""
+    return (trees_equal(p1, p2) and trees_equal(s1.mu, s2.mu)
+            and trees_equal(s1.nu, s2.nu) and int(s1.step) == int(s2.step))
+
+
+def check_program(phase: str, prog, state, steps: int, ptr: int) -> None:
+    """A program that warmed, captured and replayed every later step,
+    its step count read from the state's own tensor."""
+    if prog.graph is None or prog.replays != steps - 1:
+        fail(f"phase {phase}: the train program replayed {prog.replays} of "
+             f"{steps} steps (graph {prog.graph is not None}): every step "
+             f"after the first must replay")
+    if state.step.data_ptr() != ptr or int(state.step) != steps:
+        fail(f"phase {phase}: the step count reads {int(state.step)} "
+             f"(want {steps}) or left its storage")
+
+
+def eager_train(dev, cfg, z: dict) -> dict:
+    """``train``'s run without its program: the same init (a generator on
+    the card seeded 0), the same ``FastSyntheticLM`` batches, each step
+    through ``make_train_step``; the losses, step p50, peak memory and a
+    profile of one more step."""
+    import torch
+    from repro_torch.data.pipeline import FastSyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import batch_tensors, make_train_step
+    from repro_torch.train.optimizer import AdamW
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = Model(cfg, dev), AdamW(lr=z["lr"])
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = opt.init(params)
+    step = make_train_step(model, opt)
+    data = FastSyntheticLM(vocab=cfg.vocab, seq_len=z["seq"],
+                           batch=z["batch"], seed=0).batches()
+    losses, stamps = [], []
+    for _ in range(z["steps"]):
+        loss, params, state = step(params, state,
+                                   batch_tensors(cfg, next(data), dev))
+        losses.append(float(loss))
+        stamps.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    fb = batch_tensors(cfg, one_more_batch(cfg, z), dev)
+    prof = profile_call(lambda: step(params, state, fb))
+    step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    return dict(losses=losses, p50=step_s[len(step_s) // 2], peak=peak,
+                prof=prof)
+
+
+def one_more_batch(cfg, z: dict) -> dict:
+    """The batch the profile of one more step takes (data seed 1)."""
+    from repro_torch.data.pipeline import FastSyntheticLM
+    return next(FastSyntheticLM(vocab=cfg.vocab, seq_len=z["seq"],
+                                batch=z["batch"], seed=1).batches())
+
+
+def captured_train(dev, cfg, z: dict, phase: str) -> dict:
+    """``train`` as ``launch/train.py --full`` runs it (its program
+    captured): the losses, step p50 (steps 2 on: replays), first step,
+    peak memory, wall, the capture's numbers and a profile of one more
+    replay."""
+    import torch
+    from repro_torch.train.loop import train
+    stamps = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses = train(cfg, steps=z["steps"], batch=z["batch"],
+                          seq_len=z["seq"], lr=z["lr"], log_every=1,
+                          log=lambda _: stamps.append(time.perf_counter()),
+                          device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prog = state.program
+    check_program(phase, prog, state.opt_state, z["steps"],
+                  state.opt_state.step.data_ptr())
+    out = dict(losses=losses, peak=peak, wall=wall, first=stamps[0] - t0,
+               nodes=prog.nodes, capture_s=prog.capture_s,
+               instantiate_s=prog.instantiate_s)
+    out["prof"] = profile_call(lambda: prog(one_more_batch(cfg, z)))
+    step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    out["p50"] = step_s[len(step_s) // 2]
+    out["steps_ms"] = [round(x * 1e3, 1) for x in step_s]
+    del state, prog
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_sweep(dev) -> None:
+    """Phase 24 (d): each arch's reduced variant (f32, ``"ref"``), 3 steps
+    of ``make_train_step`` against a ``TrainProgram``'s warm step and 2
+    replays from the same weights and batches: losses, parameters,
+    moments and step count bitwise."""
+    import torch
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.data.pipeline import FastSyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import (TrainProgram, batch_tensors,
+                                        make_train_step)
+    from repro_torch.train.optimizer import AdamW
+    t0 = time.perf_counter()
+    nodes = {}
+    for arch in sorted(ARCHS):
+        cfg = reduced(ARCHS[arch])
+        data = FastSyntheticLM(vocab=cfg.vocab, seq_len=16, batch=2,
+                               seed=24).batches()
+        raws = [next(data) for _ in range(3)]
+        model, opt = Model(cfg, dev), AdamW(lr=3e-3)
+
+        def fresh():
+            p = model.init(torch.Generator(device=dev).manual_seed(24))
+            return p, opt.init(p)
+        params, state = fresh()
+        step = make_train_step(model, opt)
+        losses = []
+        for r in raws:
+            loss, params, state = step(params, state,
+                                       batch_tensors(cfg, r, dev))
+            losses.append(float(loss))
+        cparams, cstate = fresh()
+        ptr = cstate.step.data_ptr()
+        prog = TrainProgram(model, opt, cparams, cstate)
+        closses = [float(prog(r)) for r in raws]
+        check_program(f"24 (d) {arch}", prog, cstate, len(raws), ptr)
+        if closses != losses or not states_match(cparams, cstate, params,
+                                                 state):
+            fail(f"phase 24 (d) {arch}: the replayed steps differ from the "
+                 f"eager ones (losses {closses} vs {losses})")
+        nodes[arch] = prog.nodes
+        del prog, params, state, cparams, cstate, step
+    torch.cuda.empty_cache()
+    say(f"phase24 (d) each reduced arch, 3 eager steps = a warm step and 2 "
+        f"replays bitwise (losses, parameters, moments, step): graph nodes "
+        f"{json.dumps(nodes)}; {time.perf_counter() - t0:.1f} s")
+
+
 def phase_train(dev) -> dict:
     """Phase 24, the trainer (the ``"ref"`` route, as the JAX package
     trains; no kernel launches): (a) granite-3-2b at full width, 2
     layers, f32, B 2 × S 64, from the golden's numpy weights and
     ``FastSyntheticLM`` batches, ``make_train_step`` for its steps,
-    against ``tests/golden/torch_port_train.json``; (b) ``train`` as
-    ``launch/train.py --full`` runs it, granite-3-2b at its published
-    size (40 layers, bf16 parameters, f32 moments, remat), 10 steps at
-    B 8 × S 128: every loss finite and the last below the first, step
-    time p50, tokens/s and peak memory; (c) the same loss on the kernel
-    route with parameters that require grad raises the dispatch's
-    forward-only error.  Returns (b)'s losses, step p50, peak memory and
-    wall."""
+    against ``tests/golden/torch_port_train.json``, and a
+    ``TrainProgram`` on the same weights and batches bitwise those eager
+    steps; (b) granite-3-2b at its published size (40 layers, bf16
+    parameters, f32 moments, remat), 10 steps at B 8 × S 128, first
+    eagerly (``train``'s init and batches through ``make_train_step``),
+    then through ``train`` as ``launch/train.py --full`` runs it, its
+    step captured: the two runs' losses bitwise, every loss finite and
+    the last below the first, step p50, tokens/s and peak memory of
+    each, the capture's seconds and nodes, a profile of one more eager
+    step and of one more replay; (c) the same loss on the kernel route
+    with parameters that require grad raises the dispatch's forward-only
+    error; (d) :func:`phase_train_sweep`.  Returns (b)'s captured run."""
     import torch
     from repro_torch import convert
     from repro_torch.configs.registry import ARCHS
     from repro_torch.data.pipeline import FastSyntheticLM
     from repro_torch.models.model import Model
-    from repro_torch.train.loop import batch_tensors, make_train_step, train
+    from repro_torch.train.loop import (TrainProgram, batch_tensors,
+                                        make_train_step)
     from repro_torch.train.optimizer import AdamW, tree_leaves
     gold = json.load(open(GOLDEN_TRAIN))
     cfg = dataclasses.replace(
@@ -3234,16 +3393,19 @@ def phase_train(dev) -> dict:
         param_dtype=gold["dtype"], attn_impl="ref")
     reset_model_counts()
     t0 = time.perf_counter()
-    params = convert.params_from_numpy(
-        cfg, convert.random_numpy_params(cfg, gold["weight_seed"]), dev)
+
+    def golden_params():
+        return convert.params_from_numpy(
+            cfg, convert.random_numpy_params(cfg, gold["weight_seed"]), dev)
+    params = golden_params()
     model = Model(cfg, dev)
     opt = AdamW(lr=gold["lr"])
     state = opt.init(params)
     data = FastSyntheticLM(vocab=cfg.vocab, seq_len=gold["seq"],
                            batch=gold["batch"],
                            seed=gold["data_seed"]).batches()
-    batches = [batch_tensors(cfg, next(data), dev)
-               for _ in range(gold["steps"])]
+    raws = [next(data) for _ in range(gold["steps"])]
+    batches = [batch_tensors(cfg, r, dev) for r in raws]
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -3258,35 +3420,54 @@ def phase_train(dev) -> dict:
 
     def rel(got, want):
         return abs(got - want) / abs(want)
-    errs = dict(loss0=rel(losses[0], gold["losses"][0]),
-                grad_norm=rel(norm, gold["grad_norm"]),
-                later=max(rel(a, b) for a, b in zip(losses[1:],
-                                                    gold["losses"][1:])))
-    sums = {}
-    for group, sub in params.items():
-        for name, t in (sub.items() if isinstance(sub, dict)
-                        else [(None, sub)]):
-            a = t.detach().double()
-            want = gold["param_sums"][f"{group}.{name}" if name else group]
-            scale = (want["sumsq"] * want["numel"]) ** 0.5
-            sums[f"{group}.{name}" if name else group] = (
-                rel(float(a.square().sum()), want["sumsq"]),
-                abs(float(a.sum()) - want["sum"]) / scale)
-    errs["sumsq"] = max(v[0] for v in sums.values())
-    errs["sum"] = max(v[1] for v in sums.values())
-    if not (errs["loss0"] <= TRAIN_TOL and errs["grad_norm"] <= TRAIN_TOL
-            and errs["later"] <= TRAIN_STEP_TOL
-            and errs["sumsq"] <= TRAIN_STEP_TOL
-            and errs["sum"] <= TRAIN_STEP_TOL):
-        fail(f"train golden: relative errors {json.dumps(errs)} (want "
-             f"loss0 and grad_norm ≤ {TRAIN_TOL}, the rest ≤ "
-             f"{TRAIN_STEP_TOL}); losses {losses} vs {gold['losses']}")
+
+    def golden_errs(losses, params) -> dict:
+        errs = dict(loss0=rel(losses[0], gold["losses"][0]),
+                    grad_norm=rel(norm, gold["grad_norm"]),
+                    later=max(rel(a, b) for a, b in zip(
+                        losses[1:], gold["losses"][1:])))
+        sums = {}
+        for group, sub in params.items():
+            for name, t in (sub.items() if isinstance(sub, dict)
+                            else [(None, sub)]):
+                a = t.detach().double()
+                key = f"{group}.{name}" if name else group
+                want = gold["param_sums"][key]
+                scale = (want["sumsq"] * want["numel"]) ** 0.5
+                sums[key] = (rel(float(a.square().sum()), want["sumsq"]),
+                             abs(float(a.sum()) - want["sum"]) / scale)
+        errs["sumsq"] = max(v[0] for v in sums.values())
+        errs["sum"] = max(v[1] for v in sums.values())
+        if not (errs["loss0"] <= TRAIN_TOL and errs["grad_norm"] <= TRAIN_TOL
+                and errs["later"] <= TRAIN_STEP_TOL
+                and errs["sumsq"] <= TRAIN_STEP_TOL
+                and errs["sum"] <= TRAIN_STEP_TOL):
+            fail(f"train golden: relative errors {json.dumps(errs)} (want "
+                 f"loss0 and grad_norm ≤ {TRAIN_TOL}, the rest ≤ "
+                 f"{TRAIN_STEP_TOL}); losses {losses} vs {gold['losses']}")
+        return errs
+    errs = golden_errs(losses, params)
+    # the same steps through the program: a warm step, then replays
+    cparams = golden_params()
+    cstate = opt.init(cparams)
+    ptr = cstate.step.data_ptr()
+    prog = TrainProgram(model, opt, cparams, cstate)
+    closses = [float(prog(r)) for r in raws]
+    check_program("24 (a)", prog, cstate, len(raws), ptr)
+    cerrs = golden_errs(closses, cparams)
+    if closses != losses or not states_match(cparams, cstate, params,
+                                             state):
+        fail(f"phase 24 (a): the program's steps differ from the eager "
+             f"ones (losses {closses} vs {losses})")
     say(f"phase24 (a) train golden {gold['arch']} full width × "
         f"{gold['n_layers']} layers f32 'ref', B {gold['batch']} × S "
         f"{gold['seq']}, {gold['steps']} AdamW steps: losses {losses} "
         f"(JAX {gold['losses']}), step-0 gradient norm {norm} (JAX "
-        f"{gold['grad_norm']}); relative errors {json.dumps(errs)}; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{gold['grad_norm']}); relative errors {json.dumps(errs)}; the "
+        f"program ({prog.nodes} graph nodes, capture {prog.capture_s:.3f} "
+        f"s, {prog.replays} replays) bitwise the eager steps, its errors "
+        f"{json.dumps(cerrs)}; {time.perf_counter() - t0:.1f} s")
+    del prog, cparams, cstate
 
     # (c) on the kernel route the loss refuses autograd
     mk = Model(dataclasses.replace(cfg, attn_impl="kernel"), dev)
@@ -3308,54 +3489,55 @@ def phase_train(dev) -> dict:
     reset_model_counts()
     del params, state, batches, model, mk, fwd, step, leaves
     torch.cuda.empty_cache()
-
-    # (b) launch/train's --full path at published size
-    z = TRAIN_FULL
-    full = ARCHS[z["arch"]]
-    stamps = []
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state, losses = train(full, steps=z["steps"], batch=z["batch"],
-                          seq_len=z["seq"], lr=z["lr"], log_every=1,
-                          log=lambda _: stamps.append(time.perf_counter()),
-                          device=dev)
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    # one more step of the trained state under the profiler: device
-    # kernels and busy share of a step
-    fstep = make_train_step(Model(full, dev), AdamW(lr=z["lr"]))
-    fb = batch_tensors(full, next(FastSyntheticLM(
-        vocab=full.vocab, seq_len=z["seq"], batch=z["batch"],
-        seed=1).batches()), dev)
-    n_k, busy, step_wall = profile_call(
-        lambda: fstep(state.params, state.opt_state, fb))
-    del state, fstep, fb
-    step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
-    p50 = step_s[len(step_s) // 2]
-    finite = all(math.isfinite(x) for x in losses)
-    train_launches = model_counts()
     say(f"phase24 (c) the kernel route refused autograd: {refused!r}; its "
         f"forward under no_grad finite, launches {json.dumps(kernel_launches)}")
+
+    # (b) launch/train's --full path at published size: eager, then
+    # captured from the same seed
+    z = TRAIN_FULL
+    full = ARCHS[z["arch"]]
+    tokens = z["batch"] * z["seq"]
+    t0 = time.perf_counter()
+    eager = eager_train(dev, full, z)
+    torch.cuda.empty_cache()
+    eager_wall = time.perf_counter() - t0
+    got = captured_train(dev, full, z, "24 (b)")
+    losses = got["losses"]
+    train_launches = model_counts()
+    ek, ebusy, ewall = eager["prof"]
+    ck, cbusy, cwall = got["prof"]
     say(f"phase24 (b) train {z['arch']} --full ({full.param_count()} "
         f"parameters, {full.n_layers} layers, {full.param_dtype} parameters,"
         f" f32 moments, remat {full.remat}) {z['steps']} steps at B "
-        f"{z['batch']} × S {z['seq']}, lr {z['lr']}, on 'ref': losses "
-        f"{losses}; step time "
-        f"p50 {p50 * 1e3:.1f} ms (steps 2-{z['steps']}: "
-        f"{[round(x * 1e3, 1) for x in step_s]} ms sorted), "
-        f"{z['batch'] * z['seq'] / p50:.1f} tokens/s, first step "
-        f"(with init) {(stamps[0] - t0) * 1e3:.1f} ms, wall {wall:.1f} s; "
-        f"peak memory {peak} B; profile of one more step: {n_k} device "
-        f"kernels, busy {busy:.3f} ms of {step_wall:.3f} ms wall "
-        f"({busy / step_wall:.3f}); model kernel launches "
-        f"{json.dumps(train_launches)}")
+        f"{z['batch']} × S {z['seq']}, lr {z['lr']}, on 'ref': eager "
+        f"losses {eager['losses']}, step p50 {eager['p50'] * 1e3:.1f} ms, "
+        f"{tokens / eager['p50']:.1f} tokens/s, peak {eager['peak']} B, "
+        f"wall {eager_wall:.1f} s; profile of one more eager step: {ek} "
+        f"device kernels, busy {ebusy:.3f} ms of {ewall:.3f} ms wall "
+        f"({ebusy / ewall:.3f})")
+    say(f"phase24 (b) captured (train(), the launcher's path): losses "
+        f"{losses} (bitwise the eager: {losses == eager['losses']}); "
+        f"{got['nodes']} graph nodes, capture {got['capture_s']:.3f} s, "
+        f"instantiate {got['instantiate_s']:.3f} s, first step (init, warm "
+        f"step, capture) {got['first'] * 1e3:.1f} ms; replay p50 "
+        f"{got['p50'] * 1e3:.1f} ms (steps 2-{z['steps']}: "
+        f"{got['steps_ms']} ms sorted), {tokens / got['p50']:.1f} "
+        f"tokens/s, peak memory {got['peak']} B, wall {got['wall']:.1f} s; "
+        f"profile of one more replay: {ck} device kernels, busy "
+        f"{cbusy:.3f} ms of {cwall:.3f} ms wall ({cbusy / cwall:.3f}); "
+        f"model kernel launches {json.dumps(train_launches)}")
+    if losses != eager["losses"]:
+        fail(f"phase 24 (b): the captured losses {losses} differ from the "
+             f"eager {eager['losses']}")
+    finite = all(math.isfinite(x) for x in losses)
     if not (finite and losses[-1] < losses[0]):
         fail(f"phase 24 (b): {z['arch']} --full losses {losses}: want all "
              f"finite and the last below the first")
     if any(train_launches.values()):
         fail(f"phase 24: the training path launched model kernels "
              f"{json.dumps(train_launches)}")
-    return dict(losses=losses, p50=p50, peak=peak, wall=wall)
+    phase_train_sweep(dev)
+    return got
 
 
 def moe_times(dev) -> dict:
@@ -3873,41 +4055,35 @@ def phase_split(dev) -> dict:
 
 
 def phase_dots(dev, full: dict) -> dict:
-    """Phase 28: phase 24 (b)'s training run under remat ``"dots"``
-    (selective checkpointing: ``aten.mm``/``aten.addmm`` outputs saved):
-    its losses against (b)'s under ``"full"`` within ``DOTS_TOL``
-    (bitwise expected: the saved products are the ones recomputed), step
-    p50, tokens/s and peak memory beside (b)'s."""
-    import torch
+    """Phase 28: phase 24 (b)'s captured training run under remat
+    ``"dots"`` (selective checkpointing: ``aten.mm``/``aten.addmm``
+    outputs saved; its warm step is its eager step): its losses against
+    (b)'s under ``"full"`` within ``DOTS_TOL`` (bitwise expected: the
+    saved products are the ones recomputed), the capture's numbers,
+    replay p50, tokens/s and peak memory beside (b)'s."""
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.train.loop import train
     z = TRAIN_FULL
     cfg = dataclasses.replace(ARCHS[z["arch"]], remat_policy="dots")
-    stamps = []
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, losses = train(cfg, steps=z["steps"], batch=z["batch"],
-                      seq_len=z["seq"], lr=z["lr"], log_every=1,
-                      log=lambda _: stamps.append(time.perf_counter()),
-                      device=dev)
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
-    p50 = step_s[len(step_s) // 2]
+    got = captured_train(dev, cfg, z, "28")
+    losses, p50 = got["losses"], got["p50"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, full["losses"]))
     tokens = z["batch"] * z["seq"]
+    ck, cbusy, cwall = got["prof"]
     say(f"phase28 remat 'dots' {z['arch']} {cfg.n_layers} layers, B "
-        f"{z['batch']} × S {z['seq']}, lr {z['lr']}: losses {losses} "
-        f"(max rel Δ from 'full' {rel:.3e}; bitwise "
-        f"{losses == full['losses']}); step p50 dots "
-        f"{p50 * 1e3:.1f} ms, {tokens / p50:.1f} tokens/s, peak {peak} B; "
-        f"'full' (phase 24 b) {full['p50'] * 1e3:.1f} ms, "
-        f"{tokens / full['p50']:.1f} tokens/s, peak {full['peak']} B; wall "
-        f"{wall:.1f} s")
+        f"{z['batch']} × S {z['seq']}, lr {z['lr']}, captured: losses "
+        f"{losses} (max rel Δ from 'full' {rel:.3e}; bitwise "
+        f"{losses == full['losses']}); {got['nodes']} graph nodes, capture "
+        f"{got['capture_s']:.3f} s, instantiate {got['instantiate_s']:.3f} "
+        f"s; replay p50 dots {p50 * 1e3:.1f} ms, {tokens / p50:.1f} "
+        f"tokens/s, peak {got['peak']} B; profile of one more replay: {ck} "
+        f"device kernels, busy {cbusy:.3f} ms of {cwall:.3f} ms wall "
+        f"({cbusy / cwall:.3f}); 'full' (phase 24 b) {full['p50'] * 1e3:.1f}"
+        f" ms, {tokens / full['p50']:.1f} tokens/s, peak {full['peak']} B; "
+        f"wall {got['wall']:.1f} s")
     if rel > DOTS_TOL:
         fail(f"phase 28: 'dots' losses {losses} off 'full' "
              f"{full['losses']} (max rel {rel:.3e} > {DOTS_TOL})")
-    return dict(p50=p50, peak=peak, rel=rel)
+    return dict(p50=p50, peak=got["peak"], rel=rel)
 
 
 def start_dryrun() -> list:

@@ -17,6 +17,8 @@ present; pass ``device="cpu"`` to run the plain-PyTorch path on the host.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 
@@ -29,3 +31,15 @@ def resolve_device(device="cuda") -> torch.device:
             "repro_torch: CUDA device requested but torch.cuda.is_available()"
             " is False; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def graph_nodes(graph) -> int:
+    """The node count of a captured CUDA graph kept for it
+    (``torch.cuda.CUDAGraph(keep_graph=True)``; ``cuGraphGetNodes`` of
+    ``libcuda``)."""
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return n.value

@@ -4,7 +4,10 @@ granite-3-2b``.  Port of ``repro.launch.train``.
 Trains the *reduced* family variant end to end (data pipeline → AdamW →
 checkpoint) on ``--device`` (the card by default; ``--device cpu`` runs
 on the host).  ``--full`` builds the published config (bf16 parameters,
-f32 moments, remat), for the card.
+f32 moments, remat), for the card.  On the card the step is captured
+(``train.loop.TrainProgram``: a warm step, then one CUDA graph of loss,
+gradient and AdamW replayed every later step); on the host it runs
+eagerly.
 """
 from __future__ import annotations
 

@@ -62,7 +62,7 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -423,7 +423,15 @@ class Model:
         # the embedding op, not an indexing: the same gather, and DTensor
         # shards it and its backward (an indexing's scatter-add backward
         # it does not)
-        x = F.embedding(tokens, params["embed"])
+        w = params["embed"]
+        if isinstance(w, DTensor):
+            # the table's width gathered off its split (embed_fsdp), as
+            # FSDP gathers a parameter it is about to use: DTensor's
+            # masked lookup over the vocab split cannot take tokens split
+            # along a mesh axis that also splits the width
+            w = w.redistribute(w.device_mesh, [
+                Replicate() if p.is_shard(1) else p for p in w.placements])
+        x = F.embedding(tokens, w)
         return shard(x.to(self.dtype), "batch", "act_seq", "embed")
 
     def unembed(self, params, x):

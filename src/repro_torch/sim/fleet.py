@@ -55,7 +55,6 @@ mesh axis of 1 splits nothing and launches nothing more.
 from __future__ import annotations
 
 import collections
-import ctypes
 import dataclasses
 import time
 import weakref
@@ -64,7 +63,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import graph_nodes, resolve_device
 from repro_torch.core import sched as js
 from repro_torch.core import schedulers as _sched
 from repro_torch.kernels import sched_ops
@@ -1238,17 +1237,6 @@ def _version(a: torch.Tensor):
         return None
 
 
-def _graph_nodes(graph) -> int:
-    """The node count of a captured (kept) graph (the CUDA driver API's
-    ``cuGraphGetNodes``)."""
-    n = ctypes.c_size_t(0)
-    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
-    return n.value
-
-
 @dataclasses.dataclass
 class _Graph:
     """One captured window: the graph, the static buffers it reads
@@ -1420,7 +1408,7 @@ class TickProgram:
                                                    before))
             sched_ops.add_launches(*(-n for n in launches))
         capture_s = time.perf_counter() - t0
-        nodes = _graph_nodes(graph)
+        nodes = graph_nodes(graph)
         t0 = time.perf_counter()
         graph.instantiate()
         instantiate_s = time.perf_counter() - t0

@@ -11,7 +11,9 @@ configs in the reference, f32 otherwise).
 Parameter trees are nested dicts of tensors, as ``Model.init`` builds
 them.  Unlike the reference's functional update, :meth:`AdamW.update`
 writes the new parameters and moments into the given tensors (no second
-copy of the weights and moments on the card) and returns them.
+copy of the weights and moments on the card) and returns them; the
+step count it returns is a new tensor (the captured train step,
+``train.loop.TrainProgram``, copies it into the state's own).
 """
 from __future__ import annotations
 
@@ -87,10 +89,12 @@ class AdamW:
         updated in place."""
         step = state.step + 1
         stepf = step.float()
-        bc1 = 1 - torch.tensor(self.b1, dtype=torch.float32,
-                               device=stepf.device) ** stepf
-        bc2 = 1 - torch.tensor(self.b2, dtype=torch.float32,
-                               device=stepf.device) ** stepf
+        # the f32 betas made on the device (no host-to-device copy in the
+        # step, so a CUDA graph can capture it)
+        bc1 = 1 - torch.full((), self.b1, dtype=torch.float32,
+                             device=stepf.device) ** stepf
+        bc2 = 1 - torch.full((), self.b2, dtype=torch.float32,
+                             device=stepf.device) ** stepf
         for g, m, v, p in zip(*map(tree_leaves, (grads, state.mu, state.nu,
                                                  params))):
             for gs, ms, vs, ps in _slices(g, m, v, p):

@@ -13,9 +13,11 @@ rank 0 writes while rank 1 holds no valid key, then rank 1 writes with
 both halves valid, and a sliding window's ring wrapping back to rank 0.
 The DTensor-only branches the dry run traces run on values too, against
 plain tensors: reduced qwen3-moe's MoE layer (dispatch and combine on
-each rank's groups), reduced xLSTM's loss and every gradient (its
-log-sigmoid gates on each rank's shards), within 1e-5, and an AdamW step
-of leaves split along dimension 0, bitwise.
+each rank's groups), reduced xLSTM's and reduced granite's loss and
+every gradient with the tokens split ``("batch", "seq")`` (at 4 ranks the
+batch over the data axis that also splits the embedding table's width;
+xLSTM's log-sigmoid gates on each rank's shards), within 1e-5, and an
+AdamW step of leaves split along dimension 0, bitwise.
 """
 import os
 import re
@@ -27,7 +29,8 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHARDED = ("moe_sharded", "xlstm_sharded", "adamw_sharded")
+SHARDED = ("moe_sharded", "xlstm_sharded", "dense_sharded",
+           "adamw_sharded")
 CASES = {2: ("run_fleet-DEMS", "run_fleet-DEMS-COOP", "simulate_fleet",
              "run_registry_sweep-auto", "opt_decode", *SHARDED),
          4: ("run_fleet-DEMS-COOP", "run_fleet_batch", "run_batch",

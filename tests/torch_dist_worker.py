@@ -153,12 +153,48 @@ def _decode_case(world: int, say) -> None:
     say("opt_decode")
 
 
+def _loss_grad_case(arch: str, seed: int, mesh, placed, full) -> None:
+    """Reduced ``arch``'s loss and every gradient with the parameters
+    placed by ``param_specs`` and the tokens split ``("batch", "seq")``
+    (at 4 ranks the batch over the data axis that also splits the
+    embedding table's width), against the same on plain tensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.sharding import sharding_rules
+    from repro_torch.models.model import Model
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    cfg = reduced(ARCHS[arch])
+    model = Model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(seed))
+    tokens = torch.randint(0, cfg.vocab, (4, 16),
+                           generator=torch.Generator().manual_seed(seed + 1))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    loss = model.loss(params, batch)
+    want = torch.autograd.grad(loss, leaves)
+    dparams = tree_map(lambda t, lg: placed(t.detach(), lg).requires_grad_(
+        True), params, model.param_specs())
+    with sharding_rules(mesh), implicit_replication():
+        dbatch = {k: placed(v, ("batch", "seq")) for k, v in batch.items()}
+        dloss = model.loss(dparams, dbatch)
+        got = torch.autograd.grad(dloss, tree_leaves(dparams))
+    torch.testing.assert_close(full(dloss), loss.detach(), rtol=1e-5,
+                               atol=1e-5)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(full(g), w, rtol=1e-5, atol=1e-5)
+
+
 def _sharded_model_case(world: int, say) -> None:
     """The DTensor-only branches that the dry run's traces take, here on
     values: the MoE layer's sharded dispatch, experts and combine
     (reduced qwen3-moe, one dispatch group a data rank), reduced xLSTM's
-    loss and gradients (its log-sigmoid gates on each rank's shards) and
-    an AdamW step of leaves split along dimension 0, each against the
+    and reduced granite's loss and gradients with the tokens split over
+    the batch (:func:`_loss_grad_case`: xLSTM's log-sigmoid gates on each
+    rank's shards, the embedding's table gathered off its width split)
+    and an AdamW step of leaves split along dimension 0, each against the
     same work on plain tensors (f32; 1e-5, AdamW bitwise)."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import distribute_tensor
@@ -169,8 +205,7 @@ def _sharded_model_case(world: int, say) -> None:
     from repro_torch.launch.sharding import named_sharding, sharding_rules
     from repro_torch.models import moe as MOE
     from repro_torch.models.model import Model
-    from repro_torch.train.optimizer import (AdamW, AdamWState, tree_leaves,
-                                             tree_map)
+    from repro_torch.train.optimizer import AdamW, AdamWState, tree_map
 
     mesh = init_device_mesh("cpu", (world // 2, 2),
                             mesh_dim_names=("data", "model"))
@@ -199,29 +234,10 @@ def _sharded_model_case(world: int, say) -> None:
     torch.testing.assert_close(full(aux), want_aux, rtol=1e-5, atol=1e-5)
     say("moe_sharded")
 
-    cfg = reduced(ARCHS["xlstm-1.3b"])
-    model = Model(cfg, "cpu")
-    params = model.init(torch.Generator().manual_seed(4))
-    tokens = torch.randint(0, cfg.vocab, (4, 16),
-                           generator=torch.Generator().manual_seed(5))
-    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
-    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
-    loss = model.loss(params, batch)
-    want = torch.autograd.grad(loss, leaves)
-    dparams = tree_map(lambda t, lg: placed(t.detach(), lg).requires_grad_(
-        True), params, model.param_specs())
-    with sharding_rules(mesh), implicit_replication():
-        # the tokens whole on every rank: DTensor's masked embedding
-        # partial cannot take a batch split over the data axis that also
-        # splits the table's width (a mask of the local rows)
-        dbatch = {k: placed(v, (None, "seq")) for k, v in batch.items()}
-        dloss = model.loss(dparams, dbatch)
-        got = torch.autograd.grad(dloss, tree_leaves(dparams))
-    torch.testing.assert_close(full(dloss), loss.detach(), rtol=1e-5,
-                               atol=1e-5)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(full(g), w, rtol=1e-5, atol=1e-5)
-    say("xlstm_sharded")
+    for arch, name, seed in (("xlstm-1.3b", "xlstm_sharded", 4),
+                             ("granite-3-2b", "dense_sharded", 7)):
+        _loss_grad_case(arch, seed, mesh, placed, full)
+        say(name)
 
     gen = torch.Generator().manual_seed(6)
     leaves = {"w": torch.randn(4, 6, 8, generator=gen),
