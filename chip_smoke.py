@@ -91,7 +91,21 @@ Phases, each printed on its own line and each failing the script
    launch must have taken the tensor cores; in the f32 goldens 5, 12 and
    15 none; in all of them every rmsnorm launch the REGS body);
 7. decode (decode_attention's main path): granite-3-2b, bf16, batch 8,
-   a 512-token prompt, 64 greedy steps, against ``attn_impl="ref"``;
+   a 512-token prompt, 64 greedy steps, against ``attn_impl="ref"``.
+   Here and in phases 13, 16, 18 and 23 the kernel route's steps run as
+   a ``DecodeProgram`` (the counterpart of ``jax.jit(decode_step)``):
+   prefilled into its cache, a warm step under
+   ``set_sync_debug_mode("error")``, one capture, then replays at a
+   device position; the first ``CHECK_REPLAYS`` replays each equal an
+   eager step at the int position on a clone of the cache, bitwise
+   (logits and cache); launches = prefill + (warm step, capture,
+   checks) × the path; reported beside ``EAGER_TIMED`` eager steps of
+   the same run: each one's wall p50, one replay's device span (CUDA
+   events) and profile, graph nodes and capture seconds (the
+   ``decode programs`` line after phase 29 gathers them).  The plain
+   and f32 yardsticks stay eager.  Then llava-next-34b (vlm) and
+   xlstm-1.3b (ssm) at a reduced size, on both routes, through a
+   ``DecodeProgram`` against eager steps;
 8. attention kernel times at the serve and decode shapes (granite,
    starcoder2, nemotron), beside the previous bodies', the plain
    versions', ``scaled_dot_product_attention``'s and the bounds;
@@ -141,8 +155,9 @@ Phases, each printed on its own line and each failing the script
     ``ServableModel.from_arch`` (a CUDA graph) with ``probe_p95``, a 10 s
     GEMS stream, one forward under ``set_sync_debug_mode("error")``, B 8
     greedy
-    decoding against ``"ref"`` (relative RMS and routing agreement per
-    layer), then an f32 copy at 8 layers on both routes;
+    decoding against ``"ref"`` (relative RMS, and routing agreement per
+    layer over the prefill and the eager steps: a replay never calls the
+    router), then an f32 copy at 8 layers on both routes;
 17. ``moe_gemm``'s times at the serve, decode and prefill shapes and a
     compacted ragged one, beside its previous CUDA-core bf16 body, its
     plain version, ``torch.bmm`` and ``torch._grouped_mm``;
@@ -362,6 +377,18 @@ DECODE_SWEEP = ((2, 4, 4, 512, 64), (3, 8, 2, 1024, 64), (1, 4, 1, 256, 128),
                 (2, 16, 16, 64, 192), (1, 40, 2, 100, 64))
 SERVE_MS = 15_000.0
 DECODE = dict(batch=8, prompt=512, max_seq=1024, steps=64, seed=11)
+# the kernel route's greedy steps in phases 7, 13, 16, 18 and 23 run as a
+# DecodeProgram: a warm step, the capture, then replays; the first
+# CHECK_REPLAYS replays are each held bitwise to an eager step at the int
+# position on a clone of the cache before it, and EAGER_TIMED eager steps
+# are timed beside the replays after the launches are read
+CHECK_REPLAYS = 3
+EAGER_TIMED = 8
+# phase 7 also runs the families no other phase decodes on the card
+# (vlm, ssm) through a DecodeProgram at a reduced size whose head dim the
+# decode kernel takes (d 256 over 4 heads: hd 64), on both routes
+REDUCED_DECODE = dict(archs=("llava-next-34b", "xlstm-1.3b"), d_model=256,
+                      batch=2, prompt=12, max_seq=16, steps=8, seed=7)
 # decode under "kernel" vs "ref" in bf16: the kernel keeps probabilities
 # in f32 where the plain path rounds them to bf16, and 40 layers of bf16
 # residual adds carry either rounding on, so the yardstick is the plain
@@ -1996,6 +2023,117 @@ def phase_serve(dev) -> dict:
     return launches
 
 
+def program_greedy(program, tok, p: int, steps: int, what: str) -> dict:
+    """Greedy decoding of ``steps`` tokens through ``program`` (a
+    ``DecodeProgram`` whose cache holds a prompt of ``p`` tokens) from
+    ``tok`` at position ``p``, the position a device scalar advanced on
+    the card.  The first call is the warm step and the capture; each of
+    the next CHECK_REPLAYS replays is held bitwise (logits and cache) to
+    an eager ``Model.decode_step`` at the host int position on a clone of
+    the cache before it; every replay is timed on the host's clock,
+    ending in a synchronize.  Returns the tokens fed, each step's last
+    logits, the replays' walls in ms (sorted) and ``step_calls``, the
+    steps that launched the kernel wrappers (the warm step, the capture
+    and the eager checks: a replay launches through the graph)."""
+    import torch
+    mk, params = program.model, program.params
+    pos = torch.full((), p, dtype=torch.int32, device=tok.device)
+    fed, outs, walls = [], [], []
+    checks = 0
+    for t in range(steps):
+        fed.append(tok)
+        twin = want = None
+        if program.graph is not None and checks < CHECK_REPLAYS:
+            twin = {k: v.clone() for k, v in program.cache.items()}
+            want = mk.decode_step(params, twin, tok, p + t)[0]
+            checks += 1
+        replay = program.graph is not None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = program(tok, pos)
+        torch.cuda.synchronize()
+        if replay:
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if want is not None and not (torch.equal(logits, want) and all(
+                torch.equal(program.cache[k], v) for k, v in twin.items())):
+            fail(f"{what}: the replayed step at position {p + t} differs "
+                 f"from the eager step at the int position (logits or "
+                 f"cache)")
+        pos.add_(1)
+        outs.append(logits[:, -1])
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    if program.replays != steps - 1 or checks != min(CHECK_REPLAYS,
+                                                     steps - 1):
+        fail(f"{what}: {program.replays} replays and {checks} checked, "
+             f"want {steps - 1} and {min(CHECK_REPLAYS, steps - 1)}")
+    return dict(fed=fed, outs=outs, walls=sorted(walls), checks=checks,
+                step_calls=program.eager_steps + program.captures + checks)
+
+
+def program_report(program, g: dict, p: int) -> dict:
+    """What a ``DecodeProgram`` costs beside the eager step, in one run:
+    the replays' wall p50 (from :func:`program_greedy`'s ``g``), the p50
+    of EAGER_TIMED eager steps (on a clone of the cache, from the next
+    greedy token at positions ``p``...), one replay's device span read
+    with CUDA events, one replay and one eager step under the profiler,
+    and the graph's nodes and capture time.  The eager steps launch the
+    kernel wrappers (EAGER_TIMED + 1 steps' worth); the replays here
+    write the cache at the program's last position again."""
+    import torch
+    mk, params = program.model, program.params
+    tok = g["outs"][-1].argmax(-1, keepdim=True)
+    cache = {k: v.clone() for k, v in program.cache.items()}
+    eager = []
+    for i in range(EAGER_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mk.decode_step(params, cache, tok, p + i)
+        torch.cuda.synchronize()
+        eager.append((time.perf_counter() - t0) * 1e3)
+    eager.sort()
+    eager_prof = profile_call(
+        lambda: mk.decode_step(params, cache, tok, p + EAGER_TIMED))
+    del cache
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    program.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    replay_prof = profile_call(program.graph.replay)
+    walls = g["walls"]
+    return dict(replay_p50_ms=walls[len(walls) // 2], replays=len(walls),
+                eager_p50_ms=eager[len(eager) // 2], eager_steps=len(eager),
+                replay_span_ms=span, replay_profile=replay_prof,
+                eager_profile=eager_prof, nodes=program.nodes,
+                capture_s=program.capture_s,
+                instantiate_s=program.instantiate_s, checked=g["checks"])
+
+
+# phase → the DecodeProgram report of its kernel-route decode
+DECODE_PROGRAMS = {}
+
+
+def program_line(name: str, b: int, rep: dict) -> str:
+    (rk, rbusy, rwall), (ek, ebusy, ewall) = (rep["replay_profile"],
+                                              rep["eager_profile"])
+    return (f"DecodeProgram {name} B {b}: replayed step wall p50 "
+            f"{rep['replay_p50_ms']:.4f} ms ({rep['replays']} replays, "
+            f"{b / rep['replay_p50_ms'] * 1e3:.1f} tokens/s) beside the "
+            f"eager step's p50 {rep['eager_p50_ms']:.4f} ms "
+            f"({rep['eager_steps']} steps, same run); one replay's device "
+            f"span (CUDA events) {rep['replay_span_ms']:.4f} ms; profiled: "
+            f"one replay {rk} device kernels, busy {rbusy:.3f} ms of "
+            f"{rwall:.3f} ms wall; one eager step {ek} device kernels, busy "
+            f"{ebusy:.3f} ms of {ewall:.3f} ms wall; graph nodes "
+            f"{rep['nodes']}, capture {rep['capture_s']:.3f} s, instantiate "
+            f"{rep['instantiate_s']:.3f} s; the first {rep['checked']} "
+            f"replays == eager steps at the int position bitwise (logits "
+            f"and cache)")
+
+
 def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
                          max_seq: int, extra=None) -> dict:
     """Prefill ``prompt`` (with ``extra``'s inputs: an encdec model's
@@ -2005,35 +2143,34 @@ def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
     of the logit differences over the RMS of the plain f32 logits (kr
     kernel vs plain, kf kernel vs f32, rf plain vs f32, ff the two f32
     routes), held to DECODE_KR_TOL·rf, DECODE_KF_TOL·rf and
-    DECODE_F32_TOL.  Returns the timings, the RMSs and the kernel
-    launches of the bf16 kernel model's prefill and steps."""
+    DECODE_F32_TOL.  The kernel model's steps run as a ``DecodeProgram``
+    (:func:`program_greedy`: prefilled into the program's cache, a warm
+    step and the capture, replays, the first ones held to eager steps);
+    the yardsticks stay eager.  Returns the timings, the RMSs, the kernel
+    launches of the bf16 kernel model's prefill and steps, the steps
+    that launched them (``step_calls``) and the program's report."""
     import torch
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import DecodeProgram, Model
     b, p = prompt.shape
     batch = {"tokens": prompt, **(extra or {})}
     mk = Model(cfg, dev)
     mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
     reset_model_counts()
+    program = DecodeProgram(mk, params, mk.init_cache(b, max_seq))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, cache_k = mk.prefill(params, batch, max_seq)
+    last, cache_k = mk.prefill(params, batch, max_seq, cache=program.cache)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     cache_r = {k: v.clone() for k, v in cache_k.items()}
     tok = last[:, -1].argmax(-1, keepdim=True)
-    fed, outs = [], []
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(steps):
-        fed.append(tok)
-        logits, _ = mk.decode_step(params, cache_k, tok, p + t)
-        outs.append(logits[:, -1])
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-    torch.cuda.synchronize()
+    g = program_greedy(program, tok, p, steps, f"decode {cfg.name}")
     wall = time.perf_counter() - t0
     launches, tc = model_counts(), tc_counts()
-    n_k, busy, step_wall = profile_call(
-        lambda: mk.decode_step(params, cache_k, tok, p + steps))
+    fed, outs = g["fed"], g["outs"]
+    report = program_report(program, g, p + steps)
+    del program, cache_k
     f32 = dict(dtype="float32", param_dtype="float32")
     mf = Model(dataclasses.replace(cfg, attn_impl="ref", **f32), dev)
     mff = Model(dataclasses.replace(cfg, **f32), dev)
@@ -2067,19 +2204,18 @@ def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
              f"{DECODE_F32_TOL}")
     del pf, cache_f, cache_ff, mf, mff
     return dict(prefill_s=prefill_s, wall=wall, rms=rms, max_diff=mx,
-                launches=launches, tc=tc, profile=(n_k, busy, step_wall),
-                peak=torch.cuda.max_memory_allocated())
+                launches=launches, tc=tc, step_calls=g["step_calls"],
+                program=report, peak=torch.cuda.max_memory_allocated())
 
 
 def decode_line(r: dict, b: int, p: int, steps: int) -> str:
-    n_k, busy, step_wall = r["profile"]
     rms = r["rms"]
     return (f"B {b}, prompt {p} (prefill {r['prefill_s']:.3f} s), {steps} "
-            f"greedy steps in {r['wall']:.3f} s = {b * steps / r['wall']:.1f}"
-            f" tokens/s ({r['wall'] / steps * 1e3:.2f} ms a step); kernel "
-            f"launches {json.dumps(r['launches'])} (= the path's); profile "
-            f"of one more step: {n_k} device kernels, busy {busy:.3f} ms of "
-            f"{step_wall:.3f} ms wall; teacher-forced on the same tokens, "
+            f"greedy steps in {r['wall']:.3f} s (the warm step, the capture "
+            f"and {CHECK_REPLAYS} eager checks among them); kernel launches "
+            f"{json.dumps(r['launches'])} (= the path's: prefill, warm step, "
+            f"capture and checks; {r['step_calls']} steps' worth); "
+            f"teacher-forced on the same tokens, "
             f"RMS of the logit difference over RMS of the f32 logits: "
             f"kernel vs attn_impl='ref' {rms['kr']:.4e} (tol "
             f"{DECODE_KR_TOL}·rf), kernel vs f32 {rms['kf']:.4e} (tol "
@@ -2104,10 +2240,75 @@ def phase_decode(dev) -> dict:
     r = greedy_vs_yardsticks(dev, cfg, params, prompt, steps,
                              DECODE["max_seq"])
     check_launches("decode granite-3-2b", r["launches"],
-                   path_launches(cfg, prefills=1, steps=steps))
+                   path_launches(cfg, prefills=1, steps=r["step_calls"]))
     check_tc("decode granite-3-2b", r["launches"], r["tc"], bf16=True)
     say(f"phase7 decode granite-3-2b bf16 {decode_line(r, b, p, steps)}")
+    say(f"phase7 {program_line('granite-3-2b', b, r['program'])}")
+    DECODE_PROGRAMS["dense granite-3-2b"] = dict(r["program"], batch=b)
+    del params, prompt
+    torch.cuda.empty_cache()
+    reduced_programs(dev)
     return r["launches"]
+
+
+def reduced_programs(dev) -> None:
+    """Phase 7's reduced families: each of REDUCED_DECODE's archs (vlm,
+    ssm) at d 256, f32, on both routes, decoded greedily through a
+    ``DecodeProgram`` (:func:`program_greedy`: its first replays held to
+    eager steps bitwise), its greedy logits held to an eager run of the
+    same steps on another cache to ``ATT_TOL["float32"]`` (the eager
+    decode is the program's body), and finite."""
+    import torch
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import DecodeProgram, Model
+    z = REDUCED_DECODE
+    rows = []
+    for arch in z["archs"]:
+        for impl in ("ref", "kernel"):
+            cfg = dataclasses.replace(
+                reduced(ARCHS[arch], d_model=z["d_model"]), attn_impl=impl)
+            gen = torch.Generator(device=dev).manual_seed(z["seed"])
+            mk = Model(cfg, dev)
+            params = mk.init(gen)
+            batch = {"tokens": torch.randint(
+                0, cfg.vocab, (z["batch"], z["prompt"]), generator=gen,
+                device=dev)}
+            if cfg.family == "vlm":
+                batch["patches"] = torch.randn(
+                    (z["batch"], cfg.n_image_tokens, cfg.d_model),
+                    generator=gen, device=dev)
+            p = z["prompt"] + cfg.n_image_tokens
+            max_seq = z["max_seq"] + cfg.n_image_tokens
+            program = DecodeProgram(mk, params,
+                                    mk.init_cache(z["batch"], max_seq))
+            last, _ = mk.prefill(params, batch, max_seq,
+                                 cache=program.cache)
+            twin = {k: v.clone() for k, v in program.cache.items()}
+            tok = last[:, -1].argmax(-1, keepdim=True)
+            g = program_greedy(program, tok, p, z["steps"],
+                               f"reduced {arch} {impl}")
+            err = 0.0
+            for t, fed in enumerate(g["fed"]):
+                want = mk.decode_step(params, twin, fed, p + t)[0][:, -1]
+                err = max(err, allclose_err(g["outs"][t], want,
+                                            ATT_TOL["float32"])[1])
+                if not bool(torch.isfinite(g["outs"][t]).all()):
+                    fail(f"reduced {arch} {impl}: non-finite logits")
+            if err > 0:
+                fail(f"reduced {arch} {impl}: the program's greedy logits "
+                     f"exceed {ATT_TOL['float32']} of the eager steps' by "
+                     f"{err}")
+            rows.append(f"{arch} ({cfg.family}) {impl}: {z['steps']} steps, "
+                        f"{program.replays} replays, nodes {program.nodes}")
+            del program, twin, params, mk
+    torch.cuda.empty_cache()
+    say(f"phase7 reduced families through DecodeProgram (d "
+        f"{z['d_model']}, f32, B {z['batch']}, from position "
+        f"{z['prompt']} past the cache's last slot): "
+        f"{'; '.join(rows)}; every replay's greedy logits within "
+        f"{ATT_TOL['float32']} of eager steps, the first "
+        f"{CHECK_REPLAYS} bitwise")
 
 
 def serve_one_role(dev, cfg, z: dict, role: str, phase: int) -> int:
@@ -2209,15 +2410,18 @@ def phase_hybrid(dev) -> dict:
     launches = {k: serve_counts[k] + r["launches"][k] for k in serve_counts}
     check_launches("hybrid zamba2-7b serve + decode", launches,
                    path_launches(cfg, forwards=forwards, prefills=1,
-                                 steps=z["steps"]))
+                                 steps=r["step_calls"]))
     check_tc("hybrid zamba2-7b serve + decode", launches,
              {k: serve_tc[k] + r["tc"][k] for k in serve_tc}, bf16=True)
     say(f"phase13 decode zamba2-7b bf16 "
         f"{decode_line(r, 1, z['prompt'], z['steps'])}")
+    say(f"phase13 {program_line('zamba2-7b', 1, r['program'])}")
+    DECODE_PROGRAMS["hybrid zamba2-7b"] = dict(r["program"], batch=1)
     say(f"phase13 launches over the phase: {json.dumps(launches)} = "
         f"{forwards} eager forwards and captures (the graph's replays "
-        f"launch nothing through the wrappers), 1 prefill, {z['steps']} "
-        f"steps × the path's per-call counts; every flash launch on the "
+        f"launch nothing through the wrappers), 1 prefill, "
+        f"{r['step_calls']} steps (the program's warm step, capture and "
+        f"checks) × the path's per-call counts; every flash launch on the "
         f"tensor cores, every ssm_scan launch ({serve_tc['ssm_scan']} + "
         f"{r['tc']['ssm_scan']}) on the chunked tensor-core body, every "
         f"rmsnorm launch ({serve_tc['rmsnorm']} + {r['tc']['rmsnorm']}) on "
@@ -2918,8 +3122,12 @@ class RouteLog:
         self.mod, self.real, self.calls = MOE, MOE.router, []
 
         def spy(p, x, cfg):
+            import torch
             out = self.real(p, x, cfg)
-            self.calls.append(out[1])
+            # a CUDA graph's capture computes nothing (and a replay never
+            # calls the router): only eager calls are recorded
+            if not torch.cuda.is_current_stream_capturing():
+                self.calls.append(out[1])
             return out
         MOE.router = spy
         return self
@@ -2941,36 +3149,42 @@ def routing_agreement(a: list, b: list, n_layers: int) -> list:
     return [s_ / t_ for s_, t_ in zip(same, total)]
 
 
-def teacher_forced(dev, cfg, params, prompt, steps: int, max_seq: int):
-    """Greedy decoding under ``cfg`` (``"kernel"``), then the same tokens
-    through ``"ref"`` on the same weights: returns (relative RMS of the
-    logit difference over the plain logits' RMS, per-layer routing
-    agreement over the prefill and the steps, kernel launches of the
-    kernel route, prefill s, steps s)."""
+def teacher_forced(dev, cfg, params, prompt, steps: int,
+                   max_seq: int) -> dict:
+    """Greedy decoding under ``cfg`` (``"kernel"``) through a
+    ``DecodeProgram`` (:func:`program_greedy`), then the same tokens
+    through ``"ref"`` eagerly on the same weights.  Returns the relative
+    RMS of the logit difference over the plain logits' RMS (``rms``),
+    the per-layer routing agreement (``agree``) over the prefill and the
+    eager kernel-route steps (the warm step and the checked ones: a
+    replay never calls the router), the kernel launches of the kernel
+    route's prefill and steps (``launches``), the steps that launched
+    them (``step_calls``), prefill and steps seconds and the program's
+    report, whose eager steps launch too (``report_steps``)."""
     import torch
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import DecodeProgram, Model
     p = prompt.shape[1]
     mk = Model(cfg, dev)
     mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
     before = model_counts()
+    program = DecodeProgram(mk, params, mk.init_cache(prompt.shape[0],
+                                                      max_seq))
     with RouteLog() as lk:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last, cache = mk.prefill(params, {"tokens": prompt}, max_seq)
+        last, _ = mk.prefill(params, {"tokens": prompt}, max_seq,
+                             cache=program.cache)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         tok = last[:, -1].argmax(-1, keepdim=True)
-        fed, outs = [], []
         t0 = time.perf_counter()
-        for t in range(steps):
-            fed.append(tok)
-            logits, _ = mk.decode_step(params, cache, tok, p + t)
-            outs.append(logits[:, -1, :cfg.vocab].float())
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-        torch.cuda.synchronize()
+        g = program_greedy(program, tok, p, steps, f"decode {cfg.name}")
         wall = time.perf_counter() - t0
     after = model_counts()
-    del cache
+    report = program_report(program, g, p + steps)
+    fed = g["fed"]
+    outs = [o[:, :cfg.vocab].float() for o in g["outs"]]
+    del program
     with RouteLog() as lr:
         _, cache = mr.prefill(params, {"tokens": prompt}, max_seq)
         sq_d = sq_r = 0.0
@@ -2981,9 +3195,15 @@ def teacher_forced(dev, cfg, params, prompt, steps: int, max_seq: int):
                 fail(f"decode {cfg.name}: non-finite logits at step {t}")
             sq_d += float((outs[t] - r_).square().sum())
             sq_r += float(r_.square().sum())
-    agree = routing_agreement(lk.calls, lr.calls, cfg.n_layers)
+    # the kernel route's router ran eagerly in the prefill, the warm step
+    # and the checked steps: those against the same calls of "ref"
+    agree = routing_agreement(lk.calls, lr.calls[:len(lk.calls)],
+                              cfg.n_layers)
     launches = {k: after[k] - before[k] for k in after}
-    return ((sq_d / sq_r) ** 0.5, agree, launches, prefill_s, wall)
+    return dict(rms=(sq_d / sq_r) ** 0.5, agree=agree, launches=launches,
+                step_calls=g["step_calls"], prefill_s=prefill_s, wall=wall,
+                program=report, report_steps=EAGER_TIMED + 1,
+                routed_steps=len(lk.calls) // cfg.n_layers - 1)
 
 
 def phase_moe(dev) -> dict:
@@ -3021,20 +3241,24 @@ def phase_moe(dev) -> dict:
         f"under set_sync_debug_mode('error'); router aux {float(aux):.6f}")
     del logits
     torch.cuda.reset_peak_memory_stats()
-    rms, agree, dec_launches, prefill_s, wall = teacher_forced(
-        dev, cfg, params, prompt, z["steps"], z["max_seq"])
+    tf = teacher_forced(dev, cfg, params, prompt, z["steps"], z["max_seq"])
+    rms, agree, dec_launches = tf["rms"], tf["agree"], tf["launches"]
     say(f"phase16 decode qwen3-moe bf16 B {b}, prompt {p} (prefill "
-        f"{prefill_s:.3f} s), {z['steps']} greedy steps in {wall:.3f} s = "
-        f"{b * z['steps'] / wall:.1f} tokens/s ({wall / z['steps'] * 1e3:.2f}"
-        f" ms a step); kernel launches {json.dumps(dec_launches)}; "
+        f"{tf['prefill_s']:.3f} s), {z['steps']} greedy steps in "
+        f"{tf['wall']:.3f} s (the warm step, the capture and "
+        f"{CHECK_REPLAYS} eager checks among them); kernel launches "
+        f"{json.dumps(dec_launches)} ({tf['step_calls']} steps' worth); "
         f"teacher-forced on the same tokens, RMS of the logit difference "
         f"over RMS of the 'ref' logits {rms:.4e}; routing agreement with "
-        f"'ref' per layer (share of (token, k) choices in common): first "
+        f"'ref' per layer over the prefill and the {tf['routed_steps']} "
+        f"eager steps (share of (token, k) choices in common): first "
         f"{agree[0]:.4f}, mean {sum(agree) / len(agree):.4f}, min "
         f"{min(agree):.4f}, last {agree[-1]:.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated()} B")
     say(f"phase16 routing agreement by layer: "
         f"{json.dumps([round(a, 4) for a in agree])}")
+    say(f"phase16 {program_line('qwen3-moe-30b-a3b', b, tf['program'])}")
+    DECODE_PROGRAMS["moe qwen3-moe-30b-a3b"] = dict(tf["program"], batch=b)
     n_k, busy, pre_wall = profile_call(lambda: mk.prefill(
         params, {"tokens": prompt}, z["max_seq"]))
     say(f"phase16 profile of one B {b} × {p} prefill: {n_k} device kernels,"
@@ -3049,8 +3273,10 @@ def phase_moe(dev) -> dict:
                                dtype="float32", param_dtype="float32")
     gen = torch.Generator(device=dev).manual_seed(z["seed"] + 1)
     params = Model(cfg8, dev).init(gen)
-    rms8, agree8, launches8, _, wall8 = teacher_forced(
-        dev, cfg8, params, prompt, z["steps"], z["max_seq"])
+    tf8 = teacher_forced(dev, cfg8, params, prompt, z["steps"],
+                         z["max_seq"])
+    rms8, agree8, launches8, wall8 = (tf8["rms"], tf8["agree"],
+                                      tf8["launches"], tf8["wall"])
     if not rms8 <= DECODE_F32_TOL:
         fail(f"decode qwen3-moe f32 {cfg8.n_layers} layers: 'kernel' vs "
              f"'ref' relative RMS {rms8} > {DECODE_F32_TOL}")
@@ -3063,17 +3289,21 @@ def phase_moe(dev) -> dict:
     torch.cuda.empty_cache()
     launches = model_counts()
     want = path_launches(cfg, forwards=forwards, prefills=2,
-                         steps=z["steps"])
-    want8 = path_launches(cfg8, prefills=1, steps=z["steps"])
+                         steps=tf["step_calls"] + tf["report_steps"])
+    want8 = path_launches(cfg8, prefills=1,
+                          steps=tf8["step_calls"] + tf8["report_steps"])
     check_launches("moe qwen3-moe serve + decode", launches,
                    {k: want[k] + want8[k] for k in want})
-    check_tc("moe qwen3-moe f32 copy", launches8,
+    check_tc("moe qwen3-moe f32 copy",
+             {k: v - bf16_launches[k] for k, v in launches.items()},
              {k: v - bf16_tc[k] for k, v in tc_counts().items()},
              bf16=False)
     say(f"phase16 launches over the phase: {json.dumps(launches)} = "
         f"{forwards} eager forwards and captures, 2 prefills and "
-        f"{z['steps']} steps at 48 "
-        f"layers, 1 prefill and {z['steps']} steps at {cfg8.n_layers}, × "
+        f"{tf['step_calls'] + tf['report_steps']} steps at 48 layers (the "
+        f"program's warm step, capture and checks, the timed eager "
+        f"steps), 1 prefill and {tf8['step_calls'] + tf8['report_steps']} "
+        f"steps at {cfg8.n_layers}, × "
         f"the path's per-call counts; new-body launches of the bf16 "
         f"model {json.dumps(bf16_tc)}: every bf16 flash and moe launch on "
         f"the tensor cores (none of the f32 copy's), every rmsnorm on "
@@ -3093,7 +3323,7 @@ def phase_nemotron(dev) -> dict:
     flash launch on the tensor cores; returns them."""
     import torch
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import DecodeProgram, Model
     z = NEMOTRON
     cfg = dataclasses.replace(ARCHS["nemotron-4-340b"], n_layers=z["layers"],
                               attn_impl="kernel")
@@ -3111,20 +3341,20 @@ def phase_nemotron(dev) -> dict:
     reset_model_counts()
     t0 = time.perf_counter()
     fk = mk.forward(params, {"tokens": tokens})[0]
-    last, cache = mk.prefill(params, {"tokens": tokens}, max_seq)
+    program = DecodeProgram(mk, params, mk.init_cache(1, max_seq))
+    last, _ = mk.prefill(params, {"tokens": tokens}, max_seq,
+                         cache=program.cache)
     tok = last[:, -1].argmax(-1, keepdim=True)
-    fed, outs = [], []
-    for t in range(z["steps"]):
-        fed.append(tok)
-        logits, _ = mk.decode_step(params, cache, tok, z["seq"] + t)
-        outs.append(logits[:, -1])
-        tok = logits[:, -1].argmax(-1, keepdim=True)
+    g = program_greedy(program, tok, z["seq"], z["steps"], cfg.name)
+    fed, outs = g["fed"], g["outs"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, tc = model_counts(), tc_counts()
     check_launches("nemotron-4-340b", launches, path_launches(
-        cfg, forwards=1, prefills=1, steps=z["steps"]))
+        cfg, forwards=1, prefills=1, steps=g["step_calls"]))
     check_tc("nemotron-4-340b", launches, tc, bf16=True)
+    report = program_report(program, g, z["seq"] + z["steps"])
+    del program
 
     def rel(a, b):
         a, b = a[..., :cfg.vocab].float(), b[..., :cfg.vocab].float()
@@ -3150,14 +3380,19 @@ def phase_nemotron(dev) -> dict:
     say(f"phase18 nemotron-4-340b bf16 published width, {cfg.n_layers} "
         f"layers ({cfg.param_count()} parameters, init {init_s:.1f} s, peak "
         f"memory {torch.cuda.max_memory_allocated()} B): forward (B 1, S "
-        f"{z['seq']}), prefill and {z['steps']} greedy steps on 'kernel' in "
+        f"{z['seq']}), prefill and {z['steps']} greedy steps on 'kernel' "
+        f"(a DecodeProgram: the warm step, the capture, replays) in "
         f"{wall:.3f} s; against 'ref' on the same weights, relative RMS of "
         f"the logit difference: forward {fwd_rms:.4e}, teacher-forced "
         f"decode {dec_rms:.4e} (tol {NEMOTRON_TOL}); greedy tokens equal "
         f"at {agree} of {z['steps']} steps; kernel launches "
-        f"{json.dumps(launches)} (= the path's; every flash launch on the "
-        f"tensor cores)")
-    del params, cache, cache_r, fk, fr, outs, mk, mr
+        f"{json.dumps(launches)} (= the path's: the forward, the prefill, "
+        f"{g['step_calls']} steps' worth; every flash launch on the tensor "
+        f"cores)")
+    say(f"phase18 {program_line(cfg.name, 1, report)}")
+    DECODE_PROGRAMS["dense nemotron-4-340b (2 layers)"] = dict(report,
+                                                              batch=1)
+    del params, cache_r, fk, fr, outs, mk, mr
     torch.cuda.empty_cache()
     return launches
 
@@ -3194,14 +3429,17 @@ def phase_whisper(dev) -> dict:
     launches = {k: serve_counts[k] + r["launches"][k] for k in serve_counts}
     check_launches("encdec whisper-medium serve + decode", launches,
                    path_launches(cfg, forwards=forwards, prefills=1,
-                                 steps=z["steps"]))
+                                 steps=r["step_calls"]))
     check_tc("encdec whisper-medium serve + decode", launches,
              {k: serve_tc[k] + r["tc"][k] for k in serve_tc}, bf16=True)
     say(f"phase23 decode whisper-medium bf16 (frames {cfg.n_frames}) "
         f"{decode_line(r, 1, z['prompt'], z['steps'])}")
+    say(f"phase23 {program_line('whisper-medium', 1, r['program'])}")
+    DECODE_PROGRAMS["encdec whisper-medium"] = dict(r["program"], batch=1)
     say(f"phase23 launches over the phase: {json.dumps(launches)} = "
-        f"{forwards} eager forwards and captures, 1 prefill, {z['steps']} "
-        f"steps × the path's per-call counts (a forward "
+        f"{forwards} eager forwards and captures, 1 prefill, "
+        f"{r['step_calls']} steps (warm, capture, checks) × the path's "
+        f"per-call counts (a forward "
         f"{json.dumps(path_launches(cfg, forwards=1))}, a step "
         f"{json.dumps(path_launches(cfg, steps=1))}); every flash launch "
         f"on the tensor cores, every rmsnorm launch on the REGS body")
@@ -4589,6 +4827,8 @@ def main() -> int:
     import torch.distributed as dist
     dist.destroy_process_group()
     say(f"phases 1-29 done in {time.perf_counter() - T_START:.1f} s")
+    say(f"decode programs (replayed and eager step wall p50 in ms, same "
+        f"run; {smi_line}): {json.dumps(DECODE_PROGRAMS)}")
 
     flash_t = times["flash serve granite"]
     decode_t = times["decode B8 W1024 L576"]

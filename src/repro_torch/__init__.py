@@ -18,6 +18,8 @@ present; pass ``device="cpu"`` to run the plain-PyTorch path on the host.
 from __future__ import annotations
 
 import ctypes
+import time
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -43,3 +45,48 @@ def graph_nodes(graph) -> int:
     if err:
         raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
     return n.value
+
+
+class Capture(NamedTuple):
+    """What :func:`warm_and_capture` made: the warm call's result, the
+    instantiated graph, the captured call's result (in the graph's
+    pool: a replay writes it again), the seconds the capture and the
+    instantiation took, and the graph's node count."""
+    warm: torch.Tensor
+    graph: "torch.cuda.CUDAGraph"
+    out: torch.Tensor
+    capture_s: float
+    instantiate_s: float
+    nodes: int
+
+
+def warm_and_capture(body: Callable[[], torch.Tensor], device) -> Capture:
+    """``body()`` as one CUDA graph, the way the port's captured programs
+    (the served forward, the train step, the decode step) are made: one
+    warm call on a side stream under ``torch.cuda.set_sync_debug_mode(
+    "error")`` (it builds what is built lazily, fails on any host sync in
+    ``body``, and is a real call: its result is kept), then the capture
+    into the graph's own memory pool, kept for :func:`graph_nodes`, and
+    the instantiation.  A capture that fails raises."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            warm = body()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    main.wait_stream(side)
+    warm.record_stream(main)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle()):
+        out = body()
+    capture_s = time.perf_counter() - t0
+    nodes = graph_nodes(graph)
+    t0 = time.perf_counter()
+    graph.instantiate()
+    return Capture(warm, graph, out, capture_s, time.perf_counter() - t0,
+                   nodes)

@@ -403,13 +403,12 @@ def build(cfg: ArchConfig, shape_name: str, mesh, n_micro: int = 0):
                                  cache_of(batch) if placed_in else None)
         return step, (params, b)
 
-    # decode: ``pos`` is an int32 scalar argument, as in the JAX package;
-    # a meta scalar has no value, and ``Model.decode_step`` takes a host
-    # int, so the step decodes at the cache's last position seq − 1.
-    # xLSTM reads no position, and its step takes none (a jit drops an
-    # argument its step never reads).
+    # decode: ``pos`` is an int32 scalar argument, as in the JAX package,
+    # passed through to ``Model.decode_step``, which reads it on the
+    # device.  xLSTM reads no position, and its step takes none (a jit
+    # drops an argument its step never reads).
     def step(params, cache, token, pos=None):
-        return model.decode_step(params, cache, token, seq - 1)
+        return model.decode_step(params, cache, token, pos)
 
     args = (params, cache_of(batch), b["token"])
     if cfg.family != "ssm":

@@ -366,12 +366,49 @@ def init_kv_cache(cfg: ArchConfig, n_layers: int, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def position(pos, device) -> torch.Tensor:
+    """A decode step's position as a 0-d integer tensor, as the JAX
+    package's step takes an int32 scalar: a tensor passes through (a
+    replicated DTensor as its local value), a host int becomes an int32
+    tensor on ``device`` by a fill, which reads nothing back."""
+    if isinstance(pos, DTensor):
+        pos = pos.to_local()
+    if isinstance(pos, torch.Tensor):
+        if pos.dim() != 0 or pos.is_floating_point():
+            raise ValueError(f"decode position: want an int or a 0-d "
+                             f"integer tensor, got {pos.dtype} of shape "
+                             f"{tuple(pos.shape)}")
+        return pos
+    return torch.full((), pos, dtype=torch.int32, device=device)
+
+
+def cache_slot(pos: torch.Tensor, w: int, window: int) -> torch.Tensor:
+    """The slot of a W-wide cache that position ``pos`` writes:
+    ``pos % W`` in a sliding window's ring, else ``pos`` clamped to
+    ``W − 1`` (a full cache keeps overwriting its last slot)."""
+    return pos % w if window else torch.clamp(pos, max=w - 1)
+
+
+def write_slot(layer, slot: torch.Tensor, row) -> None:
+    """``layer[:, slot] = row[:, 0]`` in place for a 0-d ``slot`` tensor:
+    an ``index_copy_``, which reads no index back to the host (an
+    indexing by a tensor would, and a CUDA graph cannot capture it).  A
+    DTensor layer is written through a ``where`` and copied back (torch
+    2.11's DTensor has no rule for ``index_copy``)."""
+    if isinstance(layer, DTensor):
+        hit = torch.arange(layer.shape[1], device=slot.device) == slot
+        layer.copy_(torch.where(hit[:, None, None], row, layer))
+        return
+    layer.index_copy_(1, slot.reshape(1).long(), row)
+
+
 def decode_attend(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *,
-                  pos: int, window: int) -> torch.Tensor:
+                  pos, window: int) -> torch.Tensor:
     """Single-token attention over the cache.
 
     q: (B, 1, H, hd); ck/cv: (B, W, KV, hd); ``pos`` is the absolute
-    position of the new token (its K/V already written to the cache).
+    position of the new token (its K/V already written to the cache), an
+    int or a 0-d tensor.
     The query heads are grouped per KV head, so the cache is never
     repeated ``groups``×.
     """
@@ -448,7 +485,7 @@ def _block(mesh, n: int, axes: tuple) -> tuple:
 
 
 def decode_update_attend_sharded(cfg: ArchConfig, q, k_new, v_new, ck, cv,
-                                 pos: int, window: int) -> torch.Tensor:
+                                 pos, window: int) -> torch.Tensor:
     """Cache update + single-token attention with the cache's sequence
     split over the ``"model"`` ranks of the active mesh (flash-decode).
 
@@ -459,6 +496,9 @@ def decode_update_attend_sharded(cfg: ArchConfig, q, k_new, v_new, ck, cv,
     slice; ``m`` is combined by an all-reduce MAX and ``l`` and ``o`` by
     all-reduce SUMs over the model group, so the bytes a step exchanges
     are O(q), not O(cache).  A model axis of 1 issues no collective.
+
+    ``pos`` is an int or a 0-d integer tensor (:func:`position`); no
+    rank reads it back: the owner's write is a masked row.
 
     q: (B, 1, H, hd); k_new/v_new: (B, 1, KV, hd); ck/cv: (B, W, KV, hd),
     either a DTensor laid out by :func:`shard_decode_cache` (each rank
@@ -479,15 +519,21 @@ def decode_update_attend_sharded(cfg: ArchConfig, q, k_new, v_new, ck, cv,
     blo, bhi = _block(mesh, b, batch_ax)
     my_lo, my_hi = _block(mesh, w, ("model",) if seq else ())
     w_loc = my_hi - my_lo
-    slot = pos % w if window else min(pos, w - 1)
+    pos = position(pos, q.device)
+    slot = cache_slot(pos, w, window)
     if isinstance(ck, DTensor):
         ck_l, cv_l = ck.to_local(), cv.to_local()
-        if my_lo <= slot < my_hi:                # the owner writes
-            ck_l[:, slot - my_lo] = k_new[blo:bhi, 0]
-            cv_l[:, slot - my_lo] = v_new[blo:bhi, 0]
+        # the owner writes the new row; every other rank writes back the
+        # row it holds at the clamped index
+        loc = slot - my_lo
+        owner = (loc >= 0) & (loc < w_loc)
+        idx = loc.clamp(0, w_loc - 1)
+        for c_l, new in ((ck_l, k_new), (cv_l, v_new)):
+            old = c_l.index_select(1, idx.reshape(1).long())
+            write_slot(c_l, idx, torch.where(owner, new[blo:bhi], old))
     else:
-        ck[:, slot] = k_new[:, 0]
-        cv[:, slot] = v_new[:, 0]
+        write_slot(ck, slot, k_new)
+        write_slot(cv, slot, v_new)
         ck_l = ck[blo:bhi, my_lo:my_hi]
         cv_l = cv[blo:bhi, my_lo:my_hi]
 

@@ -11,6 +11,10 @@ Port of ``repro.models.model``.  One :class:`Model` per
 * ``prefill(params, batch, max_seq)`` → (last logits, cache)
 * ``decode_step(params, cache, token, pos)`` → (logits, cache)
 
+and :class:`DecodeProgram` is the decode step as one program, the
+counterpart of ``jax.jit(model.decode_step)``: one CUDA graph on the
+card, replayed at every position.
+
 Parameters keep the JAX package's tree (``params_from_numpy`` in
 :mod:`repro_torch.convert` carries a JAX ``Model.init`` tree across), and
 layers run as a Python loop over the stacked per-layer tensors in place
@@ -66,7 +70,7 @@ from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, warm_and_capture
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.launch.sharding import current_mesh, shard
@@ -587,15 +591,21 @@ class Model:
 
     def decode_step(self, params, cache: dict, token: torch.Tensor, pos):
         """One serve step: next-token logits for ``token`` (B, 1) at
-        absolute position ``pos`` (an int, the same across the batch).
+        absolute position ``pos``, the same across the batch: an int or a
+        0-d integer tensor on the model's device, as the JAX package's
+        step takes an int32 scalar.  Nothing in the step reads ``pos``
+        back to the host, so a CUDA graph of the step (:class:`
+        DecodeProgram`) replays at any position; an int gives the same
+        step bit for bit (it becomes such a tensor).
 
         The cache is updated **in place** — the new K/V are written at
-        ``slot = min(pos, W-1)`` (``pos % W`` for a sliding-window ring
-        buffer), an xLSTM's states overwritten — and returned: a caller
+        slot ``pos`` clamped to ``W-1`` (``pos % W`` for a sliding-window
+        ring buffer), an xLSTM's states overwritten — and returned: a caller
         must not reuse a cache expecting its old contents.
         """
         cfg = self.cfg
-        pos = int(pos)
+        if cfg.family != "ssm":             # xLSTM reads no position
+            pos = L.position(pos, token.device)
         x = self.embed_tokens(params, token)
         if cfg.family == "ssm":
             x = self._xlstm_decode(params, cache, x)
@@ -613,12 +623,12 @@ class Model:
         x = self._norm(x, params["final_norm"])
         return self.unembed(params, x), cache
 
-    def _decode_attn_block(self, p, x, ck, cv, pos: int):
+    def _decode_attn_block(self, p, x, ck, cv, pos):
         """Pre-norm attention block against one layer's cache view."""
         x = self._decode_self_attn(p, x, ck, cv, pos)
         return x + self._ffn(p, self._norm(x, p["ln2"]))
 
-    def _decode_decdec_block(self, p, x, cache, i: int, pos: int):
+    def _decode_decdec_block(self, p, x, cache, i: int, pos):
         """A whisper decoder block at one position: self-attention against
         cache layer ``i``, cross-attention (plain) to the encoder's K/V
         that ``prefill`` stored there, the MLP."""
@@ -629,29 +639,26 @@ class Model:
         x = x + torch.einsum("bshk,hkd->bsd", out, p["x_wo"])
         return x + L.mlp(p, self.cfg, self._norm(x, p["ln3"]))
 
-    def _decode_self_attn(self, p, x, ck, cv, pos: int):
+    def _decode_self_attn(self, p, x, ck, cv, pos):
         """Self-attention sublayer against one layer's cache view (written
-        in place)."""
+        in place) at the 0-d position tensor ``pos``."""
         cfg = self.cfg
         h = self._norm(x, p["ln1"])
         b = x.shape[0]
-        positions = torch.full((b, 1), pos, device=x.device)
-        q, k, v = L.qkv_proj(p, cfg, h, positions)
+        q, k, v = L.qkv_proj(p, cfg, h, pos.expand(b, 1))
         w = cfg.sliding_window
         if cfg.opt_decode and current_mesh() is not None:
             out = L.decode_update_attend_sharded(cfg, q, k, v, ck, cv, pos,
                                                  w)
             return x + torch.einsum("bshk,hkd->bsd", out, p["wo"])
-        wsz = ck.shape[1]
-        slot = pos % wsz if w else min(pos, wsz - 1)
-        ck[:, slot] = k[:, 0]
-        cv[:, slot] = v[:, 0]
+        slot = L.cache_slot(pos, ck.shape[1], w)
+        L.write_slot(ck, slot, k)
+        L.write_slot(cv, slot, v)
         if cfg.attn_impl == "kernel" and not w:
             # flash-decode kernel: contiguous caches only (the ring-buffer
             # validity mask of SWA caches stays on the plain path); the
             # kernel reads the cache through a transposed view
-            lengths = torch.full((b,), pos + 1, dtype=torch.int32,
-                                 device=x.device)
+            lengths = (pos + 1).to(torch.int32).expand(b).contiguous()
             out = ops.decode_attention(q[:, 0], ck.transpose(1, 2),
                                        cv.transpose(1, 2), lengths)[:, None]
         else:
@@ -679,7 +686,7 @@ class Model:
                 cache[name][gi] = st
         return x
 
-    def _zamba_decode(self, params, cache, x, pos: int):
+    def _zamba_decode(self, params, cache, x, pos):
         cfg = self.cfg
         g, tail = self._zamba_groups()
 
@@ -807,3 +814,82 @@ class Model:
                 _layer(params["mamba_tail"], i), x)
         x = self._norm(x, params["final_norm"])
         return self.unembed(params, x[:, -1:]), cache
+
+
+class DecodeProgram:
+    """The decode step as one program: the counterpart of
+    ``jax.jit(model.decode_step)``, which the JAX package's tests and dry
+    run compile once and run at every position.
+
+    Built from ``(model, params, cache)``, the cache an :meth:`Model.
+    init_cache` layout that the program owns: ``model.prefill(...,
+    cache=program.cache)`` fills it eagerly, and every step writes it in
+    place.  It holds static device buffers for the token (B, 1), B the
+    cache's batch, and the position (0-d int32).  ``program(token,
+    pos)`` copies both into their buffers (a device copy and a fill; no
+    host sync), runs one step and returns its logits (B, 1, vocab).
+
+    On the card the first call is the warm step, a real step checked for
+    host syncs, and the capture (:func:`repro_torch.warm_and_capture`);
+    every later call replays the graph, at whatever position its buffer
+    holds, and clones the logits out of the graph's output.  A capture
+    that fails raises: there is no eager path on the card.  A mesh's
+    decode (``opt_decode``'s collectives) is not captured: a program
+    built under active sharding rules raises.  On the CPU every call
+    runs the body eagerly.
+
+    The kernel wrappers' launch counters see the warm step and the
+    capture (``eager_steps`` and ``captures``), never a replay.
+    ``capture_s`` and ``instantiate_s`` are what the capture cost,
+    ``nodes`` the graph's node count, ``replays`` the replayed steps."""
+
+    eager_steps = 1             # the sync-checked warm step
+    captures = 1
+
+    def __init__(self, model: Model, params: dict, cache: dict):
+        if current_mesh() is not None:
+            raise RuntimeError(
+                "DecodeProgram: a step under a mesh is not captured (its "
+                "collectives were never run inside a CUDA graph); call "
+                "Model.decode_step eagerly")
+        self.model, self.params, self.cache = model, params, cache
+        lead = cache["s_h" if model.cfg.family == "ssm" else "k"]
+        dev = lead.device
+        self.token = torch.zeros((lead.shape[1], 1), dtype=torch.long,
+                                 device=dev)
+        self.pos = torch.zeros((), dtype=torch.int32, device=dev)
+        self.graph = None
+        self._logits = None
+        self.replays = 0
+        self.nodes = 0
+        self.capture_s = self.instantiate_s = 0.0
+
+    def body(self) -> torch.Tensor:
+        """One step at the buffers' token and position; returns the
+        logits."""
+        return self.model.decode_step(self.params, self.cache, self.token,
+                                      self.pos)[0]
+
+    def __call__(self, token: torch.Tensor, pos) -> torch.Tensor:
+        if tuple(token.shape) != tuple(self.token.shape):
+            raise ValueError(f"DecodeProgram: token of shape "
+                             f"{tuple(token.shape)}, the program's is "
+                             f"{tuple(self.token.shape)}")
+        self.token.copy_(token)
+        if isinstance(pos, torch.Tensor):
+            self.pos.copy_(L.position(pos, self.pos.device))
+        else:
+            self.pos.fill_(pos)
+        dev = self.token.device
+        if dev.type != "cuda":
+            return self.body()
+        if self.graph is None:
+            cap = warm_and_capture(self.body, dev)
+            self.graph, self._logits = cap.graph, cap.out
+            self.capture_s, self.instantiate_s = (cap.capture_s,
+                                                  cap.instantiate_s)
+            self.nodes = cap.nodes
+            return cap.warm
+        self.graph.replay()
+        self.replays += 1
+        return self._logits.clone()

@@ -38,7 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, warm_and_capture
 from repro_torch.core.schedulers import AdaptiveEstimator, Policy
 from repro_torch.core.task import ModelProfile, Outcome, Task
 from repro_torch.sim.engine import ModelStats, Results
@@ -77,20 +77,8 @@ class GraphForward:
         self.device = device
         self.replays = 0
         self._lock = threading.Lock()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                fwd()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph,
-                              pool=torch.cuda.graph_pool_handle()):
-            self._logits = fwd()
+        cap = warm_and_capture(fwd, device)
+        self.graph, self._logits = cap.graph, cap.out
 
     def __call__(self) -> torch.Tensor:
         with self._lock:

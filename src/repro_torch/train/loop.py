@@ -21,7 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import graph_nodes, resolve_device
+from repro_torch import resolve_device, warm_and_capture
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import FastSyntheticLM
 from repro_torch.models.model import Model
@@ -114,35 +114,15 @@ class TrainProgram:
         if dev.type != "cuda":
             return self.body()
         if self.graph is None:
-            return self._warm_and_capture(dev)
+            cap = warm_and_capture(self.body, dev)
+            self.graph, self._loss = cap.graph, cap.out
+            self.capture_s, self.instantiate_s = (cap.capture_s,
+                                                  cap.instantiate_s)
+            self.nodes = cap.nodes
+            return cap.warm
         self.graph.replay()
         self.replays += 1
         return self._loss.clone()
-
-    def _warm_and_capture(self, dev) -> torch.Tensor:
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                loss = self.body()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        main.wait_stream(side)
-        loss.record_stream(main)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
-            self._loss = self.body()
-        self.capture_s = time.perf_counter() - t0
-        self.nodes = graph_nodes(graph)
-        t0 = time.perf_counter()
-        graph.instantiate()
-        self.instantiate_s = time.perf_counter() - t0
-        self.graph = graph
-        return loss
 
 
 def batch_tensors(cfg: ArchConfig, raw: dict, device) -> dict:

@@ -31,7 +31,22 @@ def _servable(name, arch, beta=100, ke=1, kc=25, deadline=400.0,
     return ServableModel.from_arch(prof, cfg, batch=1, seq=16, device="cpu")
 
 
-def test_serve_engine_runs_real_models():
+@pytest.fixture
+def one_intra_op_thread():
+    """torch's intra-op pool cut to one thread for a live stream, then
+    restored.  The engine calls the model from its edge thread and its
+    cloud threads at once, each with its own team of the pool's size
+    (the host's cores); beside other busy processes those teams spin at
+    every op's barrier, the forwards of these reduced models slow with
+    the host's load, and so would the stream's outcomes that the tests
+    assert.  On one thread a forward keeps its pace under that load."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_serve_engine_runs_real_models(one_intra_op_thread):
     models = {"HV": _servable("HV", "granite-3-2b", attn_impl="kernel"),
               "BP": _servable("BP", "starcoder2-3b", beta=40, kc=43)}
     engine = ServeEngine(TS.make_policy("DEMS"), models, cloud_concurrency=2,
@@ -48,7 +63,7 @@ def test_serve_engine_runs_real_models():
                                           *engine._cloud_threads))
 
 
-def test_serve_engine_gems_windows():
+def test_serve_engine_gems_windows(one_intra_op_thread):
     models = {"HV": _servable("HV", "granite-3-2b")}
     engine = ServeEngine(TS.make_policy("GEMS"), models, cloud_concurrency=2,
                          seed=0)

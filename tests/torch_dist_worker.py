@@ -114,14 +114,16 @@ DECODE_CASES = ((0, 14, 32, 6), (16, 6, 32, 14))
 def _decode_case(world: int, say) -> None:
     """opt_decode with the cache's sequence split over 2 model ranks (at 4
     ranks the batch over 2 data ranks too), step by step against the
-    unsharded decode on the same tokens."""
+    unsharded decode on the same tokens, the sharded step's position a
+    0-d tensor at every other step; a ``DecodeProgram`` refuses the
+    mesh."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import ARCHS
     from repro_torch.launch.sharding import sharding_rules
     from repro_torch.models import layers as L
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import DecodeProgram, Model
 
     mesh = init_device_mesh("cpu", (world // 2, 2),
                             mesh_dim_names=("data", "model"))
@@ -140,8 +142,9 @@ def _decode_case(world: int, say) -> None:
             tok = tokens[:, -1:]
             for pos in range(prompt, prompt + steps):
                 want, cache = base.decode_step(params, cache, tok, pos)
+                at = torch.tensor(pos, dtype=torch.int32) if pos % 2 else pos
                 with sharding_rules(mesh):
-                    got, sharded = opt.decode_step(params, sharded, tok, pos)
+                    got, sharded = opt.decode_step(params, sharded, tok, at)
                 where = f"window {window} pos {pos}"
                 torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3,
                                            msg=where)
@@ -150,6 +153,13 @@ def _decode_case(world: int, say) -> None:
                         sharded[key].full_tensor(), cache[key], rtol=1e-5,
                         atol=1e-5, msg=f"{where} cache {key}")
                 tok = want[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        with sharding_rules(mesh):
+            try:
+                DecodeProgram(opt, params, sharded)
+            except RuntimeError as e:
+                assert "mesh" in str(e), e
+            else:
+                raise AssertionError("DecodeProgram took a mesh")
     say("opt_decode")
 
 
