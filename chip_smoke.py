@@ -384,6 +384,12 @@ DECODE = dict(batch=8, prompt=512, max_seq=1024, steps=64, seed=11)
 # are timed beside the replays after the launches are read
 CHECK_REPLAYS = 3
 EAGER_TIMED = 8
+# and their prompts run as a PrefillProgram over the DecodeProgram's
+# cache: a warm prefill and the capture, then one replay held bitwise to
+# the warm prefill (logits and every cache leaf); after the launches are
+# read, PREFILL_TIMED replays and PREFILL_TIMED eager prefills (a fresh
+# cache each) are timed in the same run
+PREFILL_TIMED = 5
 # phase 7 also runs the families no other phase decodes on the card
 # (vlm, ssm) through a DecodeProgram at a reduced size whose head dim the
 # decode kernel takes (d 256 over 4 heads: hd 64), on both routes
@@ -1754,7 +1760,9 @@ def path_launches(cfg, forwards: int = 0, prefills: int = 0,
     decode attention layer on a contiguous cache,
     every Mamba2 scan in ``forward`` and ``prefill``, and every expert
     product of the moe family (3 a layer for silu experts, 2 for gelu)
-    in all three."""
+    in all three.  A program's key counts as two calls, its warm call and
+    its capture (a ``PrefillProgram``'s as two prefills, a
+    ``DecodeProgram``'s as two steps); a replay as none."""
     if cfg.family == "encdec":
         # the encoder (flash, 2 norms a layer, enc_norm) runs in forward
         # and prefill; the decoder's self-attention takes flash in forward
@@ -2027,19 +2035,21 @@ def program_greedy(program, tok, p: int, steps: int, what: str) -> dict:
     """Greedy decoding of ``steps`` tokens through ``program`` (a
     ``DecodeProgram`` whose cache holds a prompt of ``p`` tokens) from
     ``tok`` at position ``p``, the position a device scalar advanced on
-    the card.  The first call is the warm step and the capture; each of
-    the next CHECK_REPLAYS replays is held bitwise (logits and cache) to
-    an eager ``Model.decode_step`` at the host int position on a clone of
-    the cache before it; every replay is timed on the host's clock,
-    ending in a synchronize.  Returns the tokens fed, each step's last
-    logits, the replays' walls in ms (sorted) and ``step_calls``, the
-    steps that launched the kernel wrappers (the warm step, the capture
-    and the eager checks: a replay launches through the graph)."""
+    the card.  A program not yet captured makes its first call the warm
+    step and the capture; each of the next CHECK_REPLAYS replays is held
+    bitwise (logits and cache) to an eager ``Model.decode_step`` at the
+    host int position on a clone of the cache before it; every replay is
+    timed on the host's clock, ending in a synchronize.  Returns the
+    tokens fed, each step's last logits, the replays' walls in ms
+    (sorted) and ``step_calls``, the steps that launched the kernel
+    wrappers (the warm step and the capture when this call made them, and
+    the eager checks: a replay launches through the graph)."""
     import torch
     mk, params = program.model, program.params
     pos = torch.full((), p, dtype=torch.int32, device=tok.device)
     fed, outs, walls = [], [], []
     checks = 0
+    fresh, start = program.graph is None, program.replays
     for t in range(steps):
         fed.append(tok)
         twin = want = None
@@ -2062,12 +2072,14 @@ def program_greedy(program, tok, p: int, steps: int, what: str) -> dict:
         pos.add_(1)
         outs.append(logits[:, -1])
         tok = logits[:, -1].argmax(-1, keepdim=True)
-    if program.replays != steps - 1 or checks != min(CHECK_REPLAYS,
-                                                     steps - 1):
-        fail(f"{what}: {program.replays} replays and {checks} checked, "
-             f"want {steps - 1} and {min(CHECK_REPLAYS, steps - 1)}")
+    replays = steps - 1 if fresh else steps
+    if program.replays - start != replays or checks != min(CHECK_REPLAYS,
+                                                            replays):
+        fail(f"{what}: {program.replays - start} replays and {checks} "
+             f"checked, want {replays} and {min(CHECK_REPLAYS, replays)}")
+    made = program.eager_steps + program.captures if fresh else 0
     return dict(fed=fed, outs=outs, walls=sorted(walls), checks=checks,
-                step_calls=program.eager_steps + program.captures + checks)
+                step_calls=made + checks)
 
 
 def program_report(program, g: dict, p: int) -> dict:
@@ -2134,8 +2146,128 @@ def program_line(name: str, b: int, rep: dict) -> str:
             f"and cache)")
 
 
+def program_prefill(pp, batch: dict, what: str):
+    """A request's first prefill through ``pp`` (a ``PrefillProgram``
+    over a ``DecodeProgram``'s cache; ``batch``'s shape a new key): the
+    warm prefill and the capture, timed together on the host's clock,
+    then one replay, held bitwise to the warm prefill in its logits and
+    in every cache leaf.  Every leaf keeps its address, and the replay
+    launches nothing through the kernel wrappers.  Returns the warm
+    prefill's logits and the first call's seconds."""
+    import torch
+    ptrs = {k: v.data_ptr() for k, v in pp.cache.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = pp(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    want = {k: v.clone() for k, v in pp.cache.items()}
+    before, replays = model_counts(), pp.replays
+    got = pp(batch)
+    torch.cuda.synchronize()
+    if model_counts() != before or pp.replays != replays + 1:
+        fail(f"{what}: the prefill replay launched "
+             f"{json.dumps(model_counts())} against {json.dumps(before)}, "
+             f"or was no replay ({pp.replays - replays} replays)")
+    if not (torch.equal(got, warm) and all(
+            torch.equal(pp.cache[k], v) for k, v in want.items())):
+        fail(f"{what}: the first prefill replay differs from the warm "
+             f"prefill (logits or cache)")
+    if {k: v.data_ptr() for k, v in pp.cache.items()} != ptrs:
+        fail(f"{what}: a cache leaf moved in the prefill program")
+    return warm, first_s
+
+
+def prefill_report(pp, batch: dict) -> dict:
+    """What a ``PrefillProgram``'s key costs beside the eager prefill, in
+    one run: the wall p50 of PREFILL_TIMED replays and of PREFILL_TIMED
+    eager ``Model.prefill`` calls into a fresh cache each (the prefill as
+    it ran before it was captured; they launch the kernel wrappers), one
+    replay's device span read with CUDA events, one replay under the
+    profiler, and the graph's nodes and capture time.  The replays write
+    ``batch``'s cache again."""
+    import torch
+    mk, params = pp.model, pp.params
+    cap = pp.graphs[pp.key(batch)]
+
+    def walls(fn) -> list:
+        out = []
+        for _ in range(PREFILL_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return sorted(out)
+    replayed = walls(lambda: pp(batch))
+    eager = walls(lambda: mk.prefill(params, batch, pp.max_seq))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    cap.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return dict(replay_p50_ms=replayed[PREFILL_TIMED // 2],
+                eager_p50_ms=eager[PREFILL_TIMED // 2], timed=PREFILL_TIMED,
+                replay_span_ms=start.elapsed_time(end),
+                replay_profile=profile_call(cap.graph.replay),
+                nodes=cap.nodes, capture_s=cap.capture_s,
+                instantiate_s=cap.instantiate_s, shape=list(
+                    batch["tokens"].shape))
+
+
+# phase → the PrefillProgram report of its kernel-route prefill
+PREFILL_PROGRAMS = {}
+
+
+def prefill_line(name: str, rep: dict) -> str:
+    rk, rbusy, rwall = rep["replay_profile"]
+    b, s = rep["shape"]
+    return (f"PrefillProgram {name} B {b} × S {s}: replayed prefill wall "
+            f"p50 {rep['replay_p50_ms']:.4f} ms beside the eager prefill's "
+            f"p50 {rep['eager_p50_ms']:.4f} ms ({rep['timed']} each, same "
+            f"run; eager into a fresh cache); one replay's device span (CUDA "
+            f"events) {rep['replay_span_ms']:.4f} ms; profiled: one replay "
+            f"{rk} device kernels, busy {rbusy:.3f} ms of {rwall:.3f} ms "
+            f"wall; graph nodes {rep['nodes']}, capture "
+            f"{rep['capture_s']:.3f} s, instantiate "
+            f"{rep['instantiate_s']:.3f} s; the first replay == the warm "
+            f"prefill bitwise (logits and every cache leaf), cache "
+            f"addresses unchanged, no wrapper launch in a replay")
+
+
+def second_request(program, pp, batch: dict, p: int, what: str) -> dict:
+    """A second request of the first's shape, after the first's decode
+    steps: its prompt replayed into the used cache, logits and every
+    leaf bitwise an eager ``Model.prefill`` into a fresh ``init_cache``,
+    the replay launching nothing through the wrappers; then
+    CHECK_REPLAYS decode replays from its greedy token, each bitwise an
+    eager step (:func:`program_greedy`).  Returns the steps that launched
+    the wrappers (the eager checks) beside the one eager prefill."""
+    import torch
+    before = model_counts()
+    logits = pp(batch)
+    torch.cuda.synchronize()
+    if model_counts() != before:
+        fail(f"{what}: the second request's prefill replay launched "
+             f"through the wrappers")
+    want, fresh = pp.model.prefill(pp.params, batch, pp.max_seq)
+    if not (torch.equal(logits, want) and fresh.keys() == pp.cache.keys()
+            and all(torch.equal(pp.cache[k], v) for k, v in fresh.items())):
+        fail(f"{what}: the second request's prefill replay into the used "
+             f"cache differs from an eager prefill into a fresh cache "
+             f"(logits or cache)")
+    del want, fresh
+    g = program_greedy(program, logits[:, -1].argmax(-1, keepdim=True), p,
+                       CHECK_REPLAYS, f"{what} second request")
+    return dict(step_calls=g["step_calls"], prefills=1,
+                launches={k: v - before[k]
+                          for k, v in model_counts().items()})
+
+
 def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
-                         max_seq: int, extra=None) -> dict:
+                         max_seq: int, extra=None, second=None) -> dict:
     """Prefill ``prompt`` (with ``extra``'s inputs: an encdec model's
     frames) and decode ``steps`` greedy tokens with ``cfg``
     (``attn_impl="kernel"``, bf16), then feed the same tokens through the
@@ -2143,34 +2275,38 @@ def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
     of the logit differences over the RMS of the plain f32 logits (kr
     kernel vs plain, kf kernel vs f32, rf plain vs f32, ff the two f32
     routes), held to DECODE_KR_TOL·rf, DECODE_KF_TOL·rf and
-    DECODE_F32_TOL.  The kernel model's steps run as a ``DecodeProgram``
-    (:func:`program_greedy`: prefilled into the program's cache, a warm
-    step and the capture, replays, the first ones held to eager steps);
-    the yardsticks stay eager.  Returns the timings, the RMSs, the kernel
-    launches of the bf16 kernel model's prefill and steps, the steps
-    that launched them (``step_calls``) and the program's report."""
+    DECODE_F32_TOL.  The kernel model's request runs as two programs: a
+    ``PrefillProgram`` over a ``DecodeProgram``'s cache
+    (:func:`program_prefill`: the warm prefill, the capture, a replay
+    held to it) and the steps (:func:`program_greedy`: a warm step and
+    the capture, replays, the first ones held to eager steps); the
+    yardsticks stay eager.  With ``second`` (phase 7), a second prompt of
+    the same shape is then served through both (:func:`second_request`).
+    Returns the timings, the RMSs, the kernel launches of the bf16 kernel
+    model's prefill and steps, the prefills and steps that launched them
+    (``prefill_calls``, ``step_calls``) and the programs' reports."""
     import torch
-    from repro_torch.models.model import DecodeProgram, Model
+    from repro_torch.models.model import DecodeProgram, Model, PrefillProgram
     b, p = prompt.shape
     batch = {"tokens": prompt, **(extra or {})}
     mk = Model(cfg, dev)
     mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
     reset_model_counts()
     program = DecodeProgram(mk, params, mk.init_cache(b, max_seq))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    last, cache_k = mk.prefill(params, batch, max_seq, cache=program.cache)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    cache_r = {k: v.clone() for k, v in cache_k.items()}
+    pp = PrefillProgram(mk, params, program.cache)
+    last, prefill_s = program_prefill(pp, batch, f"prefill {cfg.name}")
+    cache_r = {k: v.clone() for k, v in program.cache.items()}
     tok = last[:, -1].argmax(-1, keepdim=True)
     t0 = time.perf_counter()
     g = program_greedy(program, tok, p, steps, f"decode {cfg.name}")
     wall = time.perf_counter() - t0
     launches, tc = model_counts(), tc_counts()
     fed, outs = g["fed"], g["outs"]
+    sec = None if second is None else second_request(
+        program, pp, dict(batch, tokens=second), p, f"serve {cfg.name}")
     report = program_report(program, g, p + steps)
-    del program, cache_k
+    prefill = prefill_report(pp, batch)
+    del program, pp
     f32 = dict(dtype="float32", param_dtype="float32")
     mf = Model(dataclasses.replace(cfg, attn_impl="ref", **f32), dev)
     mff = Model(dataclasses.replace(cfg, **f32), dev)
@@ -2205,16 +2341,20 @@ def greedy_vs_yardsticks(dev, cfg, params, prompt, steps: int,
     del pf, cache_f, cache_ff, mf, mff
     return dict(prefill_s=prefill_s, wall=wall, rms=rms, max_diff=mx,
                 launches=launches, tc=tc, step_calls=g["step_calls"],
-                program=report, peak=torch.cuda.max_memory_allocated())
+                prefill_calls=PrefillProgram.eager_prefills
+                + PrefillProgram.captures, program=report, prefill=prefill,
+                second=sec, peak=torch.cuda.max_memory_allocated())
 
 
 def decode_line(r: dict, b: int, p: int, steps: int) -> str:
     rms = r["rms"]
-    return (f"B {b}, prompt {p} (prefill {r['prefill_s']:.3f} s), {steps} "
+    return (f"B {b}, prompt {p} (the prefill program's warm prefill and "
+            f"capture {r['prefill_s']:.3f} s), {steps} "
             f"greedy steps in {r['wall']:.3f} s (the warm step, the capture "
             f"and {CHECK_REPLAYS} eager checks among them); kernel launches "
-            f"{json.dumps(r['launches'])} (= the path's: prefill, warm step, "
-            f"capture and checks; {r['step_calls']} steps' worth); "
+            f"{json.dumps(r['launches'])} (= the path's: the warm prefill "
+            f"and its capture, {r['prefill_calls']} prefills' worth; warm "
+            f"step, capture and checks, {r['step_calls']} steps' worth); "
             f"teacher-forced on the same tokens, "
             f"RMS of the logit difference over RMS of the f32 logits: "
             f"kernel vs attn_impl='ref' {rms['kr']:.4e} (tol "
@@ -2237,15 +2377,30 @@ def phase_decode(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(DECODE["seed"])
     params = Model(cfg, dev).init(gen)
     prompt = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    second = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
     r = greedy_vs_yardsticks(dev, cfg, params, prompt, steps,
-                             DECODE["max_seq"])
+                             DECODE["max_seq"], second=second)
     check_launches("decode granite-3-2b", r["launches"],
-                   path_launches(cfg, prefills=1, steps=r["step_calls"]))
+                   path_launches(cfg, prefills=r["prefill_calls"],
+                                 steps=r["step_calls"]))
     check_tc("decode granite-3-2b", r["launches"], r["tc"], bf16=True)
+    sec = r["second"]
+    check_launches("granite-3-2b second request", sec["launches"],
+                   path_launches(cfg, prefills=sec["prefills"],
+                                 steps=sec["step_calls"]))
     say(f"phase7 decode granite-3-2b bf16 {decode_line(r, b, p, steps)}")
     say(f"phase7 {program_line('granite-3-2b', b, r['program'])}")
+    say(f"phase7 {prefill_line('granite-3-2b', r['prefill'])}")
+    say(f"phase7 second request (B {b} × {p}, after the first's {steps} "
+        f"steps): its prefill a replay into the used cache, bitwise an "
+        f"eager prefill into a fresh init_cache (logits and every cache "
+        f"leaf), launching nothing through the wrappers; its first "
+        f"{CHECK_REPLAYS} decode replays bitwise eager steps; launches "
+        f"{json.dumps(sec['launches'])} (= the eager comparisons: 1 "
+        f"prefill, {sec['step_calls']} steps)")
     DECODE_PROGRAMS["dense granite-3-2b"] = dict(r["program"], batch=b)
-    del params, prompt
+    PREFILL_PROGRAMS["dense granite-3-2b"] = r["prefill"]
+    del params, prompt, second
     torch.cuda.empty_cache()
     reduced_programs(dev)
     return r["launches"]
@@ -2253,7 +2408,9 @@ def phase_decode(dev) -> dict:
 
 def reduced_programs(dev) -> None:
     """Phase 7's reduced families: each of REDUCED_DECODE's archs (vlm,
-    ssm) at d 256, f32, on both routes, decoded greedily through a
+    ssm) at d 256, f32, on both routes, prefilled through a
+    ``PrefillProgram`` (:func:`program_prefill`: a replay held to the
+    warm prefill bitwise) and decoded greedily through a
     ``DecodeProgram`` (:func:`program_greedy`: its first replays held to
     eager steps bitwise), its greedy logits held to an eager run of the
     same steps on another cache to ``ATT_TOL["float32"]`` (the eager
@@ -2261,7 +2418,7 @@ def reduced_programs(dev) -> None:
     import torch
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.models.model import DecodeProgram, Model
+    from repro_torch.models.model import DecodeProgram, Model, PrefillProgram
     z = REDUCED_DECODE
     rows = []
     for arch in z["archs"]:
@@ -2282,8 +2439,8 @@ def reduced_programs(dev) -> None:
             max_seq = z["max_seq"] + cfg.n_image_tokens
             program = DecodeProgram(mk, params,
                                     mk.init_cache(z["batch"], max_seq))
-            last, _ = mk.prefill(params, batch, max_seq,
-                                 cache=program.cache)
+            pp = PrefillProgram(mk, params, program.cache)
+            last, _ = program_prefill(pp, batch, f"reduced {arch} {impl}")
             twin = {k: v.clone() for k, v in program.cache.items()}
             tok = last[:, -1].argmax(-1, keepdim=True)
             g = program_greedy(program, tok, p, z["steps"],
@@ -2299,15 +2456,18 @@ def reduced_programs(dev) -> None:
                 fail(f"reduced {arch} {impl}: the program's greedy logits "
                      f"exceed {ATT_TOL['float32']} of the eager steps' by "
                      f"{err}")
-            rows.append(f"{arch} ({cfg.family}) {impl}: {z['steps']} steps, "
+            key = pp.key(batch)
+            rows.append(f"{arch} ({cfg.family}) {impl}: prefill nodes "
+                        f"{pp.graphs[key].nodes}, {z['steps']} steps, "
                         f"{program.replays} replays, nodes {program.nodes}")
-            del program, twin, params, mk
+            del program, pp, twin, params, mk
     torch.cuda.empty_cache()
-    say(f"phase7 reduced families through DecodeProgram (d "
-        f"{z['d_model']}, f32, B {z['batch']}, from position "
-        f"{z['prompt']} past the cache's last slot): "
-        f"{'; '.join(rows)}; every replay's greedy logits within "
-        f"{ATT_TOL['float32']} of eager steps, the first "
+    say(f"phase7 reduced families through PrefillProgram and "
+        f"DecodeProgram (d {z['d_model']}, f32, B {z['batch']}, from "
+        f"position {z['prompt']} past the cache's last slot): "
+        f"{'; '.join(rows)}; the first prefill replay bitwise the warm "
+        f"prefill, cache addresses unchanged; every step replay's greedy "
+        f"logits within {ATT_TOL['float32']} of eager steps, the first "
         f"{CHECK_REPLAYS} bitwise")
 
 
@@ -2409,17 +2569,21 @@ def phase_hybrid(dev) -> dict:
                              z["max_seq"])
     launches = {k: serve_counts[k] + r["launches"][k] for k in serve_counts}
     check_launches("hybrid zamba2-7b serve + decode", launches,
-                   path_launches(cfg, forwards=forwards, prefills=1,
+                   path_launches(cfg, forwards=forwards,
+                                 prefills=r["prefill_calls"],
                                  steps=r["step_calls"]))
     check_tc("hybrid zamba2-7b serve + decode", launches,
              {k: serve_tc[k] + r["tc"][k] for k in serve_tc}, bf16=True)
     say(f"phase13 decode zamba2-7b bf16 "
         f"{decode_line(r, 1, z['prompt'], z['steps'])}")
     say(f"phase13 {program_line('zamba2-7b', 1, r['program'])}")
+    say(f"phase13 {prefill_line('zamba2-7b', r['prefill'])}")
     DECODE_PROGRAMS["hybrid zamba2-7b"] = dict(r["program"], batch=1)
+    PREFILL_PROGRAMS["hybrid zamba2-7b"] = r["prefill"]
     say(f"phase13 launches over the phase: {json.dumps(launches)} = "
         f"{forwards} eager forwards and captures (the graph's replays "
-        f"launch nothing through the wrappers), 1 prefill, "
+        f"launch nothing through the wrappers), {r['prefill_calls']} "
+        f"prefills (the program's warm prefill and capture), "
         f"{r['step_calls']} steps (the program's warm step, capture and "
         f"checks) × the path's per-call counts; every flash launch on the "
         f"tensor cores, every ssm_scan launch ({serve_tc['ssm_scan']} + "
@@ -3152,39 +3316,40 @@ def routing_agreement(a: list, b: list, n_layers: int) -> list:
 def teacher_forced(dev, cfg, params, prompt, steps: int,
                    max_seq: int) -> dict:
     """Greedy decoding under ``cfg`` (``"kernel"``) through a
-    ``DecodeProgram`` (:func:`program_greedy`), then the same tokens
-    through ``"ref"`` eagerly on the same weights.  Returns the relative
-    RMS of the logit difference over the plain logits' RMS (``rms``),
-    the per-layer routing agreement (``agree``) over the prefill and the
-    eager kernel-route steps (the warm step and the checked ones: a
-    replay never calls the router), the kernel launches of the kernel
-    route's prefill and steps (``launches``), the steps that launched
-    them (``step_calls``), prefill and steps seconds and the program's
-    report, whose eager steps launch too (``report_steps``)."""
+    ``PrefillProgram`` (:func:`program_prefill`) and a ``DecodeProgram``
+    (:func:`program_greedy`), then the same tokens through ``"ref"``
+    eagerly on the same weights.  Returns the relative RMS of the logit
+    difference over the plain logits' RMS (``rms``), the per-layer
+    routing agreement (``agree``) over the warm prefill and the eager
+    kernel-route steps (the warm step and the checked ones: a capture
+    and a replay never call the router in Python), the kernel launches
+    of the kernel route's prefills and steps (``launches``), the
+    prefills and steps that launched them (``prefill_calls``,
+    ``step_calls``), the first prefill's and the steps' seconds and the
+    programs' reports, whose eager steps and prefills launch too
+    (``report_steps``, ``report_prefills``)."""
     import torch
-    from repro_torch.models.model import DecodeProgram, Model
+    from repro_torch.models.model import DecodeProgram, Model, PrefillProgram
     p = prompt.shape[1]
+    batch = {"tokens": prompt}
     mk = Model(cfg, dev)
     mr = Model(dataclasses.replace(cfg, attn_impl="ref"), dev)
     before = model_counts()
     program = DecodeProgram(mk, params, mk.init_cache(prompt.shape[0],
                                                       max_seq))
+    pp = PrefillProgram(mk, params, program.cache)
     with RouteLog() as lk:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        last, _ = mk.prefill(params, {"tokens": prompt}, max_seq,
-                             cache=program.cache)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
+        last, prefill_s = program_prefill(pp, batch, f"prefill {cfg.name}")
         tok = last[:, -1].argmax(-1, keepdim=True)
         t0 = time.perf_counter()
         g = program_greedy(program, tok, p, steps, f"decode {cfg.name}")
         wall = time.perf_counter() - t0
     after = model_counts()
     report = program_report(program, g, p + steps)
+    prefill = prefill_report(pp, batch)
     fed = g["fed"]
     outs = [o[:, :cfg.vocab].float() for o in g["outs"]]
-    del program
+    del program, pp
     with RouteLog() as lr:
         _, cache = mr.prefill(params, {"tokens": prompt}, max_seq)
         sq_d = sq_r = 0.0
@@ -3195,14 +3360,16 @@ def teacher_forced(dev, cfg, params, prompt, steps: int,
                 fail(f"decode {cfg.name}: non-finite logits at step {t}")
             sq_d += float((outs[t] - r_).square().sum())
             sq_r += float(r_.square().sum())
-    # the kernel route's router ran eagerly in the prefill, the warm step
-    # and the checked steps: those against the same calls of "ref"
+    # the kernel route's router ran eagerly in the warm prefill, the warm
+    # step and the checked steps: those against the same calls of "ref"
     agree = routing_agreement(lk.calls, lr.calls[:len(lk.calls)],
                               cfg.n_layers)
     launches = {k: after[k] - before[k] for k in after}
     return dict(rms=(sq_d / sq_r) ** 0.5, agree=agree, launches=launches,
                 step_calls=g["step_calls"], prefill_s=prefill_s, wall=wall,
-                program=report, report_steps=EAGER_TIMED + 1,
+                prefill_calls=PrefillProgram.eager_prefills
+                + PrefillProgram.captures, program=report, prefill=prefill,
+                report_steps=EAGER_TIMED + 1, report_prefills=PREFILL_TIMED,
                 routed_steps=len(lk.calls) // cfg.n_layers - 1)
 
 
@@ -3243,14 +3410,17 @@ def phase_moe(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     tf = teacher_forced(dev, cfg, params, prompt, z["steps"], z["max_seq"])
     rms, agree, dec_launches = tf["rms"], tf["agree"], tf["launches"]
-    say(f"phase16 decode qwen3-moe bf16 B {b}, prompt {p} (prefill "
-        f"{tf['prefill_s']:.3f} s), {z['steps']} greedy steps in "
+    say(f"phase16 decode qwen3-moe bf16 B {b}, prompt {p} (the prefill "
+        f"program's warm prefill and capture {tf['prefill_s']:.3f} s), "
+        f"{z['steps']} greedy steps in "
         f"{tf['wall']:.3f} s (the warm step, the capture and "
         f"{CHECK_REPLAYS} eager checks among them); kernel launches "
-        f"{json.dumps(dec_launches)} ({tf['step_calls']} steps' worth); "
+        f"{json.dumps(dec_launches)} ({tf['prefill_calls']} prefills' and "
+        f"{tf['step_calls']} steps' worth); "
         f"teacher-forced on the same tokens, RMS of the logit difference "
         f"over RMS of the 'ref' logits {rms:.4e}; routing agreement with "
-        f"'ref' per layer over the prefill and the {tf['routed_steps']} "
+        f"'ref' per layer over the warm prefill and the "
+        f"{tf['routed_steps']} "
         f"eager steps (share of (token, k) choices in common): first "
         f"{agree[0]:.4f}, mean {sum(agree) / len(agree):.4f}, min "
         f"{min(agree):.4f}, last {agree[-1]:.4f}; peak memory "
@@ -3258,11 +3428,16 @@ def phase_moe(dev) -> dict:
     say(f"phase16 routing agreement by layer: "
         f"{json.dumps([round(a, 4) for a in agree])}")
     say(f"phase16 {program_line('qwen3-moe-30b-a3b', b, tf['program'])}")
+    say(f"phase16 {prefill_line('qwen3-moe-30b-a3b', tf['prefill'])}")
     DECODE_PROGRAMS["moe qwen3-moe-30b-a3b"] = dict(tf["program"], batch=b)
+    PREFILL_PROGRAMS["moe qwen3-moe-30b-a3b"] = tf["prefill"]
     n_k, busy, pre_wall = profile_call(lambda: mk.prefill(
         params, {"tokens": prompt}, z["max_seq"]))
-    say(f"phase16 profile of one B {b} × {p} prefill: {n_k} device kernels,"
-        f" busy {busy:.3f} ms of {pre_wall:.3f} ms wall")
+    rk, rbusy, rwall = tf["prefill"]["replay_profile"]
+    say(f"phase16 profile of one B {b} × {p} prefill: eager {n_k} device "
+        f"kernels, busy {busy:.3f} ms of {pre_wall:.3f} ms wall; one "
+        f"replay of the prefill program {rk} device kernels, busy "
+        f"{rbusy:.3f} ms of {rwall:.3f} ms wall")
     del params, mk
     torch.cuda.empty_cache()
     bf16_launches, bf16_tc = model_counts(), tc_counts()
@@ -3288,9 +3463,12 @@ def phase_moe(dev) -> dict:
     del params
     torch.cuda.empty_cache()
     launches = model_counts()
-    want = path_launches(cfg, forwards=forwards, prefills=2,
+    # the profiled eager prefill beside each run's program prefills
+    pre = tf["prefill_calls"] + tf["report_prefills"] + 1
+    pre8 = tf8["prefill_calls"] + tf8["report_prefills"]
+    want = path_launches(cfg, forwards=forwards, prefills=pre,
                          steps=tf["step_calls"] + tf["report_steps"])
-    want8 = path_launches(cfg8, prefills=1,
+    want8 = path_launches(cfg8, prefills=pre8,
                           steps=tf8["step_calls"] + tf8["report_steps"])
     check_launches("moe qwen3-moe serve + decode", launches,
                    {k: want[k] + want8[k] for k in want})
@@ -3299,10 +3477,12 @@ def phase_moe(dev) -> dict:
              {k: v - bf16_tc[k] for k, v in tc_counts().items()},
              bf16=False)
     say(f"phase16 launches over the phase: {json.dumps(launches)} = "
-        f"{forwards} eager forwards and captures, 2 prefills and "
+        f"{forwards} eager forwards and captures, {pre} prefills and "
         f"{tf['step_calls'] + tf['report_steps']} steps at 48 layers (the "
-        f"program's warm step, capture and checks, the timed eager "
-        f"steps), 1 prefill and {tf8['step_calls'] + tf8['report_steps']} "
+        f"prefill program's warm prefill and capture, the timed eager "
+        f"prefills and the profiled one; the step program's warm step, "
+        f"capture and checks, the timed eager steps), {pre8} prefills and "
+        f"{tf8['step_calls'] + tf8['report_steps']} "
         f"steps at {cfg8.n_layers}, × "
         f"the path's per-call counts; new-body launches of the bf16 "
         f"model {json.dumps(bf16_tc)}: every bf16 flash and moe launch on "
@@ -3323,7 +3503,7 @@ def phase_nemotron(dev) -> dict:
     flash launch on the tensor cores; returns them."""
     import torch
     from repro_torch.configs.registry import ARCHS
-    from repro_torch.models.model import DecodeProgram, Model
+    from repro_torch.models.model import DecodeProgram, Model, PrefillProgram
     z = NEMOTRON
     cfg = dataclasses.replace(ARCHS["nemotron-4-340b"], n_layers=z["layers"],
                               attn_impl="kernel")
@@ -3342,19 +3522,22 @@ def phase_nemotron(dev) -> dict:
     t0 = time.perf_counter()
     fk = mk.forward(params, {"tokens": tokens})[0]
     program = DecodeProgram(mk, params, mk.init_cache(1, max_seq))
-    last, _ = mk.prefill(params, {"tokens": tokens}, max_seq,
-                         cache=program.cache)
+    pp = PrefillProgram(mk, params, program.cache)
+    batch = {"tokens": tokens}
+    last, _ = program_prefill(pp, batch, f"prefill {cfg.name}")
     tok = last[:, -1].argmax(-1, keepdim=True)
     g = program_greedy(program, tok, z["seq"], z["steps"], cfg.name)
     fed, outs = g["fed"], g["outs"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, tc = model_counts(), tc_counts()
+    prefills = pp.eager_prefills + pp.captures
     check_launches("nemotron-4-340b", launches, path_launches(
-        cfg, forwards=1, prefills=1, steps=g["step_calls"]))
+        cfg, forwards=1, prefills=prefills, steps=g["step_calls"]))
     check_tc("nemotron-4-340b", launches, tc, bf16=True)
     report = program_report(program, g, z["seq"] + z["steps"])
-    del program
+    prefill = prefill_report(pp, batch)
+    del program, pp
 
     def rel(a, b):
         a, b = a[..., :cfg.vocab].float(), b[..., :cfg.vocab].float()
@@ -3381,17 +3564,21 @@ def phase_nemotron(dev) -> dict:
         f"layers ({cfg.param_count()} parameters, init {init_s:.1f} s, peak "
         f"memory {torch.cuda.max_memory_allocated()} B): forward (B 1, S "
         f"{z['seq']}), prefill and {z['steps']} greedy steps on 'kernel' "
-        f"(a DecodeProgram: the warm step, the capture, replays) in "
+        f"(a PrefillProgram and a DecodeProgram: the warm call, the "
+        f"capture, replays) in "
         f"{wall:.3f} s; against 'ref' on the same weights, relative RMS of "
         f"the logit difference: forward {fwd_rms:.4e}, teacher-forced "
         f"decode {dec_rms:.4e} (tol {NEMOTRON_TOL}); greedy tokens equal "
         f"at {agree} of {z['steps']} steps; kernel launches "
-        f"{json.dumps(launches)} (= the path's: the forward, the prefill, "
+        f"{json.dumps(launches)} (= the path's: the forward, {prefills} "
+        f"prefills (warm and capture), "
         f"{g['step_calls']} steps' worth; every flash launch on the tensor "
         f"cores)")
     say(f"phase18 {program_line(cfg.name, 1, report)}")
+    say(f"phase18 {prefill_line(cfg.name, prefill)}")
     DECODE_PROGRAMS["dense nemotron-4-340b (2 layers)"] = dict(report,
                                                               batch=1)
+    PREFILL_PROGRAMS["dense nemotron-4-340b (2 layers)"] = prefill
     del params, cache_r, fk, fr, outs, mk, mr
     torch.cuda.empty_cache()
     return launches
@@ -3428,16 +3615,20 @@ def phase_whisper(dev) -> dict:
                              z["max_seq"], extra={"frames": frames})
     launches = {k: serve_counts[k] + r["launches"][k] for k in serve_counts}
     check_launches("encdec whisper-medium serve + decode", launches,
-                   path_launches(cfg, forwards=forwards, prefills=1,
+                   path_launches(cfg, forwards=forwards,
+                                 prefills=r["prefill_calls"],
                                  steps=r["step_calls"]))
     check_tc("encdec whisper-medium serve + decode", launches,
              {k: serve_tc[k] + r["tc"][k] for k in serve_tc}, bf16=True)
     say(f"phase23 decode whisper-medium bf16 (frames {cfg.n_frames}) "
         f"{decode_line(r, 1, z['prompt'], z['steps'])}")
     say(f"phase23 {program_line('whisper-medium', 1, r['program'])}")
+    say(f"phase23 {prefill_line('whisper-medium', r['prefill'])}")
     DECODE_PROGRAMS["encdec whisper-medium"] = dict(r["program"], batch=1)
+    PREFILL_PROGRAMS["encdec whisper-medium"] = r["prefill"]
     say(f"phase23 launches over the phase: {json.dumps(launches)} = "
-        f"{forwards} eager forwards and captures, 1 prefill, "
+        f"{forwards} eager forwards and captures, {r['prefill_calls']} "
+        f"prefills (the program's warm prefill and capture), "
         f"{r['step_calls']} steps (warm, capture, checks) × the path's "
         f"per-call counts (a forward "
         f"{json.dumps(path_launches(cfg, forwards=1))}, a step "
@@ -4829,6 +5020,8 @@ def main() -> int:
     say(f"phases 1-29 done in {time.perf_counter() - T_START:.1f} s")
     say(f"decode programs (replayed and eager step wall p50 in ms, same "
         f"run; {smi_line}): {json.dumps(DECODE_PROGRAMS)}")
+    say(f"prefill programs (replayed and eager prefill wall p50 in ms, "
+        f"same run; {smi_line}): {json.dumps(PREFILL_PROGRAMS)}")
 
     flash_t = times["flash serve granite"]
     decode_t = times["decode B8 W1024 L576"]

@@ -13,7 +13,9 @@ Port of ``repro.models.model``.  One :class:`Model` per
 
 and :class:`DecodeProgram` is the decode step as one program, the
 counterpart of ``jax.jit(model.decode_step)``: one CUDA graph on the
-card, replayed at every position.
+card, replayed at every position.  :class:`PrefillProgram` is the
+prefill's, one CUDA graph a prompt shape, writing into a
+``DecodeProgram``'s cache: a served request is two replays.
 
 Parameters keep the JAX package's tree (``params_from_numpy`` in
 :mod:`repro_torch.convert` carries a JAX ``Model.init`` tree across), and
@@ -893,3 +895,101 @@ class DecodeProgram:
         self.graph.replay()
         self.replays += 1
         return self._logits.clone()
+
+
+class PrefillProgram:
+    """The prefill as programs, one a prompt shape: the counterpart of
+    ``jax.jit(lambda p, b: model.prefill(p, b, max_seq))``, which the JAX
+    package's tests and dry run compile, a trace for each input shape.
+
+    Built from ``(model, params, cache)``, the cache an :meth:`Model.
+    init_cache` layout that another program owns, normally a
+    :class:`DecodeProgram`'s (``PrefillProgram(model, params,
+    decode.cache)``), so that a served request is a prefill replay and
+    then step replays.  ``program(batch)`` runs the prompt
+    (``batch["tokens"]`` (B, S), B the cache's batch, with ``"patches"``
+    for the vlm family and ``"frames"`` for encdec), fills the cache in
+    place and returns the last position's logits (B, 1, vocab).  The body
+    first zeroes every cache leaf in place and then runs :meth:`Model.
+    prefill` into it: the reference builds its cache fresh, and ``prefill
+    (..., cache=)`` writes only the prompt's rows and states, so a cache
+    that decode steps have written becomes the fresh prefill's, leaf for
+    leaf.  No leaf is rebound: a decode graph holds their addresses.
+
+    The shape key is each input's shape and dtype (what a jit traces anew
+    on).  A key's first call copies the batch into static buffers of its
+    own; on the card it then runs :func:`repro_torch.warm_and_capture` (a
+    warm prefill under ``set_sync_debug_mode("error")``, whose logits it
+    returns, then one capture), and every later call of the key copies
+    the batch into those buffers, replays the graph and clones the logits
+    out.  Keys live as long as the program, as a jit's traces do, each
+    graph with a private memory pool that holds its prompt's
+    activations.  A capture that fails raises: there is no eager path on
+    the card.  A program built under active sharding rules raises, as
+    :class:`DecodeProgram` does.  On the CPU every call runs the body
+    eagerly and records its key alike.
+
+    The kernel wrappers' launch counters see each key's warm prefill and
+    capture (``eager_prefills`` and ``captures`` a key), never a replay.
+    ``graphs`` maps a key to its :class:`repro_torch.Capture` (the graph,
+    its logits buffer, nodes, capture and instantiate seconds) and
+    ``inputs`` to its buffers; ``replays`` counts the replayed
+    prefills."""
+
+    eager_prefills = 1          # a key's sync-checked warm prefill
+    captures = 1
+
+    def __init__(self, model: Model, params: dict, cache: dict):
+        if current_mesh() is not None:
+            raise RuntimeError(
+                "PrefillProgram: a prefill under a mesh is not captured (its "
+                "collectives were never run inside a CUDA graph); call "
+                "Model.prefill eagerly")
+        self.model, self.params, self.cache = model, params, cache
+        family = model.cfg.family
+        self.batch_size = cache["s_h" if family == "ssm" else "k"].shape[1]
+        # prefill reads max_seq only to build a cache, and is given one
+        self.max_seq = cache["k"].shape[2] if "k" in cache else 0
+        self.names = ("tokens",) + {"vlm": ("patches",),
+                                    "encdec": ("frames",)}.get(family, ())
+        self.shape_keys: set = set()
+        self.inputs: dict = {}
+        self.graphs: dict = {}
+        self.replays = 0
+
+    def key(self, batch: dict) -> tuple:
+        """The prompt's shape key: each input's name, shape and dtype."""
+        return tuple((n, tuple(batch[n].shape), batch[n].dtype)
+                     for n in self.names)
+
+    def body(self, inputs: dict) -> torch.Tensor:
+        """The cache zeroed, then the prompt ``inputs`` prefilled into it;
+        returns the logits."""
+        for leaf in self.cache.values():
+            leaf.zero_()
+        return self.model.prefill(self.params, inputs, self.max_seq,
+                                  cache=self.cache)[0]
+
+    def __call__(self, batch: dict) -> torch.Tensor:
+        tokens = batch["tokens"]
+        if tokens.dim() != 2 or tokens.shape[0] != self.batch_size:
+            raise ValueError(f"PrefillProgram: tokens of shape "
+                             f"{tuple(tokens.shape)}, want (B, S) with B "
+                             f"the cache's {self.batch_size}")
+        key = self.key(batch)
+        self.shape_keys.add(key)
+        dev = tokens.device
+        if dev.type != "cuda":
+            return self.body({n: batch[n] for n in self.names})
+        cap = self.graphs.get(key)
+        if cap is None:
+            inputs = {n: batch[n].clone() for n in self.names}
+            cap = warm_and_capture(lambda: self.body(inputs), dev)
+            self.inputs[key] = inputs
+            self.graphs[key] = cap._replace(warm=None)
+            return cap.warm
+        for n, buf in self.inputs[key].items():
+            buf.copy_(batch[n])
+        cap.graph.replay()
+        self.replays += 1
+        return cap.out.clone()
