@@ -641,17 +641,17 @@ def phase_scenarios(golden: dict) -> dict:
                  f"compiler's")
         ticks = int(sig.times.shape[0])
         del sig
-        before, key_before = (sched_ops.launch_count,
-                              sched_ops.key_launch_count)
+        before, key_before = sched_ops.launch_counts()
         t0 = time.perf_counter()
         final = run_scenario_fleet(spec, entry["policy"], dt=dt,
                                    device="cuda")
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = sched_ops.launch_count - before
+        launches, key = sched_ops.launch_counts()
+        launches -= before
         if launches <= 0:
             fail(f"phase 19 {name}: no masked_argext launch")
-        if sched_ops.key_launch_count - key_before != launches:
+        if key - key_before != launches:
             fail(f"phase 19 {name}: a masked_argext launch missed the key "
                  f"body")
         summ = fleet_summary(final)
@@ -683,8 +683,8 @@ def phase_scenarios(golden: dict) -> dict:
             f"{summ['qos_utility'] - oracle['qos_utility']:.1f}; "
             f"masked_argext {launches} launches "
             f"({launches / ticks:.1f} a tick), every one on the key body")
-    launches = sched_ops.launch_count
-    if sched_ops.key_launch_count != launches:
+    launches, key = sched_ops.launch_counts()
+    if key != launches:
         fail("phase 19: a masked_argext launch missed the key body")
     say(f"phase19 done: {len(rows)} runs in "
         f"{time.perf_counter() - t_phase:.1f} s; masked_argext {launches} "
@@ -993,9 +993,9 @@ def phase_sweep(scenario_rows: dict) -> dict:
                     for a, b in zip(own.counters, res.counters))):
         fail("phase 20: seed batch lane 0 differs from run_fleet of its "
              "seed")
-    launches = sched_ops.launch_count
-    if launches <= 0 or sched_ops.key_launch_count != launches:
-        fail(f"phase 20: {sched_ops.key_launch_count} of {launches} "
+    launches, key = sched_ops.launch_counts()
+    if launches <= 0 or key != launches:
+        fail(f"phase 20: {key} of {launches} "
              f"masked_argext launches on the key body")
     ticks = int(sig.times.shape[1])
     cells = ticks * sb["n_edges"] * len(sb["seeds"])
@@ -4077,6 +4077,7 @@ def phase_mesh(golden: dict, sweep: dict) -> dict:
     from repro_torch.core import task
     from repro_torch.kernels import sched_ops
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.obs.prof import CompileCounter
     from repro_torch.obs.trace import TraceSpec
     from repro_torch.scenarios.compile import compile_registry_batch
     from repro_torch.scenarios.runner import fleet_summary, run_registry_sweep
@@ -4142,16 +4143,17 @@ def phase_mesh(golden: dict, sweep: dict) -> dict:
     walls, finals, launches, captured = {}, {}, {}, {}
     for mode, mesh in (("first", None), ("mesh", host),
                        ("unsharded", None)):
-        c0 = F._CAPTURES[0]
         sched_ops.reset_count()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        finals[mode] = F.run_fleet(models_of(coop["models"]),
-                                   coop["policy"], csig, mesh=mesh, **kw)
+        with CompileCounter() as cc:
+            finals[mode] = F.run_fleet(models_of(coop["models"]),
+                                       coop["policy"], csig, mesh=mesh,
+                                       **kw)
         torch.cuda.synchronize()
         walls[mode] = time.perf_counter() - t0
-        launches[mode] = sched_ops.launch_count
-        captured[mode] = F._CAPTURES[0] - c0
+        launches[mode] = sched_ops.launch_counts()[0]
+        captured[mode] = cc.count
         if fleet_summary(finals[mode]) != coop["summary"]:
             fail(f"phase 25 paper-dems-coop {mode}: summary off the golden")
     if not (states_equal(finals["first"], finals["mesh"])
@@ -4766,14 +4768,14 @@ def main() -> int:
         st = torch.from_numpy(np.asarray(s, np.float32))
         mt = torch.from_numpy(np.asarray(m))
         want_i, want_v = ref.ref_masked_argext(st, mt, is_max=is_max)
-        k0 = sched_ops.key_launch_count
+        k0 = sched_ops.launch_counts()[1]
         got = {"key": sched_ops.masked_argext(st.to(dev), mt.to(dev),
                                               is_max=is_max),
                "previous": sched_ops.cuda_masked_argext(
                    st.to(dev), mt.to(dev), is_max=is_max,
                    _route=sched_ops.PREVIOUS)}
         torch.cuda.synchronize()
-        if sched_ops.key_launch_count != k0 + 1:
+        if sched_ops.launch_counts()[1] != k0 + 1:
             fail(f"masked_argext case {i}: the launch missed the key body")
         emu = ref.ref_packed_argext(st, mt, is_max=is_max)
         if not all(torch.equal(g.cpu().view(torch.int32), e.view(torch.int32))
@@ -4877,11 +4879,11 @@ def main() -> int:
             f"{ticks} ticks × {run['n_edges']} edges in {wall:.2f} s = "
             f"{ticks / wall:.2f} ticks/s, "
             f"{ticks * run['n_edges'] / wall:.1f} edge-ticks/s")
-    launches = sched_ops.launch_count
+    launches, key = sched_ops.launch_counts()
     if launches <= 0:
         fail("phase 4 ran no masked_argext launch")
-    if sched_ops.key_launch_count != launches:
-        fail(f"phase 4: {sched_ops.key_launch_count} of {launches} "
+    if key != launches:
+        fail(f"phase 4: {key} of {launches} "
              f"masked_argext launches on the key body")
     say(f"phase4 launches: masked_argext {launches}, every one on the key "
         f"body (first windows eager, the rest replays of their graphs)")

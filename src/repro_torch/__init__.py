@@ -18,7 +18,6 @@ present; pass ``device="cpu"`` to run the plain-PyTorch path on the host.
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -67,7 +66,10 @@ def warm_and_capture(body: Callable[[], torch.Tensor], device) -> Capture:
     "error")`` (it builds what is built lazily, fails on any host sync in
     ``body``, and is a real call: its result is kept), then the capture
     into the graph's own memory pool, kept for :func:`graph_nodes`, and
-    the instantiation.  A capture that fails raises."""
+    the instantiation, timed as the spans ``graph.capture`` and
+    ``graph.instantiate`` (:mod:`repro_torch.obs.prof`).  A capture that
+    fails raises."""
+    from repro_torch.obs.prof import span
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(main)
@@ -81,12 +83,10 @@ def warm_and_capture(body: Callable[[], torch.Tensor], device) -> Capture:
     main.wait_stream(side)
     warm.record_stream(main)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    t0 = time.perf_counter()
-    with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle()):
-        out = body()
-    capture_s = time.perf_counter() - t0
+    with span("graph.capture") as cap:
+        with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle()):
+            out = body()
     nodes = graph_nodes(graph)
-    t0 = time.perf_counter()
-    graph.instantiate()
-    return Capture(warm, graph, out, capture_s, time.perf_counter() - t0,
-                   nodes)
+    with span("graph.instantiate") as inst:
+        graph.instantiate()
+    return Capture(warm, graph, out, cap.seconds, inst.seconds, nodes)

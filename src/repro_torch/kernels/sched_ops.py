@@ -25,27 +25,28 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.obs.prof import count, counters
 
 NEG = ref.NEG
 POS = ref.POS
 
 KERNEL = "masked_argext"
 PREVIOUS, KEY = 0, 1      # the launcher's routes
-# launches of the hand kernel (one per wrapper call on a CUDA tensor), and
-# those of them that took the KEY body; chip_smoke.py zeroes them before
-# driving the main path
-launch_count = 0
-key_launch_count = 0
+# the counters (repro_torch.obs.prof) of the hand kernel's launches (one
+# per wrapper call on a CUDA tensor), and of those that took the KEY body;
+# chip_smoke.py zeroes them before driving the main path
+LAUNCHES = "masked_argext.launches"
+KEY_LAUNCHES = "masked_argext.key_launches"
 
 
 def reset_count() -> None:
-    global launch_count, key_launch_count
-    launch_count = key_launch_count = 0
+    add_launches(*(-n for n in launch_counts()))
 
 
 def launch_counts() -> tuple[int, int]:
-    """``(launch_count, key_launch_count)``."""
-    return launch_count, key_launch_count
+    """``(launches, key launches)``."""
+    c = counters()
+    return c.get(LAUNCHES, 0), c.get(KEY_LAUNCHES, 0)
 
 
 def add_launches(n: int, key: int) -> None:
@@ -53,9 +54,8 @@ def add_launches(n: int, key: int) -> None:
     issued: a CUDA graph's replay of the launches its capture recorded
     (:class:`repro_torch.sim.fleet.TickProgram`; a capture launches
     nothing and takes its counts back)."""
-    global launch_count, key_launch_count
-    launch_count += n
-    key_launch_count += key
+    count(LAUNCHES, n)
+    count(KEY_LAUNCHES, key)
 
 
 def _lib() -> ctypes.CDLL:
@@ -75,7 +75,6 @@ def cuda_masked_argext(scores: torch.Tensor, mask: torch.Tensor, *,
     """The hand kernel on ``(B, N)`` CUDA tensors (f32 scores, bool mask).
     ``_route=PREVIOUS`` runs the earlier body; only ``chip_smoke.py``
     passes it."""
-    global launch_count, key_launch_count
     if scores.device.type != "cuda" or mask.device != scores.device:
         raise ValueError("cuda_masked_argext: scores and mask must lie on "
                          "the same CUDA device")
@@ -102,8 +101,7 @@ def cuda_masked_argext(scores: torch.Tensor, mask: torch.Tensor, *,
              val.data_ptr(), b, n, int(is_max), _route, stream)
     if err != 0:
         raise RuntimeError(f"masked_argext launch failed: cudaError {err}")
-    launch_count += 1
-    key_launch_count += _route == KEY
+    add_launches(1, int(_route == KEY))
     return idx, val
 
 

@@ -31,6 +31,13 @@ The controller also carries the serve layer's operational duties:
   so a restarted controller resumes mid-mission and — given the same
   post-checkpoint telemetry — finishes with the same state as an
   uninterrupted run.
+
+Its phases are spans of :mod:`repro_torch.obs.prof`'s table: a poll is
+one request, ``ctl.poll``, and under it for each window ``ctl.emit``
+(``emit_window``), ``ctl.step`` (the step and, on the card, ``ctl.wait``,
+the synchronize), ``ctl.record`` (the counters to the host) and
+``ctl.checkpoint``; :meth:`FleetController.submit` counts
+``ctl.submitted``.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.task import ModelProfile
+from repro_torch.obs.prof import count, counters, span, span_table
 from repro_torch.obs.trace import TraceSpec
 from repro_torch.scenarios.compile import SignalWindowBuilder
 from repro_torch.sim.fleet import (CLOUD_SLOTS, EdgeState, FleetProgram,
@@ -209,8 +217,9 @@ class FleetController:
         if task_id is not None:
             self._remember(int(task_id))
         tick = self.builder.add_arrival(t_ms, edge, self._midx(model))
+        count("ctl.submitted")
         # first submission per tick stamps the wall clock for lag stats
-        self._submit_walltime.setdefault(tick, time.monotonic())
+        self._submit_walltime.setdefault(tick, time.perf_counter())
         return tick
 
     def observe_bandwidth(self, t_ms: float, mbps: float,
@@ -259,8 +268,9 @@ class FleetController:
         they may still receive telemetry.
         """
         out: list[dict] = []
-        while self.tick + self.window_ticks <= int(now_ms / self.dt):
-            out.extend(self._advance(self.window_ticks))
+        with span("ctl.poll"):
+            while self.tick + self.window_ticks <= int(now_ms / self.dt):
+                out.extend(self._advance(self.window_ticks))
         return out
 
     def close(self) -> list[dict]:
@@ -283,20 +293,24 @@ class FleetController:
         return self._run_window(window)
 
     def _advance(self, n_ticks: int) -> list[dict]:
-        return self._run_window(self.builder.emit_window(n_ticks))
+        with span("ctl.emit"):
+            window = self.builder.emit_window(n_ticks)
+        return self._run_window(window)
 
     def _run_window(self, window: FleetSignals) -> list[dict]:
         tick0 = self.tick - int(window.times.shape[0])
-        t0 = time.monotonic()
-        self.state, res = self.prog.step_chunk(
-            self._prof, self._pp, self.state, window,
-            _capture=self._capture)
-        if self.device.type == "cuda":
-            # the step's latency is the card's: wait for it
-            torch.cuda.synchronize(self.device)
-        wall = time.monotonic()
-        self._step_ms.append((wall - t0) * 1e3)
-        records = self._record(tick0, res)
+        with span("ctl.step") as step:
+            self.state, res = self.prog.step_chunk(
+                self._prof, self._pp, self.state, window,
+                _capture=self._capture)
+            if self.device.type == "cuda":
+                # the step's latency is the card's: wait for it
+                with span("ctl.wait"):
+                    torch.cuda.synchronize(self.device)
+        self._step_ms.append(step.seconds * 1e3)
+        wall = step.end_ns / 1e9
+        with span("ctl.record"):
+            records = self._record(tick0, res)
         for tk in list(self._submit_walltime):
             if tk < self.tick:
                 self._ingest_lag_ms.append(
@@ -358,7 +372,14 @@ class FleetController:
 
     def metrics_snapshot(self) -> dict:
         """Live scoreboard — the :class:`~repro_torch.serve.engine.
-        ServeEngine` endpoint's controller twin, cheap enough to poll."""
+        ServeEngine` endpoint's controller twin, cheap enough to poll.
+
+        ``spans`` are the :func:`repro_torch.obs.prof.span_table` rows of
+        the ``ctl.*`` and ``fleet.*`` spans and ``counters`` every
+        counter.  Both are the process's table, shared by every
+        controller and tick program in it; ``repro_torch.obs.prof.
+        tracing(False)`` stops the spans (the counters still count), and
+        a ``profile_trace`` of the process carries them as ranges."""
         from repro_torch.obs.metrics import hist_percentiles
 
         def pcts(a: Sequence[float]) -> dict:
@@ -389,6 +410,9 @@ class FleetController:
             snap["latency_ms"] = hist_percentiles(self._latency_hist,
                                                   self.trace)
             snap["slack_ms"] = hist_percentiles(self._slack_hist, self.trace)
+        snap["spans"] = {k: v for k, v in span_table().items()
+                         if k.startswith(("ctl.", "fleet."))}
+        snap["counters"] = counters()
         return snap
 
     # -- crash restart -----------------------------------------------------
@@ -405,7 +429,8 @@ class FleetController:
         path = path or self.checkpoint_path
         if path is None:
             raise ValueError("no checkpoint path configured")
-        ckpt.save(path, self._ckpt_tree(self.state, self.tick))
+        with span("ctl.checkpoint"):
+            ckpt.save(path, self._ckpt_tree(self.state, self.tick))
         self.checkpoints_written += 1
         return path
 

@@ -56,7 +56,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 import weakref
 from typing import NamedTuple, Optional
 
@@ -68,6 +67,7 @@ from repro_torch.core import sched as js
 from repro_torch.core import schedulers as _sched
 from repro_torch.kernels import sched_ops
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.prof import count, span
 from repro_torch.obs.trace import (TickCounters, TraceSpec, hist_counts,
                                    resolve_spec, zero_counters)
 from repro_torch.sim import network
@@ -1198,10 +1198,6 @@ _PROGRAM_EVICTIONS = 0
 # repository runs (8, 10, 15, 30 s).
 RUN_WINDOW_TICKS = 20
 
-# graph captures since import and their host seconds, instantiation
-# included (repro_torch.obs.prof.CompileCounter reads the difference)
-_CAPTURES = [0, 0.0]
-
 
 def _leaves(tree) -> list:
     """The tensor leaves of a NamedTuple tree, in field order (``None``
@@ -1283,7 +1279,14 @@ class TickProgram:
     caller's own copy, so donated streams of one shape stay apart.  A
     replay adds the launches its capture recorded to the kernel's
     counts.  A capture or replay that fails raises.  CPU tensors run the
-    body eagerly and record their shape key alike."""
+    body eagerly and record their shape key alike.
+
+    A call is the span ``fleet.window``; under it a new key's
+    ``fleet.first`` (the eager window), ``fleet.capture`` and
+    ``fleet.instantiate``, or a replay's ``fleet.copy_in``,
+    ``fleet.launch`` and ``fleet.clone_out``.  A replay counts
+    ``fleet.replays``, and the leaves it copied and skipped in
+    ``fleet.copies`` and ``fleet.copies_skipped``."""
 
     def __init__(self, dt: float, edge_frac: float, cloud_frac: float,
                  coop_rounds: int, tspec: TraceSpec, donate: bool,
@@ -1366,29 +1369,31 @@ class TickProgram:
 
     def __call__(self, prof, pp, state, signals, capture: bool = True,
                  note: bool = True):
-        key = _shape_key(prof, pp, state, signals)
-        if note:
-            self.shape_keys.add(key)
-        # a window that exchanges across ranks runs eagerly: its
-        # collectives are not captured
-        if state.busy_rem.device.type != "cuda" or not capture \
-                or self.exchange is not None:
-            return self.window(prof, pp, state, signals)
-        g = self.graphs.get(key)
-        if g is None:
-            return self._first(key, prof, pp, state, signals)
-        return self._replay(g, prof, pp, state, signals)
+        with span("fleet.window"):
+            key = _shape_key(prof, pp, state, signals)
+            if note:
+                self.shape_keys.add(key)
+            # a window that exchanges across ranks runs eagerly: its
+            # collectives are not captured
+            if state.busy_rem.device.type != "cuda" or not capture \
+                    or self.exchange is not None:
+                return self.window(prof, pp, state, signals)
+            g = self.graphs.get(key)
+            if g is None:
+                return self._first(key, prof, pp, state, signals)
+            return self._replay(g, prof, pp, state, signals)
 
     def _first(self, key, prof, pp, state, signals):
-        dev = state.busy_rem.device
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self.window(prof, pp, state, signals)
-        main.wait_stream(side)
-        for a in _leaves(out):
-            a.record_stream(main)
+        with span("fleet.first"):
+            dev = state.busy_rem.device
+            main = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                out = self.window(prof, pp, state, signals)
+            main.wait_stream(side)
+            for a in _leaves(out):
+                a.record_stream(main)
         self.graphs[key] = self._capture(prof, pp, state, signals)
         return out
 
@@ -1397,56 +1402,62 @@ class TickProgram:
                        for t in (prof, pp, state, signals))
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = sched_ops.launch_counts()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph):
-                outputs = self.record(inputs)
-        finally:
-            # the capture launched nothing: its counts come back once per
-            # replay
-            launches = tuple(a - b for a, b in zip(sched_ops.launch_counts(),
-                                                   before))
-            sched_ops.add_launches(*(-n for n in launches))
-        capture_s = time.perf_counter() - t0
+        with span("fleet.capture") as cap:
+            try:
+                with torch.cuda.graph(graph):
+                    outputs = self.record(inputs)
+            finally:
+                # the capture launched nothing: its counts come back once
+                # per replay
+                launches = tuple(a - b for a, b in zip(
+                    sched_ops.launch_counts(), before))
+                sched_ops.add_launches(*(-n for n in launches))
         nodes = graph_nodes(graph)
-        t0 = time.perf_counter()
-        graph.instantiate()
-        instantiate_s = time.perf_counter() - t0
-        _CAPTURES[0] += 1
-        _CAPTURES[1] += capture_s + instantiate_s
-        return _Graph(graph, inputs, outputs, launches, nodes, capture_s,
-                      instantiate_s)
+        with span("fleet.instantiate") as inst:
+            graph.instantiate()
+        return _Graph(graph, inputs, outputs, launches, nodes, cap.seconds,
+                      inst.seconds)
 
     def _replay(self, g: _Graph, prof, pp, state, signals):
-        s_prof, s_pp, s_state, s_sig = g.inputs
-        fixed = [(b, _version(b)) for b in _leaves((prof, pp))]
-        last = g.last or [(None, None)] * len(fixed)
-        copies = [(a, b) for a, (b, v), (b0, v0) in zip(
-            _leaves((s_prof, s_pp)), fixed, last)
-            if not (b is b0 and v is not None and v == v0)]
-        copies += zip(_leaves(s_sig), _leaves(signals))
-        held = [r() for r in g.held]
-        if not (self.donate and held and all(
-                a is b for a, b in zip(held, _leaves(state)))):
-            # another stream's state: the carry the buffers hold becomes
-            # its holder's own copy before it is overwritten
-            for a in held:
-                if a is not None:
-                    a.set_(a.clone())
-            copies += zip(_leaves(s_state), _leaves(state))
-        for a, b in copies:
-            a.copy_(b)
-        g.last = fixed
-        g.graph.replay()
+        with span("fleet.copy_in"):
+            s_prof, s_pp, s_state, s_sig = g.inputs
+            fixed = [(b, _version(b)) for b in _leaves((prof, pp))]
+            last = g.last or [(None, None)] * len(fixed)
+            copies = [(a, b) for a, (b, v), (b0, v0) in zip(
+                _leaves((s_prof, s_pp)), fixed, last)
+                if not (b is b0 and v is not None and v == v0)]
+            skipped = len(fixed) - len(copies)
+            copies += zip(_leaves(s_sig), _leaves(signals))
+            held = [r() for r in g.held]
+            if not (self.donate and held and all(
+                    a is b for a, b in zip(held, _leaves(state)))):
+                # another stream's state: the carry the buffers hold
+                # becomes its holder's own copy before it is overwritten
+                for a in held:
+                    if a is not None:
+                        a.set_(a.clone())
+                copies += zip(_leaves(s_state), _leaves(state))
+            else:
+                skipped += len(held)
+            for a, b in copies:
+                a.copy_(b)
+            g.last = fixed
+        with span("fleet.launch"):
+            g.graph.replay()
         sched_ops.add_launches(*g.launches)
-        out_state, t_hat, counters = g.outputs
-        if self.donate:
-            out_state = _map(lambda a: a.new_empty(0).set_(a), out_state)
-            g.held = [weakref.ref(a) for a in _leaves(out_state)]
-        else:
-            out_state = _map(torch.clone, out_state)
-        return out_state, _map(torch.clone, t_hat), _map(torch.clone,
-                                                         counters)
+        count("fleet.replays")
+        count("fleet.copies", len(copies))
+        count("fleet.copies_skipped", skipped)
+        with span("fleet.clone_out"):
+            out_state, t_hat, counters = g.outputs
+            if self.donate:
+                out_state = _map(lambda a: a.new_empty(0).set_(a),
+                                 out_state)
+                g.held = [weakref.ref(a) for a in _leaves(out_state)]
+            else:
+                out_state = _map(torch.clone, out_state)
+            return out_state, _map(torch.clone, t_hat), _map(torch.clone,
+                                                             counters)
 
 
 def _fleet_program(dt: float, edge_frac: float, cloud_frac: float,
@@ -1627,26 +1638,34 @@ def run_fleet(models, policy, signals: FleetSignals, *, dt: float = 25.0,
     runs its block of edges, peer offload exchanges across ranks
     (:func:`_offload_across`), and every rank returns the whole, gathered
     result, bitwise the unsharded one.  An axis that does not divide the
-    edges leaves them whole on every rank."""
-    dev = resolve_device(device)
-    tspec = resolve_spec(trace, record_trace)
-    pol = _resolve_policy(policy)
-    prof = Profiles.build(models, dev)
-    signals = FleetSignals(*(a.to(dev) for a in signals))
-    n_edges = signals.arrive.shape[1]
-    prog = FleetProgram.for_policy(pol, trace=tspec, dt=dt,
-                                   edge_frac=edge_frac,
-                                   cloud_frac=cloud_frac, donate=donate)
-    state = prog.init(prof, pol, n_edges, cloud_slots)
-    edge = _mesh_split(mesh, 0, n_edges)
-    if edge is None:
-        return prog.run(prof, pol.params(dev), state, signals, chunk_ticks)
-    prog = dataclasses.replace(prog,
-                               exchange=edge if prog.coop_rounds else None)
-    res = prog.run(prof, pol.params(dev), _map(lambda a: _take(a, 0, edge),
-                                               state),
-                   _take_signals(signals, None, edge), chunk_ticks)
-    return _gather_result(res, 0, None, edge)
+    edges leaves them whole on every rank.
+
+    A call is the span ``fleet.run`` (a request of its own when no span
+    is open), with ``fleet.setup`` (profiles, signals to the device, the
+    initial state) its first child."""
+    with span("fleet.run"):
+        with span("fleet.setup"):
+            dev = resolve_device(device)
+            tspec = resolve_spec(trace, record_trace)
+            pol = _resolve_policy(policy)
+            prof = Profiles.build(models, dev)
+            signals = FleetSignals(*(a.to(dev) for a in signals))
+            n_edges = signals.arrive.shape[1]
+            prog = FleetProgram.for_policy(pol, trace=tspec, dt=dt,
+                                           edge_frac=edge_frac,
+                                           cloud_frac=cloud_frac,
+                                           donate=donate)
+            state = prog.init(prof, pol, n_edges, cloud_slots)
+            edge = _mesh_split(mesh, 0, n_edges)
+        if edge is None:
+            return prog.run(prof, pol.params(dev), state, signals,
+                            chunk_ticks)
+        prog = dataclasses.replace(
+            prog, exchange=edge if prog.coop_rounds else None)
+        res = prog.run(prof, pol.params(dev),
+                       _map(lambda a: _take(a, 0, edge), state),
+                       _take_signals(signals, None, edge), chunk_ticks)
+        return _gather_result(res, 0, None, edge)
 
 
 # ---------------------------------------------------------------------------

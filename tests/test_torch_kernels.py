@@ -141,12 +141,12 @@ def test_plain_argext_nd_batch_shapes():
 def test_wrapper_takes_plain_path_only_on_cpu():
     """A CPU tensor runs the plain version and counts no launch; any
     other device goes to the hand kernel's checks, never the plain path."""
-    before = sched_ops.launch_count
+    before = sched_ops.launch_counts()
     s = torch.zeros(2, 8)
     m = torch.ones(2, 8, dtype=torch.bool)
     idx, _ = sched_ops.masked_argext(s, m, is_max=True)
     assert idx.tolist() == [0, 0]
-    assert sched_ops.launch_count == before
+    assert sched_ops.launch_counts() == before
     with pytest.raises(ValueError, match="CUDA"):
         sched_ops.cuda_masked_argext(s, m, is_max=True)
     with pytest.raises(ValueError, match="CUDA"):
